@@ -88,8 +88,8 @@ def pytest_collection_modifyitems(config, items):
 
     for item in items:
         fname = os.path.basename(str(item.fspath))
-        item.add_marker(_pt.mark.quick if fname in _QUICK_FILES
-                        else _pt.mark.slow)
+        quick = fname in _QUICK_FILES or fname.startswith("test_torch_")
+        item.add_marker(_pt.mark.quick if quick else _pt.mark.slow)
 
 
 _shared_cluster = {"active": False}

@@ -43,10 +43,15 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core bf16
               "float32": 67e12}    # f32 outside the tensor cores
-# kernel vs plain version on the card: bf16 outputs may differ by one
-# bf16 ulp (values up to ~4 -> 2^-6), f32 by summation order over <=1024
-# keys; lse is f32 in both
-TOL = {"bfloat16": (2e-2, 1e-2), "float32": (1e-4, 1e-5)}
+# kernel vs plain version on the card, per output: bf16 outputs may
+# differ by one bf16 ulp (at most 2^-7*|ref|; the largest error seen on
+# the H100 was 3.9e-3 = one ulp at [0.5, 1)), f32 by summation order over
+# <=1024 keys; lse is f32 in both.  The mean error over all outputs has
+# its own limit, about 3x the largest mean seen on the H100 (bf16
+# 1.23e-8, f32 2.07e-8: nearly every output agrees exactly), so a fault
+# that moves a small share of the outputs still fails.
+TOL = {"bfloat16": (4e-3, 2.0 ** -7), "float32": (1e-4, 1e-5)}
+MEAN_ATOL = {"bfloat16": 4e-8, "float32": 6e-8}
 LSE_ATOL = 1e-4
 # forward logits, kernel vs plain attention through 12 bf16 layers:
 # 8 bf16 ulps of the largest logits, and a mean far below one ulp
@@ -160,12 +165,15 @@ def phase_kernels():
                                                  with_lse=True)
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs()
-            max_err = err.max().item()
-            atol, rtol = TOL[str(dtype).split(".")[-1]]
+            max_err, mean_err = err.max().item(), err.mean().item()
+            dname = str(dtype).split(".")[-1]
+            atol, rtol = TOL[dname]
             bad = (err > atol + rtol * ref.float().abs()).sum().item()
             check(torch.isfinite(out).all().item(), f"{name}: non-finite")
             check(bad == 0, f"{name}: {bad} outputs off by more than "
-                  f"{atol} + {rtol}*|ref| (max err {max_err:.3g})")
+                  f"{atol} + {rtol:.3g}*|ref| (max err {max_err:.3g})")
+            check(mean_err <= MEAN_ATOL[dname],
+                  f"{name}: mean err {mean_err:.3g} > {MEAN_ATOL[dname]}")
             lse_err = None
             if with_lse:
                 lse_err = (lse - ref_lse).abs().max().item()
@@ -196,7 +204,8 @@ def phase_kernels():
         rec = {"case": name, "dtype": str(dtype).split(".")[-1],
                "shape": [B, H, Sq, Sk, D], "causal": causal,
                "q_offset": qoff, "with_lse": with_lse,
-               "max_abs_err": max_err, "tol": [atol, rtol],
+               "max_abs_err": max_err, "mean_abs_err": mean_err,
+               "tol": [atol, rtol], "mean_tol": MEAN_ATOL[dname],
                "lse_err": lse_err, "ms": ms, "plain_ms": plain_ms,
                "library_ms": library_ms, "flops": flops, "bytes": nbytes,
                "bound_ms": max(t_ops, t_mem) * 1e3,
@@ -204,7 +213,8 @@ def phase_kernels():
         results.append(rec)
         log(f"[kernels] flash_fwd {name} {rec['dtype']} "
             f"{rec['shape']} causal={causal} q_offset={qoff}: max err "
-            f"{max_err:.3g} (tol {atol}+{rtol}*|ref|), lse err {lse_err}; "
+            f"{max_err:.3g} (tol {atol}+{rtol:.3g}*|ref|), mean err "
+            f"{mean_err:.3g} (tol {MEAN_ATOL[dname]}), lse err {lse_err}; "
             f"{ms:.4f} ms, plain {plain_ms:.3f} ms, sdpa "
             f"{library_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms "
             f"({rec['bound_by']})")
@@ -329,7 +339,9 @@ def phase_serve(params, cfg):
            "flash_launches": launches["flash_fwd"],
            "stats": {k: v for k, v in stats.items()
                      if k != "active_request_ids"}}
-    log(f"[serve] {len(prompts)} requests, {generated} tokens in "
+    # a smoke reading that shows the path runs, not a serving metric: the
+    # request mix is made up and one run of 12 requests is noisy
+    log(f"[serve] smoke reading: {len(prompts)} requests, {generated} tokens in "
         f"{wall:.2f} s = {rec['tokens_per_s']:.1f} tokens/s; TTFT p50 "
         f"{stats['ttft_p50_s']:.3f} s p99 {stats['ttft_p99_s']:.3f} s; "
         f"flash_fwd launches {launches['flash_fwd']} (decode attention "

@@ -191,14 +191,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* lse, int B, int H, int Sq, int Sk, int causal,
                    int q_offset, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
-  static bool attr_set = false;  // idempotent, so a race is harmless
-  if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return e;
-    attr_set = true;
-  }
+  // set on every launch: the attribute is per device, and the caller
+  // makes the inputs' device current (a host-side call of ~1 us)
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return e;
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),

@@ -478,27 +478,22 @@ def slot_decode_step(params: Params, cache, tokens, pos, cfg: GPTConfig,
     return x.to(cfg.dtype) @ _unembed_table(params, cfg), cache
 
 
-def _prefill_positions(T: int, start: int, S: int, dev) -> torch.Tensor:
-    # clamped so pad steps never overflow the row
-    return (start + torch.arange(T, device=dev)).clamp(max=S - 1)
+def slot_prefill(params: Params, cache, toks, start: int, slot: int,
+                 cfg: GPTConfig, rope=None):
+    """Prefill one slot: toks [T] (the prompt suffix, unpadded) at
+    positions ``start .. start+T-1``; logits of the last token.  Returns
+    (logits [V], cache updated in place).
 
-
-def slot_prefill(params: Params, cache, toks, start: int, last_idx: int,
-                 slot: int, cfg: GPTConfig, rope=None):
-    """Prefill one slot: toks [T] (padded) starting at position
-    ``start``; logits at index ``last_idx`` (the last real prompt
-    token).  Returns (logits [V], cache updated in place).
-
-    The steps after ``last_idx`` are pad tokens: the reference runs them
-    (one static program per bucket) and decode overwrites their K/V
-    before attending it, so here they are not run at all."""
+    The reference pads toks to a bucket (one static program per bucket)
+    and takes the logits at a ``last_idx``; eager decode steps need no
+    static length, so here toks holds only the real tokens."""
     S = cache["k"].shape[3]
     dev = cache["k"].device
     kc = cache["k"][:, slot:slot + 1]       # views: writes land in cache
     vc = cache["v"][:, slot:slot + 1]
-    positions = _prefill_positions(toks.shape[0], start, S, dev)
+    positions = start + torch.arange(toks.shape[0], device=dev)
     rope = _rope_for(cfg, S, rope, dev)
-    for t in range(last_idx + 1):
+    for t in range(toks.shape[0]):
         x = _slot_decode_hidden(params, kc, vc, toks[t:t + 1],
                                 positions[t:t + 1], cfg, rope)
     return x[0].to(cfg.dtype) @ _unembed_table(params, cfg), cache
@@ -561,17 +556,17 @@ def paged_decode_step(params: Params, cache, tokens, ptab, pos,
 
 
 def paged_prefill(params: Params, cache, toks, ptab_row, start: int,
-                  last_idx: int, cfg: GPTConfig, rope=None):
-    """Prefill one slot's pages: toks [T] (padded) from position
-    ``start`` (earlier positions are prefix-shared pages already holding
-    valid K/V); logits at index ``last_idx``.  Pad steps are not run
-    (see slot_prefill).  Returns (logits [V], cache updated in place)."""
+                  cfg: GPTConfig, rope=None):
+    """Prefill one slot's pages: toks [T] (unpadded, as in slot_prefill)
+    from position ``start`` (earlier positions are prefix-shared pages
+    already holding valid K/V); logits of the last token.  Returns
+    (logits [V], cache updated in place)."""
     ps = cache["k"].shape[3]
     dev = cache["k"].device
     S = ptab_row.shape[0] * ps
-    positions = _prefill_positions(toks.shape[0], start, S, dev)
+    positions = start + torch.arange(toks.shape[0], device=dev)
     rope = _rope_for(cfg, S, rope, dev)
-    for t in range(last_idx + 1):
+    for t in range(toks.shape[0]):
         x = _paged_decode_hidden(params, cache["k"], cache["v"],
                                  toks[t:t + 1], ptab_row[None],
                                  positions[t:t + 1], cfg, rope)

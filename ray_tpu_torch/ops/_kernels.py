@@ -189,12 +189,15 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.rtt_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr() if lse is not None else None, B, H, Sq, Sk, D,
-        _FLASH_DTYPES[q.dtype], int(bool(causal)), int(q_offset),
-        float(scale), stream)
+    # the C side launches on the CUDA runtime's current device: make it
+    # the inputs' device, whichever device the calling thread had current
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.rtt_flash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if lse is not None else None, B, H, Sq, Sk, D,
+            _FLASH_DTYPES[q.dtype], int(bool(causal)), int(q_offset),
+            float(scale), stream)
     _check(lib, err, "flash_fwd")
     FLASH_FWD.launches += 1
     return out, lse

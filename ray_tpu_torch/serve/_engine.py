@@ -223,8 +223,7 @@ class ContinuousEngine:
                  max_slots: int = 8, page_size: int = 16,
                  num_pages: int = 0, max_total: int = 0,
                  queue_cap: int = 32, shed_queue_depth: int = 16,
-                 retry_after_s: float = 1.0, prefill_bucket: int = 32,
-                 ring_size: int = 256, stall_s: float = 10.0,
+                 retry_after_s: float = 1.0, ring_size: int = 256, stall_s: float = 10.0,
                  device: DeviceLike = None):
         if cache not in ("paged", "contiguous"):
             raise ValueError(f"unknown cache mode {cache!r}")
@@ -243,7 +242,6 @@ class ContinuousEngine:
         self.queue_cap = int(queue_cap)
         self.shed_queue_depth = int(shed_queue_depth)
         self.retry_after_s = float(retry_after_s)
-        self.prefill_bucket = int(prefill_bucket)
 
         self._lock = threading.Lock()
         self._waiting: "deque[_Sequence]" = deque()   # guarded-by: _lock
@@ -582,21 +580,17 @@ class ContinuousEngine:
         self._temps[slot] = seq.temperature
         self._topks[slot] = int(seq.top_k or 0)
 
-        # prefill the non-shared prompt suffix, padded to the bucket
-        count = plen - shared_len
-        T = -(-count // self.prefill_bucket) * self.prefill_bucket
-        chunk = np.zeros(T, np.int64)
-        chunk[:count] = seq.tokens[shared_len:]
+        # prefill the non-shared prompt suffix
+        chunk = np.asarray(seq.tokens[shared_len:], np.int64)
         tp = time.perf_counter()
         if self._alloc is not None:
             logits, self._cache = gpt.paged_prefill(
                 self._params, self._cache, self._tensor(chunk),
-                self._tensor(self._ptab[slot]), shared_len, count - 1,
-                self._cfg)
+                self._tensor(self._ptab[slot]), shared_len, self._cfg)
         else:
             logits, self._cache = gpt.slot_prefill(
                 self._params, self._cache, self._tensor(chunk), shared_len,
-                count - 1, slot, self._cfg)
+                slot, self._cfg)
         self._logits[slot] = logits.float()
         self._sync()
         self._last_prefill_s += time.perf_counter() - tp

@@ -40,8 +40,7 @@ def model():
 
 def _make_engine(model, cache="paged", **kw):
     cfg, params = model[:2]
-    defaults = dict(cache=cache, max_slots=4, page_size=8,
-                    prefill_bucket=8, device="cpu")
+    defaults = dict(cache=cache, max_slots=4, page_size=8, device="cpu")
     defaults.update(kw)
     return ContinuousEngine(gpt, cfg, params, **defaults)
 

@@ -87,15 +87,13 @@ def test_slot_and_paged_prefill_match_apply():
     _, _, tcfg, tparams = _pair("learned-ln-gelu")
     prompt = torch.from_numpy(TOKENS[0, :11])
     full = gpt.apply(tparams, prompt[None], tcfg, device="cpu")[0, -1]
-    padded = torch.zeros(16, dtype=torch.long)
-    padded[:11] = prompt
     with torch.no_grad():
         slot = gpt.init_slot_cache(tcfg, 2, 32, device="cpu")
-        lg_s, slot = gpt.slot_prefill(tparams, slot, padded, 0, 10, 1, tcfg)
+        lg_s, slot = gpt.slot_prefill(tparams, slot, prompt, 0, 1, tcfg)
         paged = gpt.init_paged_cache(tcfg, 6, 8, device="cpu")
         ptab_row = torch.tensor([3, 5, 0, 0])
-        lg_p, paged = gpt.paged_prefill(tparams, paged, padded, ptab_row, 0,
-                                        10, tcfg)
+        lg_p, paged = gpt.paged_prefill(tparams, paged, prompt, ptab_row, 0,
+                                        tcfg)
     np.testing.assert_allclose(lg_s.numpy(), full.numpy(), atol=1e-4, rtol=0)
     assert torch.equal(lg_s, lg_p)
     kv = paged["k"][:, [3, 5]].permute(0, 2, 1, 3, 4).reshape(

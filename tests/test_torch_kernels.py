@@ -5,9 +5,11 @@ file imports no JAX, so it also runs where only PyTorch is installed:
     RAY_TPU_TEST_REAL_TPU=1 python -m pytest tests/test_torch_kernels.py -m cuda -n 0
 
 (the variable keeps tests/conftest.py from pinning JAX to the CPU).
-Tolerances: bf16 outputs within one bf16 ulp of values up to ~4
-(2e-2 + 1e-2*|ref|), f32 outputs and lse at 1e-4 (summation order).
+Tolerances: bf16 outputs within one bf16 ulp (4e-3 + 2^-7*|ref|), f32
+outputs and lse at 1e-4 (summation order).
 """
+
+import concurrent.futures
 
 import pytest
 import torch
@@ -15,6 +17,8 @@ import torch
 from ray_tpu_torch.ops import _kernels, flash_attention_plain
 
 torch.set_num_threads(1)
+
+BF16_TOL = (4e-3, 2.0 ** -7)
 
 KERNEL_CASES = [
     # (dtype, causal, sq, sk, d, with_lse)
@@ -50,7 +54,7 @@ def test_flash_kernel_matches_plain(gpu, dtype, causal, sq, sk, d,
     ref, ref_lse = flash_attention_plain(q, k, v, causal=causal,
                                          q_offset=qoff, with_lse=True)
     torch.cuda.synchronize()
-    atol, rtol = (2e-2, 1e-2) if dtype == torch.bfloat16 else (1e-4, 1e-5)
+    atol, rtol = BF16_TOL if dtype == torch.bfloat16 else (1e-4, 1e-5)
     err = (out.float() - ref.float()).abs()
     assert (err <= atol + rtol * ref.float().abs()).all(), err.max()
     if with_lse:
@@ -75,3 +79,29 @@ def test_flash_kernel_rejects_what_it_does_not_take(gpu):
     with pytest.raises(NotImplementedError, match="forward-only"):
         w = q.float().requires_grad_()
         _kernels.flash_fwd(w, w, w, causal=False, scale=1.0)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_launches_on_the_inputs_device(gpu):
+    """The wrapper launches on the inputs' device, whichever device the
+    calling thread has current: a fresh thread (as the engine's is),
+    with another card current where there is more than one."""
+    n = torch.cuda.device_count()
+    for i in range(n):
+        dev = torch.device("cuda", i)
+        g = torch.Generator(device=dev).manual_seed(i)
+        q, k, v = (torch.randn(1, 2, 100, 64, generator=g, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+
+        def run():
+            torch.cuda.set_device((i + 1) % n)
+            return _kernels.flash_fwd(q, k, v, causal=True, scale=64 ** -0.5)
+
+        with concurrent.futures.ThreadPoolExecutor(1) as ex:
+            out, _ = ex.submit(run).result()
+        ref = flash_attention_plain(q, k, v, causal=True)
+        torch.cuda.synchronize(dev)
+        assert out.device == dev
+        atol, rtol = BF16_TOL
+        err = (out.float() - ref.float()).abs()
+        assert (err <= atol + rtol * ref.float().abs()).all(), err.max()

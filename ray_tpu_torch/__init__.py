@@ -10,13 +10,19 @@ caller passes ``device="cpu"``; with no GPU and no explicit request they
 raise rather than carry on silently on the CPU.
 
 Layout mirrors ``ray_tpu``:
-  * ``ops.layers`` / ``ops.attention`` — layer math, attention + the
-    flash-attention kernel's plain version and dispatcher;
-  * ``models.gpt`` — GPT forward, KV-cache decode, slot + paged caches;
-  * ``models.convert`` — the JAX parameter tree (numpy leaves) → port;
+  * ``ops.layers`` / ``ops.attention`` — layer math and cross-entropy,
+    attention + the flash-attention kernels' plain versions, their
+    autograd ``Function`` and dispatcher;
+  * ``models.gpt`` — GPT forward, loss, KV-cache decode, slot + paged
+    caches;
+  * ``models.training`` — the single-device train step (AdamW);
+  * ``models.convert`` — the JAX parameter tree and AdamW state (numpy
+    leaves) ↔ port;
   * ``serve._engine`` — the continuous-batching engine.
 """
 
 from ray_tpu_torch._device import resolve_device
+from ray_tpu_torch.models.training import (adamw, make_eval_step,
+                                           make_train_step)
 
-__all__ = ["resolve_device"]
+__all__ = ["adamw", "make_eval_step", "make_train_step", "resolve_device"]

@@ -1,0 +1,449 @@
+// Flash-attention backward for Hopper (sm_90a), plain C interface: two
+// kernels, as in the reference, so no output is summed across blocks and
+// the gradients are deterministic.
+//
+// Replaces the Pallas TPU kernels of ray_tpu/ops/attention.py:
+//   flash_bwd_dkv_kernel <- _flash_bwd_dkv_kernel (dK, dV; K2)
+//   flash_bwd_dq_kernel  <- _flash_bwd_dq_kernel  (dQ; K3)
+// Both recompute, tile by tile, the forward's scores from the residuals
+// (q, k, v, lse) and take di = rowsum(dO * O) - dlse from the caller:
+//   s  = (q . k) * scale                     f32
+//   p  = exp(s - lse), 0 where masked         f32
+//   dp = dO . v                              f32
+//   ds = p * (dp - di) * scale, rounded to q's dtype
+//   dV += p (rounded to dO's dtype)^T . dO,  dK += ds^T . q,  dQ += ds . k
+// with every product summed in f32, as the reference's dot_generals with
+// preferred_element_type=f32.  Masked and ragged (row >= Sq, key >= Sk)
+// entries get p = 0, hence ds = 0.
+//
+// What bounds it on this card: at the training shape (causal bf16
+// [16, 12, 512, 512, 64]) K2 does 8 d FLOPs and K3 6 d FLOPs per unmasked
+// (q, k) pair, about 170 and 150 FLOPs per byte of q/k/v/dO/lse/di/outputs,
+// below the H100's ~295 FLOPs/byte bf16 ridge, so the ideal kernels are
+// memory-bound.  These first kernels run their products on the CUDA cores
+// in f32 FMA (no tensor cores), so in practice they are bound by those
+// operations and by shared-memory traffic.  What the design does about
+// it: each block reads its fixed tile (K2: K, V; K3: Q, dO) once and
+// streams the other side through shared memory as f32; S, P, dP and dS
+// never leave the chip; the causal loop starts (K2) or stops (K3) at the
+// diagonal.  wgmma/TMA, and folding dQ into K2 with atomics, are later work.
+//
+// Layout: q/dO [B, H, Sq, D], k/v [B, H, Sk, D], contiguous, one dtype;
+// lse/di [B, H, Sq] f32; dq like q, dk/dv like k.  256 threads, four per
+// row of a 64-row tile.  K2: grid (ceil(Sk / 64), H, B), one block per key
+// tile looping over q tiles.  K3: grid (ceil(Sq / 64), H, B), one block
+// per q tile looping over key tiles.  Any Sq, Sk >= 1; q_offset >= 0 is
+// the global position of q's row 0 in the causal mask; D a multiple of 16
+// up to 128; float32 or bfloat16.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stddef.h>
+
+namespace {
+
+constexpr int BQ = 64;        // q rows per tile
+constexpr int BK = 64;        // keys per tile
+constexpr int THREADS = 256;  // four per tile row
+constexpr int NS = BK / 4;    // scores per thread per tile row
+// padded row strides (floats): 16-byte rows for float4 access, and the
+// eight rows a warp reads at once land on distinct banks
+constexpr int KS = BK + 4;    // K^T, V^T rows
+constexpr int PS = BK + 16;   // K2's P and dS rows (float4 writes)
+constexpr int SS = BK + 4;    // K3's dS rows (column reads)
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);  // round to nearest even, as torch's .to()
+}
+
+// x rounded to T and back, as the reference's astype before a product
+template <typename T> __device__ __forceinline__ float round_to(float x) {
+  return to_f32(from_f32<T>(x));
+}
+
+// Stage rows [r0, r0 + 64) of a [S, D] matrix as f32 into dst[64][stride]
+// (rows past S are 0).
+template <typename T, int D>
+__device__ __forceinline__ void load_rows(float* dst, int stride,
+                                          const T* src, int r0, int S) {
+  for (int i = threadIdx.x; i < 64 * D; i += THREADS) {
+    const int rr = i / D, c = i % D;
+    const int gi = r0 + rr;
+    dst[rr * stride + c] = gi < S ? to_f32(src[(size_t)gi * D + c]) : 0.f;
+  }
+}
+
+// Stage keys [k0, k0 + 64) of k and v transposed as f32: Kt/Vt [D][KS]
+// (keys past Sk are 0).
+template <typename T, int D>
+__device__ __forceinline__ void load_kv_t(float* Kt, float* Vt, const T* kb,
+                                          const T* vb, int k0, int Sk) {
+  for (int i = threadIdx.x; i < BK * D; i += THREADS) {
+    const int j = i / D, c = i % D;
+    const int kj = k0 + j;
+    float kx = 0.f, vx = 0.f;
+    if (kj < Sk) {
+      kx = to_f32(kb[(size_t)kj * D + c]);
+      vx = to_f32(vb[(size_t)kj * D + c]);
+    }
+    Kt[c * KS + j] = kx;
+    Vt[c * KS + j] = vx;
+  }
+}
+
+// The recomputation shared by both kernels.  Thread (r, qtr) takes q row r
+// of the tile and the 16 keys j = 16 c + 4 qtr + e (c, e in 0..3) of the
+// key tile, so the four threads of a row read one contiguous 64-byte span
+// of K^T / V^T.  Returns p (f32, 0 where masked) and ds (f32, before its
+// rounding) for those 16 entries.
+template <int D>
+__device__ __forceinline__ void p_and_ds(
+    const float* Qs, const float* Os, int qstride, const float* Kt,
+    const float* Vt, float lse, float di, int r, int qtr, int qi, int Sq,
+    int k0, int Sk, int causal, int q_offset, float scale, float (&p)[NS],
+    float (&ds)[NS]) {
+  float s[NS], dp[NS];
+#pragma unroll
+  for (int n = 0; n < NS; ++n) s[n] = dp[n] = 0.f;
+  const float* qr = Qs + r * qstride;
+  const float* orow = Os + r * qstride;
+  for (int d = 0; d < D; ++d) {
+    const float qv = qr[d], ov = orow[d];
+    const float4* kr = reinterpret_cast<const float4*>(Kt + d * KS + 4 * qtr);
+    const float4* vr = reinterpret_cast<const float4*>(Vt + d * KS + 4 * qtr);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float4 kx = kr[4 * c];  // keys 16 c + 4 qtr + (0..3)
+      const float4 vx = vr[4 * c];
+      s[4 * c + 0] = fmaf(qv, kx.x, s[4 * c + 0]);
+      s[4 * c + 1] = fmaf(qv, kx.y, s[4 * c + 1]);
+      s[4 * c + 2] = fmaf(qv, kx.z, s[4 * c + 2]);
+      s[4 * c + 3] = fmaf(qv, kx.w, s[4 * c + 3]);
+      dp[4 * c + 0] = fmaf(ov, vx.x, dp[4 * c + 0]);
+      dp[4 * c + 1] = fmaf(ov, vx.y, dp[4 * c + 1]);
+      dp[4 * c + 2] = fmaf(ov, vx.z, dp[4 * c + 2]);
+      dp[4 * c + 3] = fmaf(ov, vx.w, dp[4 * c + 3]);
+    }
+  }
+  const int gpos = q_offset + qi;  // the row's position in the mask
+#pragma unroll
+  for (int n = 0; n < NS; ++n) {
+    const int col = k0 + 16 * (n / 4) + 4 * qtr + (n % 4);
+    const bool keep = qi < Sq && col < Sk && (!causal || gpos >= col);
+    // s is rounded before lse is taken off (no fused multiply-add), as
+    // the reference computes s = dot * scale, then exp(s - lse)
+    p[n] = keep ? expf(__fmul_rn(s[n], scale) - lse) : 0.f;
+    ds[n] = p[n] * (dp[n] - di) * scale;
+  }
+}
+
+template <int D>
+constexpr size_t dkv_smem_bytes() {
+  return sizeof(float) *
+         (2 * D * KS + 2 * BQ * (D + 4) + 2 * BQ * PS + 2 * BQ);
+}
+
+template <int D>
+constexpr size_t dq_smem_bytes() {
+  return sizeof(float) *
+         (2 * BQ * (D + 4) + 2 * D * KS + BK * D + BQ * SS + 2 * BQ);
+}
+
+// K2: dK, dV for one 64-key tile, summed over the q tiles that reach it.
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ di, T* __restrict__ dk,
+                     T* __restrict__ dv, int Sq, int Sk, int causal,
+                     int q_offset, float scale) {
+  constexpr int QS = D + 4;
+  constexpr int NC = D / 16;  // float4 column groups per thread
+  extern __shared__ __align__(16) float smem[];
+  float* Kt = smem;            // [D][KS]
+  float* Vt = Kt + D * KS;     // [D][KS]
+  float* Qs = Vt + D * KS;     // [BQ][QS]
+  float* Os = Qs + BQ * QS;    // [BQ][QS]  dO
+  float* Ps = Os + BQ * QS;    // [BQ][PS]  p rounded to dO's dtype
+  float* Ss = Ps + BQ * PS;    // [BQ][PS]  ds rounded to q's dtype
+  float* Ls = Ss + BQ * PS;    // [BQ]      lse
+  float* Ds = Ls + BQ;         // [BQ]      di
+
+  const int tid = threadIdx.x;
+  const int r = tid >> 2;
+  const int qtr = tid & 3;
+  const int k0 = blockIdx.x * BK;
+  const size_t bh = (size_t)blockIdx.z * gridDim.y + blockIdx.y;
+  const T* qb = q + bh * (size_t)Sq * D;
+  const T* ob = dout + bh * (size_t)Sq * D;
+  const float* lb = lse + bh * (size_t)Sq;
+  const float* db = di + bh * (size_t)Sq;
+
+  load_kv_t<T, D>(Kt, Vt, k + bh * (size_t)Sk * D, v + bh * (size_t)Sk * D,
+                  k0, Sk);
+
+  // accumulator of key row r, columns 16 c + 4 qtr + e
+  float acc_k[4 * NC], acc_v[4 * NC];
+#pragma unroll
+  for (int n = 0; n < 4 * NC; ++n) acc_k[n] = acc_v[n] = 0.f;
+
+  // causal: q tiles before the one holding row max(0, k0 - q_offset) see
+  // none of these keys (the reference's `run` condition)
+  const int qstart = causal ? (max(0, k0 - q_offset) / BQ) * BQ : 0;
+  for (int q0 = qstart; q0 < Sq; q0 += BQ) {
+    __syncthreads();  // the previous tile's Q, dO, P, dS are no longer read
+    load_rows<T, D>(Qs, QS, qb, q0, Sq);
+    load_rows<T, D>(Os, QS, ob, q0, Sq);
+    if (tid < BQ) {
+      const int qi = q0 + tid;
+      Ls[tid] = qi < Sq ? lb[qi] : 0.f;
+      Ds[tid] = qi < Sq ? db[qi] : 0.f;
+    }
+    __syncthreads();
+
+    // scores: thread (r, qtr) takes q row r
+    float p[NS], ds[NS];
+    p_and_ds<D>(Qs, Os, QS, Kt, Vt, Ls[r], Ds[r], r, qtr, q0 + r, Sq, k0,
+                Sk, causal, q_offset, scale, p, ds);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int off = r * PS + 16 * c + 4 * qtr;
+      *reinterpret_cast<float4*>(Ps + off) =
+          make_float4(round_to<T>(p[4 * c]), round_to<T>(p[4 * c + 1]),
+                      round_to<T>(p[4 * c + 2]), round_to<T>(p[4 * c + 3]));
+      *reinterpret_cast<float4*>(Ss + off) =
+          make_float4(round_to<T>(ds[4 * c]), round_to<T>(ds[4 * c + 1]),
+                      round_to<T>(ds[4 * c + 2]), round_to<T>(ds[4 * c + 3]));
+    }
+    __syncthreads();
+
+    // dV += P^T dO, dK += dS^T Q: thread (r, qtr) takes key row r
+    for (int i = 0; i < BQ; ++i) {
+      const float pv = Ps[i * PS + r];
+      const float sv = Ss[i * PS + r];
+      const float4* o4 = reinterpret_cast<const float4*>(Os + i * QS + 4 * qtr);
+      const float4* q4 = reinterpret_cast<const float4*>(Qs + i * QS + 4 * qtr);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const float4 ox = o4[4 * c];  // columns 16 c + 4 qtr + (0..3)
+        const float4 qx = q4[4 * c];
+        acc_v[4 * c + 0] = fmaf(pv, ox.x, acc_v[4 * c + 0]);
+        acc_v[4 * c + 1] = fmaf(pv, ox.y, acc_v[4 * c + 1]);
+        acc_v[4 * c + 2] = fmaf(pv, ox.z, acc_v[4 * c + 2]);
+        acc_v[4 * c + 3] = fmaf(pv, ox.w, acc_v[4 * c + 3]);
+        acc_k[4 * c + 0] = fmaf(sv, qx.x, acc_k[4 * c + 0]);
+        acc_k[4 * c + 1] = fmaf(sv, qx.y, acc_k[4 * c + 1]);
+        acc_k[4 * c + 2] = fmaf(sv, qx.z, acc_k[4 * c + 2]);
+        acc_k[4 * c + 3] = fmaf(sv, qx.w, acc_k[4 * c + 3]);
+      }
+    }
+  }
+
+  const int kj = k0 + r;
+  if (kj < Sk) {
+    T* dkr = dk + (bh * (size_t)Sk + kj) * D;
+    T* dvr = dv + (bh * (size_t)Sk + kj) * D;
+#pragma unroll
+    for (int n = 0; n < 4 * NC; ++n) {
+      const int col = 16 * (n / 4) + 4 * qtr + (n % 4);
+      dkr[col] = from_f32<T>(acc_k[n]);
+      dvr[col] = from_f32<T>(acc_v[n]);
+    }
+  }
+}
+
+// K3: dQ for one 64-row q tile, summed over the key tiles it reaches.
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ di, T* __restrict__ dq, int Sq,
+                    int Sk, int causal, int q_offset, float scale) {
+  constexpr int QS = D + 4;
+  constexpr int NC = D / 16;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;            // [BQ][QS]
+  float* Os = Qs + BQ * QS;    // [BQ][QS]  dO
+  float* Kt = Os + BQ * QS;    // [D][KS]
+  float* Vt = Kt + D * KS;     // [D][KS]
+  float* Ks = Vt + D * KS;     // [BK][D]   K rows, for dS . K
+  float* Ss = Ks + BK * D;     // [BQ][SS]  ds rounded to q's dtype
+  float* Ls = Ss + BQ * SS;    // [BQ]
+  float* Ds = Ls + BQ;         // [BQ]
+
+  const int tid = threadIdx.x;
+  const int r = tid >> 2;
+  const int qtr = tid & 3;
+  const int q0 = blockIdx.x * BQ;
+  const size_t bh = (size_t)blockIdx.z * gridDim.y + blockIdx.y;
+  const T* kb = k + bh * (size_t)Sk * D;
+  const T* vb = v + bh * (size_t)Sk * D;
+
+  load_rows<T, D>(Qs, QS, q + bh * (size_t)Sq * D, q0, Sq);
+  load_rows<T, D>(Os, QS, dout + bh * (size_t)Sq * D, q0, Sq);
+  if (tid < BQ) {
+    const int qi = q0 + tid;
+    Ls[tid] = qi < Sq ? lse[bh * (size_t)Sq + qi] : 0.f;
+    Ds[tid] = qi < Sq ? di[bh * (size_t)Sq + qi] : 0.f;
+  }
+
+  // accumulator of q row r, columns 16 c + 4 qtr + e
+  float acc[4 * NC];
+#pragma unroll
+  for (int n = 0; n < 4 * NC; ++n) acc[n] = 0.f;
+
+  // causal: keys past the tile's last row are masked for every row
+  const int kend = causal ? min(Sk, q_offset + q0 + BQ) : Sk;
+  for (int k0 = 0; k0 < kend; k0 += BK) {
+    __syncthreads();  // the previous tile's K, V, dS are no longer read
+    load_kv_t<T, D>(Kt, Vt, kb, vb, k0, Sk);
+    load_rows<T, D>(Ks, D, kb, k0, Sk);
+    __syncthreads();
+
+    float p[NS], ds[NS];
+    p_and_ds<D>(Qs, Os, QS, Kt, Vt, Ls[r], Ds[r], r, qtr, q0 + r, Sq, k0,
+                Sk, causal, q_offset, scale, p, ds);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      *reinterpret_cast<float4*>(Ss + r * SS + 16 * c + 4 * qtr) =
+          make_float4(round_to<T>(ds[4 * c]), round_to<T>(ds[4 * c + 1]),
+                      round_to<T>(ds[4 * c + 2]), round_to<T>(ds[4 * c + 3]));
+    __syncwarp();  // row r's dS was written by this thread's warp
+
+    // dQ += dS K: thread (r, qtr) keeps q row r
+    const float* srow = Ss + r * SS;
+    for (int j = 0; j < BK; ++j) {
+      const float sv = srow[j];
+      const float4* k4 = reinterpret_cast<const float4*>(Ks + j * D + 4 * qtr);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const float4 kx = k4[4 * c];
+        acc[4 * c + 0] = fmaf(sv, kx.x, acc[4 * c + 0]);
+        acc[4 * c + 1] = fmaf(sv, kx.y, acc[4 * c + 1]);
+        acc[4 * c + 2] = fmaf(sv, kx.z, acc[4 * c + 2]);
+        acc[4 * c + 3] = fmaf(sv, kx.w, acc[4 * c + 3]);
+      }
+    }
+  }
+
+  const int qi = q0 + r;
+  if (qi < Sq) {
+    T* dqr = dq + (bh * (size_t)Sq + qi) * D;
+#pragma unroll
+    for (int n = 0; n < 4 * NC; ++n)
+      dqr[16 * (n / 4) + 4 * qtr + (n % 4)] = from_f32<T>(acc[n]);
+  }
+}
+
+struct Args {
+  const void *q, *k, *v, *dout, *lse, *di;
+  void *g0, *g1;  // K2: dk, dv; K3: dq, unused
+  int B, H, Sq, Sk, causal, q_offset;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename T, int D>
+cudaError_t launch_dkv(const Args& a) {
+  constexpr size_t smem = dkv_smem_bytes<D>();
+  // set on every launch: the attribute is per device, and the caller
+  // makes the inputs' device current (a host-side call of ~1 us)
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dkv_kernel<T, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a.Sk + BK - 1) / BK, a.H, a.B);
+  flash_bwd_dkv_kernel<T, D><<<grid, THREADS, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.di),
+      static_cast<T*>(a.g0), static_cast<T*>(a.g1), a.Sq, a.Sk, a.causal,
+      a.q_offset, a.scale);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_dq(const Args& a) {
+  constexpr size_t smem = dq_smem_bytes<D>();
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a.Sq + BQ - 1) / BQ, a.H, a.B);
+  flash_bwd_dq_kernel<T, D><<<grid, THREADS, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.di),
+      static_cast<T*>(a.g0), a.Sq, a.Sk, a.causal, a.q_offset, a.scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(bool dkv, int D, const Args& a) {
+#define RTT_CASE(d) \
+  case d:           \
+    return dkv ? launch_dkv<T, d>(a) : launch_dq<T, d>(a);
+  switch (D) {
+    RTT_CASE(16)
+    RTT_CASE(32)
+    RTT_CASE(48)
+    RTT_CASE(64)
+    RTT_CASE(80)
+    RTT_CASE(96)
+    RTT_CASE(112)
+    RTT_CASE(128)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef RTT_CASE
+}
+
+int run(bool dkv, int D, int dtype, const Args& a) {
+  if (dtype == 0) return (int)dispatch<float>(dkv, D, a);
+  if (dtype == 1) return (int)dispatch<__nv_bfloat16>(dkv, D, a);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 = float32, 1 = bfloat16.  Each returns the cudaError_t of its
+// launch (0 on success).
+int rtt_flash_bwd_dkv(const void* q, const void* k, const void* v,
+                      const void* dout, const void* lse, const void* di,
+                      void* dk, void* dv, int B, int H, int Sq, int Sk,
+                      int D, int dtype, int causal, int q_offset,
+                      float scale, void* stream) {
+  const Args a{q, k, v, dout, lse, di, dk, dv, B, H, Sq, Sk, causal,
+               q_offset, scale, static_cast<cudaStream_t>(stream)};
+  return run(true, D, dtype, a);
+}
+
+int rtt_flash_bwd_dq(const void* q, const void* k, const void* v,
+                     const void* dout, const void* lse, const void* di,
+                     void* dq, int B, int H, int Sq, int Sk, int D,
+                     int dtype, int causal, int q_offset, float scale,
+                     void* stream) {
+  const Args a{q, k, v, dout, lse, di, dq, nullptr, B, H, Sq, Sk, causal,
+               q_offset, scale, static_cast<cudaStream_t>(stream)};
+  return run(false, D, dtype, a);
+}
+
+const char* rtt_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

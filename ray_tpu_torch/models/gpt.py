@@ -1,5 +1,5 @@
-"""GPT-class transformer LM: forward, KV-cache decode, slot and paged
-caches.  Counterpart of ``ray_tpu/models/gpt.py``.
+"""GPT-class transformer LM: forward, loss, KV-cache decode, slot and
+paged caches.  Counterpart of ``ray_tpu/models/gpt.py``.
 
 Params are a plain dict of tensors with the reference's keys and shapes
 (layers stacked on a leading axis), stored in ``param_dtype`` and cast to
@@ -7,8 +7,12 @@ Params are a plain dict of tensors with the reference's keys and shapes
 for key.  ``lax.scan`` over the stack becomes a Python layer loop.
 
 Attention in the forward goes through ``ops.attention`` — the Hopper
-flash kernel on CUDA tensors.  Decode attention is plain tensor math,
-as in the reference (``_slot_attention``).
+flash kernels on CUDA tensors, differentiable through the backward
+kernels.  With ``cfg.remat`` each block runs under activation
+checkpointing when gradients are recorded (``jax.checkpoint`` in the
+reference's layer scan), so the backward recomputes the block's forward.
+Decode attention is plain tensor math, as in the reference
+(``_slot_attention``).
 
 Where the reference returns an updated KV array, this port writes the
 cache tensors IN PLACE and returns the same dict (no copy of the arena
@@ -27,9 +31,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from torch.utils.checkpoint import checkpoint
+
 from ray_tpu_torch._device import DeviceLike, check_params_on, resolve_device
-from ray_tpu_torch.ops import (apply_rope, attention, gelu_mlp, layer_norm,
-                               rms_norm, rope_table, swiglu)
+from ray_tpu_torch.ops import (apply_rope, attention,
+                               fused_softmax_cross_entropy, gelu_mlp,
+                               layer_norm, rms_norm, rope_table,
+                               softmax_cross_entropy, swiglu)
 
 Params = Dict[str, Any]
 
@@ -48,6 +56,13 @@ class GPTConfig:
     pos: str = "learned"      # "learned" | "rope"
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
+    # training: recompute each block in the backward ("full"; the
+    # reference's "dots" policy is not ported), CE over sequence chunks
+    # of loss_chunk (None: dense), z-loss weight
+    remat: bool = True
+    remat_policy: str = "full"
+    loss_chunk: Optional[int] = None
+    z_loss: float = 1e-4
     # q/k/v/o projection biases (real GPT-2 checkpoints have them)
     attn_bias: bool = False
     tie_embeddings: bool = True
@@ -222,12 +237,30 @@ def _attention_op(q, k, v):
                      causal=True)
 
 
+def _block(x, params: Params, l: int, cfg: GPTConfig, rope):
+    """One transformer block (attention + MLP sublayers) of layer l."""
+    layer = _layer(params, l)
+    q, k, v = _qkv_proj(x, layer, cfg, rope)
+    return _attn_out_and_mlp(x, _attention_op(q, k, v), layer, cfg)
+
+
+def _check_remat(cfg: GPTConfig) -> None:
+    if not cfg.remat or cfg.remat_policy == "full":
+        return
+    if cfg.remat_policy == "dots":
+        raise NotImplementedError(
+            'remat_policy="dots" (save the matmul outputs, recompute the '
+            'rest) is not ported; use remat_policy="full" or remat=False')
+    raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+
+
 def apply_hidden(params: Params, tokens, cfg: GPTConfig, *,
                  device: DeviceLike = None, mesh=None) -> torch.Tensor:
     """Transformer stack up to the final norm: tokens [B, S] ->
     hidden [B, S, D]."""
     if mesh is not None:
         raise NotImplementedError("meshes are not ported; run on one device")
+    _check_remat(cfg)
     dev = resolve_device(device)
     check_params_on(params, dev)
     tokens = torch.as_tensor(tokens, dtype=torch.long, device=dev)
@@ -238,10 +271,15 @@ def apply_hidden(params: Params, tokens, cfg: GPTConfig, *,
         rope = None
     else:
         rope = rope_table(S, cfg.d_head, device=dev)
+    # with nothing recorded for a backward there is nothing to recompute
+    remat = cfg.remat and torch.is_grad_enabled()
     for l in range(cfg.n_layers):
-        layer = _layer(params, l)
-        q, k, v = _qkv_proj(x, layer, cfg, rope)
-        x = _attn_out_and_mlp(x, _attention_op(q, k, v), layer, cfg)
+        if remat:
+            # the model draws no random numbers: no RNG state to replay
+            x = checkpoint(_block, x, params, l, cfg, rope,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _block(x, params, l, cfg, rope)
     return _norm(x, params["final_norm"], params.get("final_norm_b"),
                  cfg.norm)
 
@@ -256,6 +294,37 @@ def apply(params: Params, tokens, cfg: GPTConfig, *,
     """Forward pass: tokens [B, S] -> logits [B, S, V] in cfg.dtype."""
     x = apply_hidden(params, tokens, cfg, device=device, mesh=mesh)
     return x.to(cfg.dtype) @ _unembed_table(params, cfg)
+
+
+def loss_fn(params: Params, batch: Dict[str, Any], cfg: GPTConfig, *,
+            device: DeviceLike = None, mesh=None) -> torch.Tensor:
+    """Next-token LM loss, a scalar f32 tensor.  batch: {"tokens":
+    [B, S+1]} or {"inputs", "targets": [B, S]}, and an optional "mask"
+    [B, S] that weights the per-token losses.  The fused chunked CE
+    (``cfg.loss_chunk``) runs when the chunk divides S, the dense CE
+    otherwise; both add ``cfg.z_loss``."""
+    if mesh is not None:
+        raise NotImplementedError("meshes are not ported; run on one device")
+    dev = resolve_device(device)
+    if "inputs" in batch:
+        inputs, targets = batch["inputs"], batch["targets"]
+    else:
+        toks = torch.as_tensor(batch["tokens"], device=dev)
+        inputs, targets = toks[:, :-1], toks[:, 1:]
+    targets = torch.as_tensor(targets, dtype=torch.long, device=dev)
+    chunk = cfg.loss_chunk
+    if chunk and targets.shape[1] % chunk == 0:
+        x = apply_hidden(params, inputs, cfg, device=dev)
+        loss = fused_softmax_cross_entropy(
+            x.to(cfg.dtype), _unembed_table(params, cfg), targets,
+            z_loss=cfg.z_loss, chunk=chunk)
+    else:
+        logits = apply(params, inputs, cfg, device=dev)
+        loss = softmax_cross_entropy(logits, targets, z_loss=cfg.z_loss)
+    if "mask" in batch:
+        mask = torch.as_tensor(batch["mask"], device=dev).float()
+        return (loss * mask).sum() / mask.sum().clamp_min(1.0)
+    return loss.mean()
 
 
 # ---------------------------------------------------------------------------

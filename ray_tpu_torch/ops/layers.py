@@ -1,8 +1,7 @@
-"""Core layer math: rmsnorm, layernorm, rope, MLPs.
+"""Core layer math: rmsnorm, layernorm, rope, MLPs, cross-entropy.
 
 Counterpart of ``ray_tpu/ops/layers.py``.  Statistics are taken in f32
-and results cast back to the input dtype, as in the reference.  The
-cross-entropy functions come with the training slice.
+and results cast back to the input dtype, as in the reference.
 """
 
 from __future__ import annotations
@@ -11,6 +10,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
@@ -73,3 +73,44 @@ def gelu_mlp(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor,
     torch's default is the exact erf form)."""
     h = x @ w_in + b_in
     return F.gelu(h, approximate="tanh") @ w_out + b_out
+
+
+def fused_softmax_cross_entropy(x: torch.Tensor, unembed: torch.Tensor,
+                                labels: torch.Tensor, z_loss: float = 0.0,
+                                chunk: int = 128) -> torch.Tensor:
+    """Vocab-projected CE without materialising [B, S, V] logits: one
+    sequence chunk at a time, each under activation checkpointing (the
+    reference's ``jax.checkpoint`` inside a scan), so the peak is
+    [B, chunk, V] and the backward recomputes a chunk's logits.  The same
+    numbers as the dense path: the projection in x's dtype, the
+    logsumexp in f32.
+
+    x [B, S, D], unembed [D, V], labels [B, S] int; S % chunk == 0
+    (else ValueError).
+    Returns the per-token loss [B, S] f32."""
+    S = x.shape[1]
+    if S % chunk:
+        raise ValueError(f"sequence length {S} is not a multiple of the "
+                         f"loss chunk {chunk}")
+
+    def chunk_loss(xc, lc):
+        return softmax_cross_entropy(xc @ unembed, lc, z_loss=z_loss)
+
+    return torch.cat([
+        checkpoint(chunk_loss, x[:, i:i + chunk], labels[:, i:i + chunk],
+                   use_reentrant=False, preserve_rng_state=False)
+        for i in range(0, S, chunk)], dim=1)
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          z_loss: float = 0.0) -> torch.Tensor:
+    """Token-level CE in f32 with the optional z-loss (z_loss * lse^2,
+    which keeps large-vocab logits from drifting); logits [..., V],
+    labels [...] int."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels[..., None].long())[..., 0]
+    loss = lse - ll
+    if z_loss:
+        loss = loss + z_loss * lse.square()
+    return loss

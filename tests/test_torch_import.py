@@ -23,6 +23,7 @@ import ray_tpu_torch.ops
 import ray_tpu_torch.ops._kernels
 import ray_tpu_torch.models.gpt as gpt
 import ray_tpu_torch.models.convert
+import ray_tpu_torch.models.training as training
 import ray_tpu_torch.serve
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
@@ -32,7 +33,10 @@ cfg = gpt.GPTConfig.nano()
 params = gpt.init(cfg, seed=0, device="cpu")
 for call in (lambda: gpt.apply(params, [[1, 2, 3]], cfg),
              lambda: gpt.init(cfg),
-             lambda: gpt.generate(params, cfg, [[1, 2]], 2)):
+             lambda: gpt.generate(params, cfg, [[1, 2]], 2),
+             lambda: gpt.loss_fn(params, {"tokens": [[1, 2, 3]]}, cfg),
+             lambda: training.make_train_step(cfg),
+             lambda: training.make_eval_step(cfg)):
     try:
         call()
     except RuntimeError as e:

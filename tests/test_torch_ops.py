@@ -1,17 +1,22 @@
 """PyTorch port ops against the JAX reference: attention (the flash
-kernel's plain version vs the Pallas kernel in interpret mode, the
-blockwise and naive paths, the dispatcher) and layer math.
+kernels' plain versions vs the Pallas kernels in interpret mode, forward
+and backward, the blockwise and naive paths, the dispatcher), layer math
+and cross-entropy.
 
 Inputs are made with numpy from a seed and fed to both packages.
-Tolerances: f32 at atol 1e-5 (summation order only); bf16 compared in
-f32 at atol 2e-2 (a bf16 ulp of the outputs, which round differently
-in the two frameworks' matmuls).
+Tolerances: f32 at atol 1e-5 (summation order only; gradients at
+1e-5 + 1e-4*|ref|, sums over up to 256 rows); bf16 compared in f32 at
+atol 2e-2 (a bf16 ulp of the outputs, which round differently in the
+two frameworks' matmuls).
 """
+
+from unittest import mock
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from ray_tpu import ops as jops
@@ -111,6 +116,115 @@ def test_cpu_tensors_never_reach_the_kernel():
     assert _kernels.FLASH_FWD.launches == 0
     with pytest.raises(ValueError, match="cuda"):
         _kernels.flash_fwd(q, k, v, causal=True, scale=0.25)
+
+
+# ---------------------------------------------------------------------------
+# flash attention backward: plain version vs the Pallas kernels K2/K3
+# (interpret mode) under jax.vjp, on the same cotangents
+
+GRAD_ATOL, GRAD_RTOL = 1e-5, 1e-4
+
+
+def _grads_close(got, want, atol=GRAD_ATOL, rtol=GRAD_RTOL):
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a.float().numpy(),
+                                   np.asarray(b, np.float32), atol=atol,
+                                   rtol=rtol, err_msg=name)
+
+
+def _port_grads(q, k, v, do, causal, q_offset, dlse=None,
+                dtype=torch.float32):
+    """Grads through the port's autograd Function on CPU tensors, and
+    the plain backward called directly: they are the same numbers."""
+    leaves = [t.requires_grad_() for t in _t(q, k, v, dtype=dtype)]
+    if dlse is None:
+        out = tops.flash_attention(*leaves, causal=causal,
+                                   q_offset=q_offset)
+        torch.autograd.backward(out, _t(do, dtype=dtype))
+        lse_ct = None
+    else:
+        out, lse = tops.flash_attention_with_lse(*leaves, causal=causal,
+                                                 q_offset=q_offset)
+        lse_ct = torch.from_numpy(dlse)
+        torch.autograd.backward((out, lse), (_t(do, dtype=dtype)[0], lse_ct))
+    tq, tk, tv = (t.detach() for t in leaves)
+    o, lse = tops.flash_attention_plain(tq, tk, tv, causal=causal,
+                                        q_offset=q_offset, with_lse=True)
+    direct = tops.flash_attention_bwd_plain(tq, tk, tv, o, lse,
+                                            _t(do, dtype=dtype)[0], lse_ct,
+                                            causal=causal, q_offset=q_offset)
+    grads = [t.grad for t in leaves]
+    for a, b in zip(grads, direct):
+        assert torch.equal(a, b)
+    return grads
+
+
+BWD_CASES = [
+    # (causal, sq, sk, q_offset, with_dlse); JAX blocks of 128, so at
+    # 256 both kernels run several blocks on each axis
+    (False, 256, 256, 0, False),
+    (True, 256, 256, 0, False),
+    (True, 128, 256, 128, False),    # rectangular causal, bottom-right
+    (True, 256, 256, 0, True),       # lse cotangent folds into di
+]
+
+
+@pytest.mark.parametrize("causal,sq,sk,q_offset,with_dlse", BWD_CASES)
+def test_flash_bwd_plain_matches_pallas_interpret(causal, sq, sk, q_offset,
+                                                  with_dlse):
+    q, k, v = _qkv(seed=8, sq=sq, sk=sk)
+    rng = np.random.RandomState(9)
+    do = rng.randn(*q.shape).astype(np.float32)
+    dlse = rng.randn(*q.shape[:3]).astype(np.float32) if with_dlse else None
+    if with_dlse:
+        _, vjp = jax.vjp(lambda *a: jops.flash_attention_with_lse(
+            *a, causal, None, 128, 128, True, q_offset), *_j(q, k, v))
+        want = vjp((jnp.asarray(do), jnp.asarray(dlse)))
+    else:
+        _, vjp = jax.vjp(lambda *a: jops.flash_attention(
+            *a, causal, None, 128, 128, True, q_offset), *_j(q, k, v))
+        want = vjp(jnp.asarray(do))
+    _grads_close(_port_grads(q, k, v, do, causal, q_offset, dlse), want)
+
+
+@pytest.mark.parametrize("causal,sq,sk", [(True, 100, 100),
+                                          (False, 70, 33)])
+def test_flash_bwd_plain_ragged_matches_reference(causal, sq, sk):
+    # lengths the Pallas path refuses: held against the naive oracle
+    q, k, v = _qkv(seed=10, sq=sq, sk=sk, d=16)
+    do = np.random.RandomState(11).randn(*q.shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda *a: jops.mha_reference(*a, causal=causal),
+                     *_j(q, k, v))
+    _grads_close(_port_grads(q, k, v, do, causal, 0), vjp(jnp.asarray(do)))
+
+
+def test_flash_bwd_plain_bf16_matches_pallas_interpret():
+    # bf16: the grads are held to 8e-3 + 2^-7*|ref|, two bf16 ulps at
+    # [0.5, 1) (the largest difference seen is one, 3.9e-3): the
+    # frameworks' f32 sums differ in order before p and ds are rounded
+    q, k, v = _qkv(seed=12, sq=256, sk=256)
+    do = np.random.RandomState(13).randn(*q.shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda *a: jops.flash_attention(
+        *a, True, None, 128, 128, True, 0),
+        *_j(q, k, v, dtype=jnp.bfloat16))
+    want = [np.asarray(g.astype(jnp.float32))
+            for g in vjp(jnp.asarray(do, jnp.bfloat16))]
+    got = _port_grads(q, k, v, do, True, 0, dtype=torch.bfloat16)
+    assert all(g.dtype == torch.bfloat16 for g in got)
+    _grads_close(got, want, atol=8e-3, rtol=2.0 ** -7)
+
+
+def test_cpu_backward_never_reaches_the_kernels():
+    def refuse(*a, **kw):
+        raise AssertionError("a CPU tensor reached a CUDA kernel wrapper")
+
+    q, k, v = (t.requires_grad_() for t in _t(*_qkv(sq=64)))
+    _kernels.reset_launch_counts()
+    with mock.patch.multiple(_kernels, flash_fwd=refuse, flash_bwd=refuse,
+                             flash_bwd_dkv=refuse, flash_bwd_dq=refuse):
+        tops.attention(q, k, v, causal=True).sum().backward()
+    assert q.grad is not None and k.grad is not None and v.grad is not None
+    assert set(_kernels.launch_counts().values()) == {0}
 
 
 # ---------------------------------------------------------------------------
@@ -233,3 +347,51 @@ def test_swiglu_matches_jax():
     wg, wu, wd = _x(15, (16, 32)), _x(16, (16, 32)), _x(17, (32, 16))
     _close(tops.swiglu(*_t(x, wg, wu, wd)), jops.swiglu(*_j(x, wg, wu, wd)),
            1e-4)
+
+
+# ---------------------------------------------------------------------------
+# cross-entropy (mirrors tests/test_ops.py's dense == fused test, here
+# port against reference, in value and in grads wrt x and the table)
+
+
+@pytest.mark.parametrize("z_loss", [0.0, 1e-4])
+@pytest.mark.parametrize("fused", [False, True])
+def test_cross_entropy_matches_jax(z_loss, fused):
+    B, S, D, V, chunk = 2, 64, 16, 37, 16
+    rng = np.random.RandomState(20)
+    x = rng.randn(B, S, D).astype(np.float32)
+    w = (rng.randn(D, V) * 0.1).astype(np.float32)
+    labels = rng.randint(0, V, (B, S))
+
+    def jloss(x, w):
+        if fused:
+            per = jops.fused_softmax_cross_entropy(
+                x, w, jnp.asarray(labels), z_loss=z_loss, chunk=chunk)
+        else:
+            per = jops.softmax_cross_entropy(
+                jnp.einsum("bsd,dv->bsv", x, w), jnp.asarray(labels),
+                z_loss=z_loss)
+        return jnp.mean(per)
+
+    ref, (gx, gw) = jax.value_and_grad(jloss, argnums=(0, 1))(*_j(x, w))
+    tx, tw = (t.requires_grad_() for t in _t(x, w))
+    tl = torch.from_numpy(labels)
+    if fused:
+        per = tops.fused_softmax_cross_entropy(tx, tw, tl, z_loss=z_loss,
+                                               chunk=chunk)
+    else:
+        per = tops.softmax_cross_entropy(tx @ tw, tl, z_loss=z_loss)
+    assert per.shape == (B, S) and per.dtype == torch.float32
+    loss = per.mean()
+    loss.backward()
+    _close(loss.detach(), ref, 1e-6)
+    _close(tx.grad, gx, 1e-6)
+    _close(tw.grad, gw, 1e-6)
+
+
+def test_fused_cross_entropy_rejects_indivisible_seq():
+    with pytest.raises(ValueError, match="chunk"):
+        tops.fused_softmax_cross_entropy(torch.zeros(1, 10, 4),
+                                         torch.zeros(4, 7),
+                                         torch.zeros(1, 10, dtype=torch.long),
+                                         chunk=16)

@@ -30,6 +30,28 @@ Phases, each of which must pass (any failure exits non-zero):
                 falling, K1/K2/K3 launched 24/12/12 times per step; in f32
                 on [4, 513] the grads through the kernels == the grads
                 through the plain versions, and loss_chunk=128 == dense.
+  8. kernels-quantize — K4 (quantize, both scale rules, deterministic and
+                stochastic), K5 (dequantize) and K6 (dequantize-accumulate,
+                world 1/2/4/8) against their plain versions, bitwise, on a
+                4 MiB gradient bucket, its requantize block, the whole
+                flattened GPT-2-small gradient, a bf16 input, a ragged
+                length and NaN/inf blocks; times against the bytes bound.
+  9. dp-train — data-parallel training over an NCCL group of one rank per
+                card (world 1 runs in-process): the train recipe of phase
+                7 with the grads synced by GradientSynchronizer("int8",
+                error feedback on) between backward and AdamW; K4/K5/K6
+                launches per step equal to the bucket layout's count; the
+                same 11 steps with an fp32 sync and with no sync; synced
+                grads through the kernels == through the plain versions;
+                int8 vs fp32 sync error below 1e-2.
+ 10. gpt-sync — mesh_allreduce(op="mean") of the flattened GPT-2-small
+                gradient, fp32 against int8 (auto chunks): times, error,
+                chunked == chunks=1 bitwise.
+
+    python3 chip_smoke.py --phases dp-train,gpt-sync
+
+runs the device and build phases and the named ones only (a development
+aid; with no arguments every phase runs).
 
 It prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -38,11 +60,15 @@ chip_smoke_out/chip_smoke.json.  Weights are random, from a seed.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import functools
 import json
+import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from unittest import mock
@@ -611,7 +637,10 @@ def phase_parity():
             "completions": outs["paged"]}
 
 
-TRAIN_LAUNCHES = {"flash_fwd": 24, "flash_bwd_dkv": 12, "flash_bwd_dq": 12}
+FLASH_TRAIN_LAUNCHES = {"flash_fwd": 24, "flash_bwd_dkv": 12,
+                        "flash_bwd_dq": 12}
+QUANT_KERNELS = ("quantize", "dequantize", "dequantize_accumulate")
+TRAIN_LAUNCHES = {**FLASH_TRAIN_LAUNCHES, **{k: 0 for k in QUANT_KERNELS}}
 
 
 def _fresh_leaves(tree):
@@ -735,8 +764,8 @@ def phase_train(kernel_ms):
         check(n == TRAIN_LAUNCHES, f"launches per train step {n}, "
               f"expected {TRAIN_LAUNCHES}")
     check(int(state["step"]) == 13, f"step count {int(state['step'])}")
-    shares = {k: kernel_ms[k] * TRAIN_LAUNCHES[k] / step_ms
-              for k in TRAIN_LAUNCHES}
+    shares = {k: kernel_ms[k] * FLASH_TRAIN_LAUNCHES[k] / step_ms
+              for k in FLASH_TRAIN_LAUNCHES} if kernel_ms else {}
     del state, metrics
     torch.cuda.empty_cache()
 
@@ -817,8 +846,596 @@ def phase_train(kernel_ms):
     return rec
 
 
-def main():
+# --- K4-K6: the int8 gradient-compression kernels ---------------------------
+
+# no single PyTorch call computes these functions: block-wise absmax
+# scales with int8 rounding (K4), per-block dequantization (K5), or the
+# in-order fused-multiply-add sum over peers of dequantized blocks (K6)
+QUANT_LIBRARY_NOTE = ("no single PyTorch call computes block-wise int8 "
+                      "quantization with per-block absmax scales, its "
+                      "per-block dequantization, or the in-order sum over "
+                      "peers of dequantized blocks")
+
+
+def _quant_input(n, dtype, seed):
+    """n values whose magnitudes span six decades, so blocks get very
+    different scales, and a leading all-zero block."""
     import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(n, generator=g, device="cuda")
+    x *= torch.exp(torch.empty(n, device="cuda").uniform_(-7, 7,
+                                                          generator=g))
+    x[:256] = 0
+    return x.to(dtype)
+
+
+def _codes_equal(what, got, want):
+    import torch
+
+    (q, s), (pq, ps) = got, want
+    check(torch.equal(s, ps), f"{what}: scales differ from the plain "
+          f"version in {(s != ps).sum().item()} blocks")
+    check(torch.equal(q, pq), f"{what}: int8 values differ from the plain "
+          f"version in {(q != pq).sum().item()} elements")
+    return max((q.int() - pq.int()).abs().max().item(),
+               (s - ps).abs().max().item())
+
+
+def _k4_bytes(n, block, esize):
+    return esize * n + n + 4 * (-(-n // block))
+
+
+def _k5_bytes(n, block, esize=4):
+    return n + 4 * (-(-n // block)) + esize * n
+
+
+def _k6_bytes(world, n, block):
+    return world * (n + 4 * (n // block)) + 4 * n
+
+
+def phase_kernels_quantize():
+    import torch
+
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.ops import quantize as qz
+
+    n_gpt = gpt.num_params(gpt.GPTConfig.gpt2_small())
+    log(f"[kernels-quantize] GPT-2-small flattened gradient: n = {n_gpt}")
+    cases = [
+        # name, n, block, dtype
+        ("bucket", 1 << 20, 256, torch.float32),
+        ("requantize", 1 << 20, 32, torch.float32),
+        ("gpt2-grad", n_gpt, 256, torch.float32),
+        ("bf16", 1 << 20, 256, torch.bfloat16),
+        ("ragged", 1_000_003, 256, torch.float32),
+    ]
+    out = {"quantize": [], "dequantize": [], "dequantize_accumulate": [],
+           "nonfinite": None, "n_gpt": n_gpt}
+    for i, (name, n, block, dtype) in enumerate(cases):
+        x = _quant_input(n, dtype, SEED + 20 + i)
+        dname = str(dtype).split(".")[-1]
+        esize = x.element_size()
+        errs = {}
+        for rule in ("divide", "reciprocal"):
+            for stochastic in (False, True):
+                kw = dict(stochastic=stochastic, seed=SEED + 5,
+                          reciprocal_scale=rule == "reciprocal")
+                errs[f"{rule}/{'stoch' if stochastic else 'det'}"] = (
+                    _codes_equal(f"K4 {name} {rule} stochastic={stochastic}",
+                                 qz.quantize_blockwise(x, block, **kw),
+                                 qz.quantize_blockwise(x, block,
+                                                       impl="plain", **kw)))
+        q, s = qz.quantize_blockwise(x, block, reciprocal_scale=True)
+        deq = {}
+        for odt in ((torch.float32, torch.bfloat16) if dtype == torch.bfloat16
+                    else (torch.float32,)):
+            got = qz.dequantize_blockwise(q, s, (n,), odt, block)
+            want = qz.dequantize_blockwise(q, s, (n,), odt, block,
+                                           impl="plain")
+            check(torch.equal(got, want), f"K5 {name} -> {odt}: differs "
+                  f"from the plain version in "
+                  f"{(got != want).sum().item()} elements")
+            deq[str(odt).split(".")[-1]] = (got.float() - want.float()).abs(
+            ).max().item()
+        torch.cuda.synchronize()
+        plain_iters = 2 if n > (1 << 24) else 5
+        k4 = {}
+        for label, kw in (("det", dict(reciprocal_scale=True)),
+                          ("stoch", dict(reciprocal_scale=True,
+                                         stochastic=True, seed=1))):
+            k4[label] = {
+                "ms": cuda_time_ms(lambda: qz.quantize_blockwise(
+                    x, block, **kw)),
+                "plain_ms": cuda_time_ms(lambda: qz.quantize_blockwise(
+                    x, block, impl="plain", **kw), iters=plain_iters,
+                    warmup=1)}
+        k4_bound = _k4_bytes(n, block, esize) / HBM_BYTES_PER_S * 1e3
+        rec4 = {"case": name, "n": n, "block": block, "dtype": dname,
+                "max_abs_err": max(errs.values()), "errors": errs,
+                "ms": k4["det"]["ms"], "plain_ms": k4["det"]["plain_ms"],
+                "stochastic_ms": k4["stoch"]["ms"],
+                "stochastic_plain_ms": k4["stoch"]["plain_ms"],
+                "bound_ms": k4_bound, "bound_by": "bytes",
+                "bytes": _k4_bytes(n, block, esize)}
+        out["quantize"].append(rec4)
+        k5_ms = cuda_time_ms(lambda: qz.dequantize_blockwise(
+            q, s, (n,), torch.float32, block))
+        k5_plain = cuda_time_ms(lambda: qz.dequantize_blockwise(
+            q, s, (n,), torch.float32, block, impl="plain"),
+            iters=plain_iters, warmup=1)
+        rec5 = {"case": name, "n": n, "block": block, "out_dtype": "float32",
+                "max_abs_err": max(deq.values()), "errors": deq,
+                "ms": k5_ms, "plain_ms": k5_plain,
+                "bound_ms": _k5_bytes(n, block) / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes", "bytes": _k5_bytes(n, block)}
+        out["dequantize"].append(rec5)
+        log(f"[kernels-quantize] {name} n={n} block={block} {dname}: K4 == "
+            f"plain (both scale rules, det + stochastic); K4 "
+            f"{rec4['ms']:.4f} ms (stochastic {rec4['stochastic_ms']:.4f}), "
+            f"plain {rec4['plain_ms']:.3f} ms, bound {k4_bound:.4f} ms; "
+            f"K5 == plain; K5 {k5_ms:.4f} ms, plain {k5_plain:.3f} ms, "
+            f"bound {rec5['bound_ms']:.4f} ms")
+        del x, q, s
+        torch.cuda.empty_cache()
+
+    # a block holding NaN takes scale 1.0, one holding inf scale inf
+    x = _quant_input(4096, torch.float32, SEED + 30)
+    x[300], x[600] = float("nan"), float("inf")
+    nf = {}
+    for rule in (False, True):
+        _, s = qz.quantize_blockwise(x, 256, reciprocal_scale=rule)
+        _, ps = qz.quantize_blockwise(x, 256, reciprocal_scale=rule,
+                                      impl="plain")
+        check(torch.equal(s, ps), f"NaN/inf scales differ (reciprocal="
+              f"{rule}): {s[:4].tolist()} vs {ps[:4].tolist()}")
+        check(s[1].item() == 1.0 and s[2].item() == float("inf"),
+              f"NaN/inf block scales {s[1].item()}, {s[2].item()}")
+        nf[f"reciprocal={rule}"] = s[:4].tolist()
+    out["nonfinite"] = nf
+    log(f"[kernels-quantize] NaN block -> scale 1.0, inf block -> scale inf, "
+        f"as the plain version: {nf}")
+
+    n = 1 << 20
+    for world in (1, 2, 4, 8):
+        x = _quant_input(world * n, torch.float32, SEED + 40 + world)
+        q, s = qz.quantize_blockwise(x.view(world, n), 256,
+                                     reciprocal_scale=True)
+        errs = {}
+        for mean in (False, True):
+            scale = qz.reciprocal(world) if mean else None
+            got = qz.dequantize_accumulate(q, s, world, 256, scale=scale)
+            want = qz.dequantize_accumulate(q, s, world, 256, impl="plain",
+                                            scale=scale)
+            check(torch.equal(got, want), f"K6 world={world} mean={mean}: "
+                  f"differs from the plain version in "
+                  f"{(got != want).sum().item()} elements")
+            errs["mean" if mean else "sum"] = (got - want).abs().max().item()
+        ms = cuda_time_ms(lambda: qz.dequantize_accumulate(q, s, world, 256))
+        plain_ms = cuda_time_ms(lambda: qz.dequantize_accumulate(
+            q, s, world, 256, impl="plain"), iters=5, warmup=1)
+        rec6 = {"case": f"world{world}", "world": world, "n": n,
+                "block": 256, "max_abs_err": max(errs.values()),
+                "errors": errs, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": _k6_bytes(world, n, 256) / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes", "bytes": _k6_bytes(world, n, 256)}
+        out["dequantize_accumulate"].append(rec6)
+        log(f"[kernels-quantize] K6 world={world} n={n}: == plain (sum and "
+            f"mean); {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{rec6['bound_ms']:.4f} ms")
+        del x, q, s
+    torch.cuda.empty_cache()
+    log(f"[kernels-quantize] library: none ({QUANT_LIBRARY_NOTE})")
+    return out
+
+
+# --- data-parallel training with int8 gradient sync -------------------------
+
+DP_STEPS = 10
+DP_MODES = ("int8", "fp32", "none")
+SYNC_RTOL = 1e-2          # the reference's bound on int8 sync error
+LOSS_GAP = 0.25           # final loss, int8 sync over fp32 sync
+
+
+def _bucket_sizes(sizes, cap):
+    """GradientSynchronizer's buckets (f32 elements each): a bucket is
+    issued once the f32 bytes pending reach ``cap``, the rest at
+    finish()."""
+    out, cur = [], 0
+    for n in sizes:
+        cur += n
+        if 4 * cur >= cap:
+            out.append(cur)
+            cur = 0
+    if cur:
+        out.append(cur)
+    return out
+
+
+def dp_predicted_launches(sizes, cc, world):
+    """K4/K5/K6 launches of one GradientSynchronizer sync of float leaves
+    of ``sizes`` elements, from the bucket layout: per compressed bucket,
+    phase 1 quantizes and accumulates once per pipeline chunk, phase 2
+    requantizes and dequantizes once per chunk (or once, when chunks
+    cannot pipeline it), and error feedback quantizes and dequantizes the
+    bucket once more."""
+    from ray_tpu_torch.collective.compression import (auto_pipeline_chunks,
+                                                      chunk_layout,
+                                                      result_block_size)
+    from ray_tpu_torch.ops.quantize import padded_len
+
+    k4 = k5 = k6 = 0
+    block, rblock = cc.block_size, result_block_size(cc.block_size)
+    for n in _bucket_sizes(sizes, cc.bucket_bytes):
+        if n < cc.min_size:
+            continue
+        sub = padded_len(n, world * block) // world
+        chunks = len(chunk_layout(sub // block,
+                                  cc.pipeline_chunks
+                                  or auto_pipeline_chunks(n, 4, "gpu")))
+        phase2 = chunks if chunks > 1 and block % rblock == 0 else 1
+        ef = 1 if cc.error_feedback else 0
+        k4 += chunks + phase2 + ef
+        k5 += phase2 + ef
+        k6 += chunks
+    return {"quantize": k4, "dequantize": k5, "dequantize_accumulate": k6}
+
+
+# ordered: the first group whose key a kernel's name holds takes it
+_DP_PROFILE_GROUPS = (("K6 dequantize_accumulate", ("dequant_accum_kernel",)),
+                      ("K5 dequantize", ("dequantize_kernel",)),
+                      ("K4 quantize", ("quantize_kernel",)),
+                      ("nccl", ("nccl",)),
+                      # a one-rank NCCL group moves its data as copies
+                      ("memcpy", ("memcpy",)))
+
+
+def _dp_profile(step, n=2):
+    """Device ms per step of K4/K5/K6, the NCCL kernels and the device
+    copies over n int8 steps (torch.profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    groups = {g: 0.0 for g, _ in _DP_PROFILE_GROUPS}
+    groups["all"] = 0.0
+    names = {}
+    for e in prof.events():
+        if (e.device_type != DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        ms = e.time_range.elapsed_us() / 1e3 / n
+        groups["all"] += ms
+        low = e.name.lower()
+        for g, keys in _DP_PROFILE_GROUPS:
+            if any(k in low for k in keys):
+                groups[g] += ms
+                names[e.name[:100]] = names.get(e.name[:100], 0.0) + ms
+                break
+    return {"device_ms_per_step": groups.pop("all"), "groups": groups,
+            "kernels": sorted(([k, v] for k, v in names.items()),
+                              key=lambda kv: -kv[1])[:10]}
+
+
+def _flat(tensors):
+    import torch
+
+    return torch.cat([t.reshape(-1).float() for t in tensors])
+
+
+def _rel(a, b):
+    return ((a - b).norm() / b.norm()).item()
+
+
+def _dp_run(mode, cfg, batch, group, world):
+    """1 warm-up and DP_STEPS timed data-parallel steps from seeded params:
+    backward, sync (per ``mode``), write the synced grads back, AdamW."""
+    import torch
+
+    from ray_tpu_torch.models import gpt, training
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.parallel import GradientSynchronizer
+
+    init_state, _ = training.make_train_step(cfg)
+    state = init_state(seed=SEED)
+    leaves = [t for _, t in training.param_leaves(state["params"])]
+    opt = state["opt_state"]
+    sync = (None if mode == "none" else GradientSynchronizer(
+        group, compression="int8" if mode == "int8" else None))
+    sync_ev, sync_host = [], []
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = gpt.loss_fn(state["params"], batch, cfg)
+        loss.backward()
+        if sync is not None:
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            t0 = time.perf_counter()
+            synced = sync([t.grad for t in leaves])
+            # the host's time to issue the sync (nothing in it waits for
+            # the card): when it exceeds the events' time, the host
+            # bounds the sync
+            sync_host.append(time.perf_counter() - t0)
+            ev[1].record()
+            sync_ev.append(ev)
+            for t, g in zip(leaves, synced):
+                t.grad = g
+        opt.step()
+        return loss.detach()
+
+    losses = [step()]
+    torch.cuda.synchronize()
+    sync_ev.clear()
+    sync_host.clear()
+    launches = []
+    t0 = time.perf_counter()
+    for _ in range(DP_STEPS):
+        _kernels.reset_launch_counts()
+        losses.append(step())
+        launches.append(_kernels.launch_counts())
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / DP_STEPS
+    sync_ms = (sum(a.elapsed_time(b) for a, b in sync_ev) / len(sync_ev)
+               if sync_ev else 0.0)
+    host_ms = 1e3 * sum(sync_host) / len(sync_host) if sync_host else 0.0
+    rec = {"mode": mode, "losses": torch.stack(losses).float().tolist(),
+           "step_ms": step_ms,
+           "tokens_per_s": world * batch["tokens"].shape[0]
+           * (batch["tokens"].shape[1] - 1) / (step_ms / 1e3),
+           "sync_ms": sync_ms, "sync_share": sync_ms / step_ms,
+           "sync_host_ms": host_ms,
+           "launches": launches}
+    if mode == "int8":
+        rec["profile"] = _dp_profile(step)
+    return rec, state, leaves
+
+
+def _dp_sync_checks(state, leaves, cfg, batch, group):
+    """One fresh backward on the trained params: its grads synced through
+    the kernels == synced through the plain versions (bitwise, with the
+    error-feedback residuals), and the int8 sync against the fp32 sync
+    within the reference's 1e-2 relative L2 error."""
+    import torch
+
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.ops import quantize as qz
+    from ray_tpu_torch.parallel import GradientSynchronizer
+
+    for t in leaves:
+        t.grad = None
+    gpt.loss_fn(state["params"], batch, cfg).backward()
+    grads = [t.grad.detach().clone() for t in leaves]
+    sync_k = GradientSynchronizer(group, compression="int8")
+    _kernels.reset_launch_counts()
+    got = sync_k(grads)
+    kernel_launches = _kernels.launch_counts()
+    sync_p = GradientSynchronizer(group, compression="int8")
+    with mock.patch.object(qz, "_use_kernel", lambda t, impl: False):
+        _kernels.reset_launch_counts()
+        want = sync_p(grads)
+        check(set(_kernels.launch_counts().values()) == {0},
+              "the plain-version sync launched a kernel")
+    torch.cuda.synchronize()
+    bad = [i for i, (a, b) in enumerate(zip(got, want))
+           if not torch.equal(a, b)]
+    check(not bad, f"synced grads through the kernels differ from the "
+          f"plain versions in leaves {bad}")
+    res_k, res_p = sync_k.residuals, sync_p.residuals
+    check(res_k.keys() == res_p.keys()
+          and all(torch.equal(res_k[k], res_p[k]) for k in res_k),
+          "error-feedback residuals through the kernels differ from the "
+          "plain versions")
+    fp32 = GradientSynchronizer(group, compression=None)(grads)
+    rel = _rel(_flat(got), _flat(fp32))
+    check(rel < SYNC_RTOL, f"int8 sync vs fp32 sync: relative L2 error "
+          f"{rel:.4g} >= {SYNC_RTOL}")
+    rel_local = _rel(_flat(got), _flat(grads))
+    return {"rel_err_vs_fp32_sync": rel, "rel_err_vs_local_grads": rel_local,
+            "leaves": len(grads), "kernel_launches": kernel_launches}
+
+
+def _gpt_sync(grads, group_handle):
+    """mesh_allreduce(op="mean") of the flattened gradient, fp32 against
+    int8 (auto chunks): times, error, chunked == chunks=1 bitwise."""
+    import torch
+
+    from ray_tpu_torch.collective import nccl_group
+    from ray_tpu_torch.collective.compression import parse_compression
+    from ray_tpu_torch.ops import _kernels
+
+    pg = group_handle.pg
+    flat = _flat(grads)
+    auto = nccl_group.resolve_chunks(parse_compression("int8"), flat)
+    _kernels.reset_launch_counts()
+    q8 = nccl_group.mesh_allreduce(flat, pg, op="mean", compression="int8")
+    launches = _kernels.launch_counts()
+    mono = nccl_group.mesh_allreduce(flat, pg, op="mean",
+                                     compression="int8:chunks=1")
+    full = nccl_group.mesh_allreduce(flat, pg, op="mean")
+    torch.cuda.synchronize()
+    check(torch.equal(q8, mono), f"chunked ({auto}) int8 allreduce differs "
+          f"from chunks=1 in {(q8 != mono).sum().item()} elements")
+    rel = _rel(q8, full)
+    check(rel < SYNC_RTOL, f"int8 allreduce of the GPT gradient: relative "
+          f"error {rel:.4g} >= {SYNC_RTOL}")
+    ms = {"fp32": cuda_time_ms(lambda: nccl_group.mesh_allreduce(
+              flat, pg, op="mean"), iters=5, warmup=1),
+          "int8": cuda_time_ms(lambda: nccl_group.mesh_allreduce(
+              flat, pg, op="mean", compression="int8"), iters=5, warmup=1),
+          "int8_chunks1": cuda_time_ms(lambda: nccl_group.mesh_allreduce(
+              flat, pg, op="mean", compression="int8:chunks=1"), iters=5,
+              warmup=1)}
+    return {"n": flat.numel(), "chunks": auto, "ms": ms,
+            "rel_err_int8_vs_fp32": rel, "launches_int8": launches}
+
+
+def _dp_body(rank, world, init_method):
+    """One rank of the dp-train and gpt-sync phases (all of them at world
+    1); returns rank 0's record."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.collective import collective as col
+    from ray_tpu_torch.collective.compression import parse_compression
+    from ray_tpu_torch.models import gpt, training
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gh = col.init_collective_group(world, rank, backend="nccl",
+                                   group_name="dp", init_method=init_method)
+    try:
+        cfg = gpt.GPTConfig.gpt2_small()
+        B, S = 16, 512
+        tokens = torch.from_numpy(np.random.RandomState(SEED + rank).randint(
+            0, cfg.vocab_size, (B, S + 1))).cuda()
+        batch = {"tokens": tokens}
+        sizes = [math.prod(shape) for _, shape in
+                 training.param_leaves(gpt.param_shapes(cfg))]
+        cc = parse_compression("int8")
+        predicted = {**FLASH_TRAIN_LAUNCHES,
+                     **dp_predicted_launches(sizes, cc, world)}
+        runs = {}
+        for mode in DP_MODES:
+            rec, state, leaves = _dp_run(mode, cfg, batch, "dp", world)
+            losses = rec["losses"]
+            check(all(np.isfinite(losses)), f"dp {mode}: non-finite loss "
+                  f"{losses}")
+            if mode == "int8":
+                for n in rec["launches"]:
+                    check(n == predicted, f"dp int8 launches per step {n}, "
+                          f"the bucket layout predicts {predicted}")
+                checks = _dp_sync_checks(state, leaves, cfg, batch, "dp")
+                sync_rec = _gpt_sync([t.grad for t in leaves], gh)
+            else:
+                want = {**FLASH_TRAIN_LAUNCHES,
+                        **{k: 0 for k in QUANT_KERNELS}}
+                for n in rec["launches"]:
+                    check(n == want, f"dp {mode} launches per step {n}, "
+                          f"expected {want}")
+            runs[mode] = rec
+            del state, leaves
+            torch.cuda.empty_cache()
+        gap = runs["int8"]["losses"][-1] - runs["fp32"]["losses"][-1]
+        check(gap <= LOSS_GAP, f"final loss with int8 sync "
+              f"{runs['int8']['losses'][-1]:.4f} exceeds the fp32 sync's "
+              f"{runs['fp32']['losses'][-1]:.4f} by {gap:.4f} > {LOSS_GAP}")
+        return {"dp_train": {"world": world, "tokens": [B, S + 1],
+                             "steps": DP_STEPS, "runs": runs,
+                             "predicted_launches": predicted,
+                             "final_loss_gap_int8_minus_fp32": gap,
+                             "checks": checks,
+                             "buckets": _bucket_sizes(sizes,
+                                                      cc.bucket_bytes)},
+                "gpt_sync": sync_rec}
+    finally:
+        col.destroy_collective_group("dp")
+
+
+def _dp_rank_entry(rank, world, init_method, out_path):
+    rec = _dp_body(rank, world, init_method)
+    if rank == 0:
+        Path(out_path).write_text(json.dumps(rec))
+
+
+def phase_dp_train():
+    """Runs dp-train and gpt-sync on one rank per card: in-process at
+    world 1, one spawned process per card otherwise."""
+    import multiprocessing
+
+    import torch
+
+    world = torch.cuda.device_count()
+    if world == 1:
+        rec = _dp_body(0, 1, None)
+    else:
+        with tempfile.TemporaryDirectory() as tmp:
+            ctx = multiprocessing.get_context("spawn")
+            out = os.path.join(tmp, "dp.json")
+            procs = [ctx.Process(target=_dp_rank_entry,
+                                 args=(r, world, f"file://{tmp}/store", out))
+                     for r in range(world)]
+            for p in procs:
+                p.start()
+            deadline = time.monotonic() + 900
+            for p in procs:
+                p.join(max(0.0, deadline - time.monotonic()))
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+            codes = [p.exitcode for p in procs]
+            check(codes == [0] * world, f"dp ranks exited with {codes}")
+            rec = json.loads(Path(out).read_text())
+    dp, gs = rec["dp_train"], rec["gpt_sync"]
+    for mode in DP_MODES:
+        r = dp["runs"][mode]
+        log(f"[dp-train] world {dp['world']} sync={mode}: {r['step_ms']:.2f} "
+            f"ms/step = {r['tokens_per_s']:.0f} tokens/s; sync "
+            f"{r['sync_ms']:.2f} ms/step ({r['sync_share']:.1%} of the "
+            f"step; the host takes {r['sync_host_ms']:.2f} ms to issue "
+            f"it); losses {[round(x, 4) for x in r['losses']]}")
+    log(f"[dp-train] launches per int8 step {dp['runs']['int8']['launches'][-1]}"
+        f" == predicted from {len(dp['buckets'])} buckets "
+        f"{dp['predicted_launches']}")
+    log(f"[dp-train] final loss int8 - fp32 = "
+        f"{dp['final_loss_gap_int8_minus_fp32']:.4f} (limit {LOSS_GAP}); "
+        f"synced grads kernels == plain (bitwise, residuals too); int8 vs "
+        f"fp32 sync rel L2 {dp['checks']['rel_err_vs_fp32_sync']:.4g} "
+        f"(limit {SYNC_RTOL}), vs local grads "
+        f"{dp['checks']['rel_err_vs_local_grads']:.4g}")
+    prof = dp["runs"]["int8"]["profile"]
+    log(f"[dp-train] profile (torch.profiler, 2 int8 steps): device busy "
+        f"{prof['device_ms_per_step']:.2f} ms/step; "
+        + ", ".join(f"{g} {ms:.3f}" for g, ms in prof["groups"].items())
+        + " ms/step")
+    for name, ms in prof["kernels"]:
+        log(f"[dp-train]   {ms:8.3f} ms/step  {name}")
+    log(f"[gpt-sync] mesh_allreduce mean of n={gs['n']} f32: fp32 "
+        f"{gs['ms']['fp32']:.3f} ms, int8 ({gs['chunks']} chunks) "
+        f"{gs['ms']['int8']:.3f} ms, int8 chunks=1 "
+        f"{gs['ms']['int8_chunks1']:.3f} ms; rel err int8 vs fp32 "
+        f"{gs['rel_err_int8_vs_fp32']:.4g} (limit {SYNC_RTOL}); chunked == "
+        f"chunks=1 bitwise; launches {gs['launches_int8']}")
+    return dp, gs
+
+
+
+def _kernel_entry(k, case, launches_by_path, **extra):
+    entry = {"name": k.name, "route": "cuda",
+             "source": f"ray_tpu_torch/csrc/{k.source}",
+             "replaces": k.replaces.split()[0],
+             "launches": launches_by_path["dp_train_step"]
+             if k.name in QUANT_KERNELS else launches_by_path["train_step"],
+             "launches_by_path": launches_by_path,
+             "max_abs_err": case["max_abs_err"],
+             "ms": case["ms"], "plain_ms": case["plain_ms"],
+             "bound_ms": case["bound_ms"], "bound_by": case["bound_by"]}
+    entry.update(extra)
+    return entry
+
+
+PHASES = ("kernels", "forward", "serve", "parity", "train",
+          "kernels-quantize", "dp-train")
+
+
+def main(argv=None):
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ",".join(PHASES)
+                    + " (gpt-sync runs with dp-train)")
+    phases = set(ap.parse_args(argv).phases.split(","))
+    unknown = phases - set(PHASES)
+    if unknown:
+        raise SmokeFailure(f"unknown phases {sorted(unknown)}")
 
     report = {}
     report["device"] = phase_device()
@@ -827,57 +1444,86 @@ def main():
     from ray_tpu_torch.ops import _kernels
 
     report["build"] = phase_build()
-    report["kernels"] = phase_kernels()
-    report["kernels_bwd"] = phase_kernels_bwd()
+    if "kernels" in phases:
+        report["kernels"] = phase_kernels()
+        report["kernels_bwd"] = phase_kernels_bwd()
 
     cfg = gpt.GPTConfig.gpt2_small()
     params = gpt.init(cfg, seed=SEED)
-    report["forward"] = phase_forward(params, cfg)
-    report["serve"] = phase_serve(params, cfg)
+    if "forward" in phases:
+        report["forward"] = phase_forward(params, cfg)
+    if "serve" in phases:
+        report["serve"] = phase_serve(params, cfg)
     del params
     torch.cuda.empty_cache()
-    report["parity"] = phase_parity()
+    if "parity" in phases:
+        report["parity"] = phase_parity()
 
-    k1 = report["kernels"][0]
-    k1_train = next(c for c in report["kernels"] if c["case"] == "train+lse")
-    bwd = report["kernels_bwd"][0]
-    report["train"] = phase_train({"flash_fwd": k1_train["ms"],
-                                   "flash_bwd_dkv": bwd["dkv"]["ms"],
-                                   "flash_bwd_dq": bwd["dq"]["ms"]})
+    if "train" in phases:
+        kernel_ms = None
+        if "kernels" in phases:
+            k1_train = next(c for c in report["kernels"]
+                            if c["case"] == "train+lse")
+            bwd = report["kernels_bwd"][0]
+            kernel_ms = {"flash_fwd": k1_train["ms"],
+                         "flash_bwd_dkv": bwd["dkv"]["ms"],
+                         "flash_bwd_dq": bwd["dq"]["ms"]}
+        report["train"] = phase_train(kernel_ms)
+        torch.cuda.empty_cache()
+    if "kernels-quantize" in phases:
+        report["kernels_quantize"] = phase_kernels_quantize()
+    if "dp-train" in phases:
+        report["dp_train"], report["gpt_sync"] = phase_dp_train()
 
-    train_launches = report["train"]["launches_per_step"]
-    entries = []
-    for k, case in ((_kernels.FLASH_FWD, k1),
-                    (_kernels.FLASH_BWD_DKV, bwd["dkv"]),
-                    (_kernels.FLASH_BWD_DQ, bwd["dq"])):
-        entry = {
-            "name": k.name, "route": "cuda",
-            "source": f"ray_tpu_torch/csrc/{k.source}",
-            "replaces": k.replaces.split()[0],
-            "launches": train_launches[k.name],
-            "launches_by_path": {
-                "forward": (report["forward"]["flash_launches"]
-                            if k is _kernels.FLASH_FWD else 0),
-                "serve": (report["serve"]["flash_launches"]
-                          if k is _kernels.FLASH_FWD else 0),
-                "train_step": train_launches[k.name]},
-            "max_abs_err": case["max_abs_err"],
-            "ms": case["ms"], "plain_ms": case["plain_ms"],
-            "bound_ms": case["bound_ms"], "bound_by": case["bound_by"]}
-        if k is _kernels.FLASH_FWD:
-            entry["max_err"] = case["max_abs_err"]
-            entry["library_ms"] = case["library_ms"]
-            entry["shape"] = k1["shape"]
-        else:
-            # one sdpa backward call computes dq, dk and dv together: the
-            # same number stands in both entries, as the pair's yardstick
-            entry["library_ms"] = bwd["library_ms_pair"]
-            entry["library_of"] = "flash_bwd_dkv+flash_bwd_dq"
-            entry["shape"] = bwd["shape"]
-        entries.append(entry)
-    line = {"kernels": entries}
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps(report, indent=1))
+    if phases != set(PHASES):
+        log(f"[smoke] ran phases {sorted(phases)} only: no kernels line")
+        return
+    dp_launches = report["dp_train"]["runs"]["int8"]["launches"][-1]
+    train_launches = report["train"]["launches_per_step"]
+
+    def by_path(name):
+        return {"forward": (report["forward"]["flash_launches"]
+                            if name == "flash_fwd" else 0),
+                "serve": (report["serve"]["flash_launches"]
+                          if name == "flash_fwd" else 0),
+                "train_step": train_launches[name],
+                "dp_train_step": dp_launches[name]}
+
+    k1 = report["kernels"][0]
+    bwd = report["kernels_bwd"][0]
+    kq = report["kernels_quantize"]
+    world = report["dp_train"]["world"]
+    entries = [
+        _kernel_entry(_kernels.FLASH_FWD, k1, by_path("flash_fwd"),
+                      max_err=k1["max_abs_err"],
+                      library_ms=k1["library_ms"], shape=k1["shape"]),
+        # one sdpa backward call computes dq, dk and dv together: the
+        # same number stands in both entries, as the pair's yardstick
+        _kernel_entry(_kernels.FLASH_BWD_DKV, bwd["dkv"],
+                      by_path("flash_bwd_dkv"),
+                      library_ms=bwd["library_ms_pair"],
+                      library_of="flash_bwd_dkv+flash_bwd_dq",
+                      shape=bwd["shape"]),
+        _kernel_entry(_kernels.FLASH_BWD_DQ, bwd["dq"],
+                      by_path("flash_bwd_dq"),
+                      library_ms=bwd["library_ms_pair"],
+                      library_of="flash_bwd_dkv+flash_bwd_dq",
+                      shape=bwd["shape"])]
+    # K4-K6 at the dp path's shapes: a 4 MiB bucket, block 256 (K6 at the
+    # dp path's world)
+    for k, case in ((_kernels.QUANTIZE, kq["quantize"][0]),
+                    (_kernels.DEQUANTIZE, kq["dequantize"][0]),
+                    (_kernels.DEQUANTIZE_ACCUMULATE,
+                     next(c for c in kq["dequantize_accumulate"]
+                          if c["world"] == min(world, 8)))):
+        entries.append(_kernel_entry(
+            k, case, by_path(k.name), library_ms=None,
+            library_note=QUANT_LIBRARY_NOTE,
+            shape={"n": case["n"], "block": case["block"],
+                   "world": case.get("world", 1)}))
+    line = {"kernels": entries}
     log(report["device"]["nvidia_smi"])     # name, power limit
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {

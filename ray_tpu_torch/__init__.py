@@ -1,4 +1,5 @@
-"""ray_tpu_torch: the PyTorch/CUDA port of ray_tpu's model and serving path.
+"""ray_tpu_torch: the PyTorch/CUDA port of ray_tpu's model, serving and
+collective path.
 
 A second package beside ``ray_tpu`` (the JAX reference, which it never
 imports).  Plain tensor math is PyTorch; every Pallas TPU kernel on the
@@ -18,7 +19,14 @@ Layout mirrors ``ray_tpu``:
   * ``models.training`` — the single-device train step (AdamW);
   * ``models.convert`` — the JAX parameter tree and AdamW state (numpy
     leaves) ↔ port;
-  * ``serve._engine`` — the continuous-batching engine.
+  * ``serve._engine`` — the continuous-batching engine;
+  * ``ops.quantize`` — block-wise int8 quantization (K4-K6's plain
+    versions and dispatch);
+  * ``collective`` — the group API over ``torch.distributed`` (store
+    rendezvous, nccl/gloo), the rank-local collectives with their
+    int8-compressed paths, the compression config and codec;
+  * ``parallel.sharding`` — ``GradientSynchronizer``, the bucketed,
+    error-feedback gradient sync of data-parallel training.
 """
 
 from ray_tpu_torch._device import resolve_device

@@ -1,0 +1,368 @@
+"""Collectives over a ``torch.distributed`` process group: NCCL for CUDA
+tensors, gloo for CPU tensors.
+
+Counterpart of ``ray_tpu/collective/xla_group.py`` (the reference Ray
+calls this layer ``nccl_collective_group.py``).  The reference compiles
+each collective as a ``shard_map`` program over a mesh, driven by one
+controller that passes ONE global array; here every rank is its own
+process and the contract is rank-local: each rank passes its own shard
+and gets its own result (the shard the reference's ``out_specs`` would
+give that device).  ``group`` is a process group (None: the default
+one); its size is the reference's mesh axis size and the rank in it the
+``axis_index``.
+
+The quantized (EQuARX-style) paths move int8 blocks and f32 per-block
+scales (``ops/quantize.py``'s layout) and run the reference's compiled
+arithmetic step for step (the scale's and the mean's divisions by
+constants as products with f32 reciprocals, as XLA compiles them), so
+with deterministic rounding they give its results bit for bit: quantize (K4) -> ``all_to_all`` -> dequantize-accumulate (K6)
+-> requantize at the finer result block (K4) -> ``all_gather`` ->
+dequantize (K5).  Stochastic draws keep the reference's seed arithmetic
+(``seed * world + rank + chunk``, ``+ 1`` for the requantize), so they
+reproduce from run to run; the bits themselves are the port's own.
+
+Not ported: ``impl="fused"`` (K7, one kernel doing quantize, remote-DMA
+exchange and accumulate; ROADMAP A.6) and ``profile=True`` (the fenced
+stage programs and their flight-recorder breakdown; ROADMAP A.5).  Both
+raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple, Union
+
+import torch
+import torch.distributed as dist
+
+from ray_tpu_torch.collective.compression import (CompressionConfig,
+                                                  auto_pipeline_chunks,
+                                                  chunk_layout,
+                                                  parse_compression,
+                                                  result_block_size)
+from ray_tpu_torch.ops.quantize import (dequantize_accumulate,
+                                        dequantize_blockwise, padded_len,
+                                        quantize_blockwise, reciprocal)
+
+Group = Optional[dist.ProcessGroup]
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "mean": dist.ReduceOp.SUM,
+               "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
+
+
+def _world_rank(group: Group) -> Tuple[int, int]:
+    return dist.get_world_size(group), dist.get_rank(group)
+
+
+def _global_rank(group: Group, rank: int) -> int:
+    return rank if group is None else dist.get_global_rank(group, rank)
+
+
+def _backend(x: torch.Tensor) -> str:
+    """auto_pipeline_chunks's backend string for where x lies."""
+    return "gpu" if x.device.type == "cuda" else "cpu"
+
+
+def _mean(x: torch.Tensor, world: int) -> torch.Tensor:
+    """A sum over ``world`` ranks made a mean as the reference's compiled
+    ``pmean`` makes it: times the f32 reciprocal of world."""
+    if not x.is_floating_point():
+        x = x.to(torch.float32)
+    return x * torch.full((), reciprocal(world), dtype=x.dtype,
+                          device=x.device)
+
+
+def _check_impl(impl: str, profile: bool) -> None:
+    if profile:
+        raise NotImplementedError(
+            "profile=True (the fenced stage programs that report quantize/"
+            "transfer/dequantize seconds to the flight recorder) is not "
+            "ported; it comes with the tracing slice, ROADMAP A.5")
+    if impl in ("fused", "fused_interpret"):
+        raise NotImplementedError(
+            "impl='fused' (K7: one kernel doing quantize, remote-DMA "
+            "exchange and accumulate) is not ported; it needs peer memory "
+            "across cards and comes with the meshes slice, ROADMAP A.6")
+    if impl not in ("auto", "plain"):
+        raise ValueError(f"unknown impl {impl!r} (the port has 'auto': the "
+                         f"Hopper kernels for CUDA tensors; and 'plain')")
+
+
+def resolve_chunks(cc: CompressionConfig, x: torch.Tensor) -> int:
+    """The pipeline chunk count the quantized allreduce takes for x: the
+    config's, or auto (by payload bytes on the card, 1 on the CPU)."""
+    if cc.pipeline_chunks:
+        return cc.pipeline_chunks
+    return auto_pipeline_chunks(x.numel(), x.element_size(), _backend(x))
+
+
+def mesh_allreduce(x: torch.Tensor, group: Group = None, op: str = "sum",
+                   compression: Union[None, str, CompressionConfig] = None,
+                   seed: int = 0, impl: str = "auto",
+                   profile: bool = False) -> torch.Tensor:
+    """Allreduce this rank's tensor with its peers'; returns a new tensor
+    of x's shape and dtype (reference API: collective.py:258 allreduce).
+
+    compression: a CompressionConfig / spec string ("int8",
+    "int8:block=512") switches to the two-phase quantized path (sum/mean
+    only), chunked per ``CompressionConfig.pipeline_chunks`` (0 = auto):
+    the quantize of chunk k+1 runs on the compute stream while chunk k's
+    ``all_to_all`` is in flight.  Chunked and monolithic results are
+    bit-identical for deterministic rounding.  ``impl="plain"`` runs the
+    kernels' plain versions on any device.  ``seed`` feeds stochastic
+    rounding."""
+    _check_impl(impl, profile)
+    if op not in _REDUCE_OPS:
+        raise ValueError(f"unknown reduce op {op!r}")
+    cc = parse_compression(compression)
+    if cc is None:
+        return _allreduce(x, group, op)
+    if op not in ("sum", "mean"):
+        raise ValueError(f"compressed allreduce supports op in "
+                         f"('sum', 'mean'), got {op!r}")
+    return _q_allreduce(x, int(seed), group, op, cc.block_size,
+                        cc.stochastic, resolve_chunks(cc, x), impl)
+
+
+def _allreduce(x: torch.Tensor, group: Group, op: str,
+               async_op: bool = False):
+    """Full-precision allreduce into a copy of x; with async_op, returns
+    (out, finish) where finish() waits and applies the mean."""
+    world, _ = _world_rank(group)
+    out = x.clone(memory_format=torch.contiguous_format)
+    work = dist.all_reduce(out, op=_REDUCE_OPS[op], group=group,
+                           async_op=async_op)
+
+    def finish():
+        if work is not None:
+            work.wait()
+        return _mean(out, world) if op == "mean" else out
+
+    return (out, finish) if async_op else finish()
+
+
+def _exchange(q: torch.Tensor, s: torch.Tensor, group: Group):
+    """Start the reduce-scatter hop: rank p receives row p of every
+    peer's [world, ...] codes, in peer order (``lax.all_to_all`` tiled on
+    axis 0)."""
+    qx, sx = torch.empty_like(q), torch.empty_like(s)
+    works = (dist.all_to_all_single(qx, q, group=group, async_op=True),
+             dist.all_to_all_single(sx, s, group=group, async_op=True))
+    return qx, sx, works
+
+
+def _gather(q: torch.Tensor, s: torch.Tensor, world: int, group: Group):
+    """Start the all-gather of every rank's codes, in rank order."""
+    qg = q.new_empty(world * q.numel())
+    sg = s.new_empty(world * s.numel())
+    works = (dist.all_gather_into_tensor(qg, q, group=group, async_op=True),
+             dist.all_gather_into_tensor(sg, s, group=group, async_op=True))
+    return qg, sg, works
+
+
+def _wait(works) -> None:
+    for w in works:
+        w.wait()
+
+
+def _q_allreduce(x: torch.Tensor, seed: int, group: Group, op: str,
+                 block: int, stochastic: bool, chunks: int,
+                 impl: str) -> torch.Tensor:
+    """Chunked, software-pipelined two-phase quantized allreduce (the
+    reference's ``_q_allreduce_impl``).
+
+    The flat payload is padded to a world*block multiple, viewed as
+    [world, sub], and split column-wise into block-aligned chunks
+    (``chunk_layout``).  Per chunk: quantize (K4, reading the column
+    slice in place) -> ``all_to_all`` -> dequantize-accumulate (K6, the
+    mean's 1/world fused) -> requantize at the finer result block (K4)
+    -> ``all_gather`` -> dequantize (K5).  Chunk boundaries land on block
+    and result-block boundaries, so every per-block scale and the
+    accumulation order over peers are those of ``chunks=1``."""
+    world, idx = _world_rank(group)
+    shape, dtype = x.shape, x.dtype
+    flat = x.reshape(-1).to(torch.float32)
+    n = flat.numel()
+    total = padded_len(n, world * block)
+    if total != n:
+        flat = torch.cat([flat, flat.new_zeros(total - n)])
+    sub = total // world
+    layout = chunk_layout(sub // block, chunks)
+    csizes = [nb * block for nb in layout]
+    offs = [sum(csizes[:c]) for c in range(len(csizes))]
+    C = len(csizes)
+    x2d = flat.view(world, sub)
+    rblock = result_block_size(block)
+    # phase 2 pipelines per chunk only when chunk boundaries are also
+    # result-block boundaries; otherwise the reduced chunks are
+    # restitched and phase 2 runs once — bit-identical either way
+    p2_chunked = C > 1 and block % rblock == 0
+    mean_scale = reciprocal(world) if op == "mean" else None
+
+    def quantize_chunk(c):
+        return quantize_blockwise(x2d[:, offs[c]:offs[c] + csizes[c]], block,
+                                  stochastic=stochastic,
+                                  seed=seed * world + idx + c, impl=impl,
+                                  reciprocal_scale=True)
+
+    def requant_chunk(c, red_c):
+        return quantize_blockwise(red_c, rblock, stochastic=stochastic,
+                                  seed=seed * world + idx + c + 1, impl=impl,
+                                  reciprocal_scale=True)
+
+    def stitch(qg, sg, csz):
+        # every rank's piece may carry rblock padding: dequantize all of
+        # it row-wise and strip the padding
+        out = dequantize_blockwise(qg, sg, (qg.numel(),), torch.float32,
+                                   rblock, impl=impl)
+        return out.view(world, -1)[:, :csz]
+
+    # phase 1: exchange chunk c while quantizing chunk c+1
+    reds = [None] * C
+    q, s = quantize_chunk(0)
+    for c in range(C):
+        qx, sx, works = _exchange(q, s, group)
+        if c + 1 < C:
+            q, s = quantize_chunk(c + 1)
+        _wait(works)
+        reds[c] = dequantize_accumulate(qx, sx, world, block, impl=impl,
+                                        scale=mean_scale)
+
+    # phase 2: gather chunk c while requantizing chunk c+1
+    if p2_chunked:
+        out2d = torch.empty((world, sub), dtype=torch.float32,
+                            device=x.device)
+        q2, s2 = requant_chunk(0, reds[0])
+        for c in range(C):
+            qg, sg, works = _gather(q2, s2, world, group)
+            if c + 1 < C:
+                q2, s2 = requant_chunk(c + 1, reds[c + 1])
+            _wait(works)
+            out2d[:, offs[c]:offs[c] + csizes[c]] = stitch(qg, sg, csizes[c])
+    else:
+        red = reds[0] if C == 1 else torch.cat(reds)
+        q2, s2 = requant_chunk(0, red)
+        qg, sg, works = _gather(q2, s2, world, group)
+        _wait(works)
+        out2d = stitch(qg, sg, sub)
+    return out2d.reshape(-1)[:n].reshape(shape).to(dtype)
+
+
+def mesh_reducescatter(x: torch.Tensor, group: Group = None,
+                       compression: Union[None, str,
+                                          CompressionConfig] = None,
+                       seed: int = 0) -> torch.Tensor:
+    """Reduce across the group, leave each rank its chunk (reference API:
+    collective.py:472 reducescatter).  x is this rank's contribution of N
+    elements ([1, N] as the reference's shard, or [N]); returns rank r's
+    reduced chunk, elements [r*N/world, (r+1)*N/world), shaped like x with
+    its last dim N/world.  With ``compression``, contributions travel as
+    int8 blocks + scales (sum semantics, lossy)."""
+    world, idx = _world_rank(group)
+    row = x.reshape(-1)
+    if row.numel() % world:
+        raise ValueError(f"reducescatter needs the payload ({row.numel()} "
+                         f"elements) divisible by the group size ({world})")
+    sub = row.numel() // world
+    out_shape = tuple(x.shape[:-1]) + (sub,)
+    cc = parse_compression(compression)
+    if cc is None:
+        out = row.new_empty(sub)
+        dist.reduce_scatter_tensor(out, row.contiguous(), op=dist.ReduceOp.SUM,
+                                   group=group)
+        return out.reshape(out_shape)
+    block = cc.block_size
+    sub_pad = padded_len(sub, block)
+    chunks = row.to(torch.float32).view(world, sub)
+    if sub_pad != sub:
+        chunks = torch.nn.functional.pad(chunks, (0, sub_pad - sub))
+    q, s = quantize_blockwise(chunks, block, stochastic=cc.stochastic,
+                              seed=seed * world + idx, reciprocal_scale=True)
+    qx, sx, works = _exchange(q, s, group)
+    _wait(works)
+    red = dequantize_accumulate(qx, sx, world, block)
+    return red[:sub].reshape(out_shape).to(x.dtype)
+
+
+def mesh_allgather(x: torch.Tensor, group: Group = None,
+                   compression: Union[None, str, CompressionConfig] = None,
+                   seed: int = 0) -> torch.Tensor:
+    """Each rank contributes its shard; all get the concatenation along
+    dim 0, in rank order (reference API: collective.py:423 allgather).
+    With ``compression``, shards travel as int8 blocks + scales and are
+    dequantized on arrival (lossy; see compression.py)."""
+    world, idx = _world_rank(group)
+    out_shape = (world * x.shape[0],) + tuple(x.shape[1:])
+    cc = parse_compression(compression)
+    if cc is None:
+        out = x.new_empty(out_shape)
+        dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+        return out
+    block = cc.block_size
+    flat = x.reshape(-1).to(torch.float32)
+    n = flat.numel()
+    npad = padded_len(n, block)
+    q, s = quantize_blockwise(flat, block, stochastic=cc.stochastic,
+                              seed=seed * world + idx, reciprocal_scale=True)
+    qg, sg, works = _gather(q, s, world, group)
+    _wait(works)
+    out = dequantize_blockwise(qg, sg, (world * npad,), torch.float32, block)
+    return out.view(world, npad)[:, :n].reshape(out_shape).to(x.dtype)
+
+
+def mesh_broadcast(x: torch.Tensor, group: Group = None,
+                   root: int = 0) -> torch.Tensor:
+    """Every rank receives root's shard (reference API: collective.py:373).
+    Every rank passes a tensor of root's shape and dtype."""
+    out = x.clone(memory_format=torch.contiguous_format)
+    dist.broadcast(out, src=_global_rank(group, int(root)), group=group)
+    return out
+
+
+def mesh_ppermute(x: torch.Tensor, perm: Sequence[Tuple[int, int]],
+                  group: Group = None) -> torch.Tensor:
+    """Point-to-point shard rotation (reference API: collective.py:531/:594
+    send/recv, ``lax.ppermute``): for each (src, dst) in ``perm``, rank
+    dst receives rank src's shard; a rank no pair sends to gets zeros."""
+    world, idx = _world_rank(group)
+    perm = [(int(a), int(b)) for a, b in perm]
+    srcs, dsts = [a for a, _ in perm], [b for _, b in perm]
+    if (len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts)
+            or not all(0 <= r < world for r in srcs + dsts)):
+        raise ValueError(f"perm {perm} is not a partial permutation of "
+                         f"ranks 0..{world - 1}")
+    out = torch.zeros_like(x, memory_format=torch.contiguous_format)
+    src = x.contiguous()
+    ops: List[dist.P2POp] = []
+    for a, b in perm:
+        if a == idx and b == idx:
+            out.copy_(src)
+        elif a == idx:
+            ops.append(dist.P2POp(dist.isend, src, _global_rank(group, b),
+                                  group))
+        elif b == idx:
+            ops.append(dist.P2POp(dist.irecv, out, _global_rank(group, a),
+                                  group))
+    if ops:
+        _wait(dist.batch_isend_irecv(ops))
+    return out
+
+
+def mesh_all_to_all(x: torch.Tensor, group: Group = None,
+                    split_axis: int = 1,
+                    concat_axis: int = 0) -> torch.Tensor:
+    """All-to-all reshard — the Ulysses/MoE-dispatch primitive (reference:
+    ``lax.all_to_all`` tiled).  This rank's shard is split along
+    ``split_axis`` into ``world`` pieces, piece j goes to rank j, and the
+    pieces received are concatenated along ``concat_axis`` in source
+    order."""
+    world, _ = _world_rank(group)
+    split_axis %= x.dim()
+    if x.shape[split_axis] % world:
+        raise ValueError(f"split axis {split_axis} of size "
+                         f"{x.shape[split_axis]} does not divide into "
+                         f"{world} pieces")
+    send = x.movedim(split_axis, 0).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    pieces = recv.view((world, -1) + tuple(send.shape[1:]))
+    return torch.cat([p.movedim(0, split_axis) for p in pieces.unbind(0)],
+                     dim=concat_axis)

@@ -63,7 +63,17 @@ FLASH_BWD_DKV = Kernel(
 FLASH_BWD_DQ = Kernel(
     name="flash_bwd_dq", source="flash_bwd.cu",
     replaces="ray_tpu/ops/attention.py:335 _flash_bwd_dq_kernel")
-KERNELS: Tuple[Kernel, ...] = (FLASH_FWD, FLASH_BWD_DKV, FLASH_BWD_DQ)
+QUANTIZE = Kernel(
+    name="quantize", source="quantize.cu",
+    replaces="ray_tpu/ops/quantize.py:94 _quantize_kernel")
+DEQUANTIZE = Kernel(
+    name="dequantize", source="quantize.cu",
+    replaces="ray_tpu/ops/quantize.py:116 _dequantize_kernel")
+DEQUANTIZE_ACCUMULATE = Kernel(
+    name="dequantize_accumulate", source="quantize.cu",
+    replaces="ray_tpu/ops/quantize.py:120 _dequant_accum_kernel")
+KERNELS: Tuple[Kernel, ...] = (FLASH_FWD, FLASH_BWD_DKV, FLASH_BWD_DQ,
+                               QUANTIZE, DEQUANTIZE, DEQUANTIZE_ACCUMULATE)
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}   # guarded-by: _lock   (by source)
@@ -153,6 +163,19 @@ def _bind(source: str, lib: ctypes.CDLL) -> None:
         lib.rtt_flash_bwd_dkv.restype = i
         lib.rtt_flash_bwd_dq.argtypes = [p] * 7 + [i] * 8 + [f, p]
         lib.rtt_flash_bwd_dq.restype = i
+    elif source == QUANTIZE.source:
+        ll, u = ctypes.c_longlong, ctypes.c_uint
+        # x, dtype, rows, cols, row_stride, block, nblocks,
+        # reciprocal_scale, stochastic, key, q, scales, stream
+        lib.rtt_quantize.argtypes = [p, i, ll, ll, ll, i, ll, i, i, u, p, p,
+                                     p]
+        lib.rtt_quantize.restype = i
+        # q, scales, out, out_dtype, n, block, stream
+        lib.rtt_dequantize.argtypes = [p, p, p, i, i, i, p]
+        lib.rtt_dequantize.restype = i
+        # q, scales, out, world, m, block, post_scale, stream
+        lib.rtt_dequantize_accumulate.argtypes = [p, p, p, i, i, i, f, p]
+        lib.rtt_dequantize_accumulate.restype = i
 
 
 def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
@@ -289,3 +312,154 @@ def flash_bwd(q, k, v, do, lse, di, *, causal: bool, scale: float,
     dq = flash_bwd_dq(q, k, v, do, lse, di, causal=causal, scale=scale,
                       q_offset=q_offset)
     return dq, dk, dv
+
+
+# --- K4-K6: block-wise int8 quantize / dequantize / accumulate ------------
+
+_QUANT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernels index elements with 32-bit ints (and K4's bits hash a
+# 32-bit flat index)
+_MAX_ELEMS = 2 ** 31 - 1
+
+
+def _check_cuda(what: str, *named: Tuple[str, torch.Tensor]) -> None:
+    for name, t in named:
+        if t.device.type != "cuda":
+            raise ValueError(f"{what}: {name} is on {t.device}, not cuda")
+        if t.device != named[0][1].device:
+            raise ValueError(f"{what}: inputs must be on one device")
+
+
+def _check_block_size(what: str, block_size: int) -> None:
+    if not 1 <= block_size <= 4096:
+        raise ValueError(f"{what}: block_size {block_size} outside the "
+                         f"kernel's [1, 4096]")
+
+
+def _check_elems(what: str, n: int) -> None:
+    if n > _MAX_ELEMS:
+        raise ValueError(f"{what}: {n} elements exceed the kernel's 32-bit "
+                         f"indexing ({_MAX_ELEMS})")
+
+
+def row_strided(x: torch.Tensor, block_size: int) -> bool:
+    """Whether K4 reads x row by row through its row stride: 2-D, unit
+    column stride, whole blocks in every row (a column slice of a
+    contiguous tensor, as the collectives' chunks are)."""
+    return (x.dim() == 2 and x.shape[0] > 1 and x.stride(1) == 1
+            and x.shape[1] % block_size == 0)
+
+
+def quantize(x: torch.Tensor, block_size: int, *, stochastic: bool = False,
+             key: int = 0, reciprocal_scale: bool = False
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K4 (csrc/quantize.cu): (q int8 [npad], scales f32
+    [nblocks]) under ``ops.quantize``'s block layout.  x is a CUDA
+    float32 or bfloat16 tensor: contiguous (read flat, the last block
+    padded with zeros), or 2-D with unit column stride and whole blocks
+    in every row (read row by row through its row stride).  ``key`` is
+    the 32-bit stochastic key (``ops.quantize.stochastic_key``);
+    ``reciprocal_scale`` takes scale = absmax * f32(1/127) instead of
+    absmax / 127 (see ``ops.quantize.quantize_blockwise``)."""
+    _check_cuda("quantize", ("x", x))
+    _check_block_size("quantize", block_size)
+    if x.dtype not in _QUANT_DTYPES:
+        raise ValueError(f"quantize: x has dtype {x.dtype}; the kernel "
+                         f"takes float32 or bfloat16")
+    if row_strided(x, block_size):
+        rows, cols, row_stride = x.shape[0], x.shape[1], x.stride(0)
+    elif x.is_contiguous():
+        rows, cols, row_stride = 1, x.numel(), x.numel()
+    else:
+        raise ValueError("quantize: x must be contiguous, or 2-D with unit "
+                         "column stride and rows of whole blocks")
+    n = rows * cols
+    npad = n + (-n) % block_size
+    _check_elems("quantize", npad)
+    nblocks = npad // block_size
+    q = torch.empty(npad, dtype=torch.int8, device=x.device)
+    s = torch.empty(nblocks, dtype=torch.float32, device=x.device)
+    if nblocks == 0:
+        return q, s
+    lib = _load(QUANTIZE)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.rtt_quantize(x.data_ptr(), _QUANT_DTYPES[x.dtype], rows,
+                               cols, row_stride, block_size, nblocks,
+                               int(bool(reciprocal_scale)),
+                               int(bool(stochastic)), int(key) & 0xFFFFFFFF,
+                               q.data_ptr(), s.data_ptr(), stream)
+    _check(lib, err, "quantize")
+    QUANTIZE.launches += 1
+    return q, s
+
+
+def _check_codes(what: str, q: torch.Tensor, scales: torch.Tensor) -> None:
+    _check_cuda(what, ("q", q), ("scales", scales))
+    if q.dtype != torch.int8 or scales.dtype != torch.float32:
+        raise ValueError(f"{what}: q must be int8 and scales float32, got "
+                         f"{q.dtype} and {scales.dtype}")
+    if not (q.is_contiguous() and scales.is_contiguous()):
+        raise ValueError(f"{what}: q and scales must be contiguous")
+    _check_elems(what, q.numel())
+
+
+def dequantize(q: torch.Tensor, scales: torch.Tensor, n: int,
+               block_size: int, dtype: torch.dtype) -> torch.Tensor:
+    """Launch K5 (csrc/quantize.cu): the first ``n`` elements of
+    q · scales[block], flat, in ``dtype`` (float32 or bfloat16).  q is
+    int8 with at least n elements, scales f32 with one per block of
+    them."""
+    _check_codes("dequantize", q, scales)
+    _check_block_size("dequantize", block_size)
+    if dtype not in _QUANT_DTYPES:
+        raise ValueError(f"dequantize: output dtype {dtype}; the kernel "
+                         f"writes float32 or bfloat16")
+    if not 0 <= n <= q.numel() or scales.numel() < -(-n // block_size):
+        raise ValueError(f"dequantize: {n} elements need q of at least {n} "
+                         f"and {-(-n // block_size)} scales, got "
+                         f"{q.numel()} and {scales.numel()}")
+    out = torch.empty(n, dtype=dtype, device=q.device)
+    if n == 0:
+        return out
+    lib = _load(DEQUANTIZE)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.rtt_dequantize(q.data_ptr(), scales.data_ptr(),
+                                 out.data_ptr(), _QUANT_DTYPES[dtype], n,
+                                 block_size, stream)
+    _check(lib, err, "dequantize")
+    DEQUANTIZE.launches += 1
+    return out
+
+
+def dequantize_accumulate(q: torch.Tensor, scales: torch.Tensor, world: int,
+                          block_size: int,
+                          post_scale: float = 1.0) -> torch.Tensor:
+    """Launch K6 (csrc/quantize.cu): f32 [m], the in-order sum over
+    ``world`` peers (1..16) of q[p] · scales[p], q int8 [world * m] and
+    scales f32 [world * m / block_size], m a block multiple; each sum then
+    multiplied by the f32 ``post_scale`` (1.0: exact)."""
+    _check_codes("dequantize_accumulate", q, scales)
+    _check_block_size("dequantize_accumulate", block_size)
+    if not 1 <= world <= 16 or q.numel() % world:
+        raise ValueError(f"dequantize_accumulate: world {world} must be in "
+                         f"[1, 16] and divide q's {q.numel()} elements")
+    m = q.numel() // world
+    if m % block_size or scales.numel() != world * (m // block_size):
+        raise ValueError(f"dequantize_accumulate: {world} peers of {m} "
+                         f"elements need whole blocks of {block_size} and "
+                         f"{world * (m // block_size)} scales, got "
+                         f"{scales.numel()}")
+    out = torch.empty(m, dtype=torch.float32, device=q.device)
+    if m == 0:
+        return out
+    lib = _load(DEQUANTIZE_ACCUMULATE)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.rtt_dequantize_accumulate(
+            q.data_ptr(), scales.data_ptr(), out.data_ptr(), world, m,
+            block_size, float(post_scale), stream)
+    _check(lib, err, "dequantize_accumulate")
+    DEQUANTIZE_ACCUMULATE.launches += 1
+    return out

@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: importing it loads neither JAX nor any
 module of the JAX package, its entry points refuse to fall back to the
-CPU silently, and its sources call no library attention and no
-torch.compile."""
+CPU silently (an NCCL collective group with no card raises), and its
+sources call no library attention and no torch.compile."""
 
 import os
 import re
@@ -25,6 +25,12 @@ import ray_tpu_torch.models.gpt as gpt
 import ray_tpu_torch.models.convert
 import ray_tpu_torch.models.training as training
 import ray_tpu_torch.serve
+import ray_tpu_torch.ops.quantize as quantize
+import ray_tpu_torch.collective as collective
+import ray_tpu_torch.collective.compression
+import ray_tpu_torch.collective.nccl_group
+import ray_tpu_torch.parallel as parallel
+import ray_tpu_torch.parallel.sharding
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "ray_tpu" or m.startswith("ray_tpu."))
@@ -36,13 +42,22 @@ for call in (lambda: gpt.apply(params, [[1, 2, 3]], cfg),
              lambda: gpt.generate(params, cfg, [[1, 2]], 2),
              lambda: gpt.loss_fn(params, {"tokens": [[1, 2, 3]]}, cfg),
              lambda: training.make_train_step(cfg),
-             lambda: training.make_eval_step(cfg)):
+             lambda: training.make_eval_step(cfg),
+             lambda: collective.init_collective_group(1, 0, backend="nccl")):
     try:
         call()
     except RuntimeError as e:
         assert "CUDA" in str(e), e
     else:
         raise AssertionError("ran without a device and without CUDA")
+import torch.distributed as dist
+assert not dist.is_initialized()
+try:
+    collective.init_collective_group(1, 0, backend="kv")
+except NotImplementedError as e:
+    assert "A.4" in str(e), e
+else:
+    raise AssertionError("the kv backend ran")
 print("ok")
 """
 

@@ -7,7 +7,9 @@ file imports no JAX, so it also runs where only PyTorch is installed:
 (the variable keeps tests/conftest.py from pinning JAX to the CPU).
 Tolerances: bf16 outputs within one bf16 ulp (4e-3 + 2^-7*|ref|), f32
 outputs and lse at 1e-4 (summation order).  The backward kernels' dq,
-dk, dv are held to the same limits against their plain version.
+dk, dv are held to the same limits against their plain version.  The
+quantize kernels K4-K6 are held to their plain versions bitwise: int8
+values, scales and f32 sums all equal.
 """
 
 import concurrent.futures
@@ -18,6 +20,7 @@ import torch
 from ray_tpu_torch.ops import (_kernels, flash_attention,
                                flash_attention_bwd_plain,
                                flash_attention_plain, flash_bwd_di)
+from ray_tpu_torch.ops import quantize as qz
 
 torch.set_num_threads(1)
 
@@ -177,8 +180,9 @@ def test_flash_attention_grad_runs_the_kernels(gpu):
     _kernels.reset_launch_counts()
     out = flash_attention(*leaves, causal=True)
     out.transpose(1, 2).backward(do.transpose(1, 2))
-    assert _kernels.launch_counts() == {"flash_fwd": 1, "flash_bwd_dkv": 1,
-                                        "flash_bwd_dq": 1}
+    assert _kernels.launch_counts() == {
+        "flash_fwd": 1, "flash_bwd_dkv": 1, "flash_bwd_dq": 1, "quantize": 0,
+        "dequantize": 0, "dequantize_accumulate": 0}
     want = _kernels.flash_bwd(q, k, v, do, lse, flash_bwd_di(o, do),
                               causal=True, scale=64 ** -0.5)
     for a, b in zip(leaves, want):
@@ -207,3 +211,128 @@ def test_flash_bwd_rejects_what_it_does_not_take(gpu):
         _kernels.flash_bwd(h, h, h, h, lse, di, **kw)
     with pytest.raises(ValueError, match="cuda"):
         _kernels.flash_bwd(q.cpu(), k, v, do, lse, di, **kw)
+
+
+QUANT_CASES = [
+    # (dtype, shape, block)
+    (torch.float32, (1 << 20,), 256),       # a 4 MiB gradient bucket
+    (torch.float32, (1 << 20,), 32),        # its requantize block
+    (torch.float32, (10, 100), 256),        # tail not a block multiple
+    (torch.float32, (5000,), 100),
+    (torch.float32, (4097,), 4096),
+    (torch.float32, (7,), 1),
+    (torch.bfloat16, (5000,), 256),
+    (torch.bfloat16, (3, 1000), 16),
+]
+
+
+def _quant_input(gpu, dtype, shape, seed=2):
+    g = torch.Generator(device=gpu).manual_seed(seed)
+    x = torch.randn(shape, generator=g, device=gpu)
+    # blocks of very different magnitudes, and an all-zero block
+    x = x * torch.logspace(-3, 3, x.numel(), device=gpu).view(shape)
+    x.view(-1)[:min(64, x.numel())] = 0
+    return x.to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule", ["divide", "reciprocal"])
+@pytest.mark.parametrize("stochastic", [False, True])
+@pytest.mark.parametrize("dtype,shape,block", QUANT_CASES)
+def test_quantize_kernel_matches_plain(gpu, dtype, shape, block, stochastic,
+                                       rule):
+    x = _quant_input(gpu, dtype, shape)
+    kw = dict(stochastic=stochastic, seed=11,
+              reciprocal_scale=rule == "reciprocal")
+    before = _kernels.QUANTIZE.launches
+    q, s = qz.quantize_blockwise(x, block, **kw)
+    assert _kernels.QUANTIZE.launches == before + 1
+    pq, ps = qz.quantize_blockwise(x, block, impl="plain", **kw)
+    torch.cuda.synchronize()
+    assert q.dtype == torch.int8 and s.dtype == torch.float32
+    assert torch.equal(s, ps), (s != ps).sum()
+    assert torch.equal(q, pq), (q != pq).sum()
+
+
+@pytest.mark.cuda
+def test_quantize_kernel_reads_a_row_strided_chunk(gpu):
+    """The collectives quantize a column slice [world, csz] of [world,
+    sub] in place: the same codes as the contiguous copy."""
+    x = _quant_input(gpu, torch.float32, (4, 3 * 512))
+    chunk = x[:, 512:1024]
+    assert not chunk.is_contiguous()
+    before = _kernels.QUANTIZE.launches
+    q, s = qz.quantize_blockwise(chunk, 256, reciprocal_scale=True)
+    assert _kernels.QUANTIZE.launches == before + 1
+    pq, ps = qz.quantize_blockwise(chunk.contiguous(), 256, impl="plain",
+                                   reciprocal_scale=True)
+    assert torch.equal(q, pq) and torch.equal(s, ps)
+
+
+@pytest.mark.cuda
+def test_quantize_kernel_nan_and_inf_blocks(gpu):
+    """A NaN block fails absmax > 0 and takes scale 1.0, an inf block
+    takes scale inf, as the plain version (and the reference)."""
+    x = _quant_input(gpu, torch.float32, (1024,))
+    x[300] = float("nan")
+    x[600] = float("inf")
+    _, s = qz.quantize_blockwise(x, 256)
+    _, ps = qz.quantize_blockwise(x, 256, impl="plain")
+    assert torch.equal(s, ps)
+    assert s[1].item() == 1.0 and s[2].item() == float("inf")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,block", [((1 << 20,), 256), ((10, 100), 256),
+                                         ((5000,), 32)])
+def test_dequantize_kernel_matches_plain(gpu, dtype, shape, block):
+    q, s = qz.quantize_blockwise(_quant_input(gpu, torch.float32, shape),
+                                 block, impl="plain")
+    before = _kernels.DEQUANTIZE.launches
+    out = qz.dequantize_blockwise(q, s, shape, dtype, block)
+    assert _kernels.DEQUANTIZE.launches == before + 1
+    want = qz.dequantize_blockwise(q, s, shape, dtype, block, impl="plain")
+    assert out.dtype == dtype and out.shape == torch.Size(shape)
+    assert torch.equal(out, want)
+    err = qz.quantization_error(_quant_input(gpu, dtype, shape), block)
+    assert torch.equal(err, qz.quantization_error(
+        _quant_input(gpu, dtype, shape), block, impl="plain"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [1, 2, 3, 4, 8, 16])
+@pytest.mark.parametrize("mean", [False, True])
+def test_dequantize_accumulate_kernel_matches_plain(gpu, world, mean):
+    x = _quant_input(gpu, torch.float32, (world, 8192))
+    q, s = qz.quantize_blockwise(x, 256, impl="plain")
+    scale = qz.reciprocal(world) if mean else None
+    before = _kernels.DEQUANTIZE_ACCUMULATE.launches
+    out = qz.dequantize_accumulate(q, s, world, 256, scale=scale)
+    assert _kernels.DEQUANTIZE_ACCUMULATE.launches == before + 1
+    want = qz.dequantize_accumulate(q, s, world, 256, impl="plain",
+                                    scale=scale)
+    assert out.shape == (8192,)
+    assert torch.equal(out, want), (out != want).sum()
+
+
+@pytest.mark.cuda
+def test_quantize_kernels_reject_what_they_do_not_take(gpu):
+    x = torch.randn(1024, device=gpu)
+    with pytest.raises(ValueError, match="block_size"):
+        _kernels.quantize(x, 8192)
+    with pytest.raises(ValueError, match="dtype"):
+        _kernels.quantize(x.half(), 256)
+    with pytest.raises(ValueError, match="contiguous"):
+        _kernels.quantize(x.view(32, 32).t(), 16)
+    with pytest.raises(ValueError, match="cuda"):
+        _kernels.quantize(x.cpu(), 256)
+    q, s = _kernels.quantize(x, 256)
+    with pytest.raises(ValueError, match="world"):
+        _kernels.dequantize_accumulate(q.repeat(17), s.repeat(17), 17, 256)
+    with pytest.raises(ValueError, match="scales"):
+        _kernels.dequantize_accumulate(q, s[:2], 1, 256)
+    with pytest.raises(ValueError, match="int8"):
+        _kernels.dequantize(q.float(), s, 1024, 256, torch.float32)
+    with pytest.raises(ValueError, match="JAX package"):
+        qz.quantize_blockwise(x, 256, impl="pallas")

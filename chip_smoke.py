@@ -36,17 +36,29 @@ Phases, each of which must pass (any failure exits non-zero):
                 4 MiB gradient bucket, its requantize block, the whole
                 flattened GPT-2-small gradient, a bf16 input, a ragged
                 length and NaN/inf blocks; times against the bytes bound.
-  9. dp-train — data-parallel training over an NCCL group of one rank per
+  9. kernels-fused — K7 (the fused int8 reduce-scatter over CUDA peer
+                memory) against its plain version and the staged K4 -> K6
+                hop, bitwise, sum and mean: a real one-rank NCCL group
+                (a 4 MiB bucket, the dp path's and gpt-sync's chunks, a
+                ragged length, NaN/inf blocks) and every rank of worlds
+                2/4/8 in one cooperative launch on the card; 100 calls
+                back to back; a peer that never arrives fails in its
+                bound.  Times against the bytes bound.
+ 10. dp-train — data-parallel training over an NCCL group of one rank per
                 card (world 1 runs in-process): the train recipe of phase
                 7 with the grads synced by GradientSynchronizer("int8",
-                error feedback on) between backward and AdamW; K4/K5/K6
-                launches per step equal to the bucket layout's count; the
-                same 11 steps with an fp32 sync and with no sync; synced
-                grads through the kernels == through the plain versions;
-                int8 vs fp32 sync error below 1e-2.
- 10. gpt-sync — mesh_allreduce(op="mean") of the flattened GPT-2-small
-                gradient, fp32 against int8 (auto chunks): times, error,
-                chunked == chunks=1 bitwise.
+                error feedback on) between backward and AdamW; K4/K5/K6/K7
+                launches per step equal to the bucket layout's count under
+                the reference's fused-hop rule; the same 11 steps with the
+                fused hop forced on every chunk (K7), with an fp32 sync
+                and with no sync; synced grads through the kernels ==
+                through the plain versions == with the fused hop ==
+                with RAY_TPU_FUSED_RS=0; int8 vs fp32 sync error below
+                1e-2.
+ 11. gpt-sync — mesh_allreduce(op="mean") of the flattened GPT-2-small
+                gradient, fp32 against int8 (auto chunks) against int8
+                with impl="fused": times, error, chunked == chunks=1 and
+                fused == staged bitwise, K7's device ms.
 
     python3 chip_smoke.py --phases dp-train,gpt-sync
 
@@ -61,6 +73,7 @@ chip_smoke_out/chip_smoke.json.  Weights are random, from a seed.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import json
@@ -639,7 +652,8 @@ def phase_parity():
 
 FLASH_TRAIN_LAUNCHES = {"flash_fwd": 24, "flash_bwd_dkv": 12,
                         "flash_bwd_dq": 12}
-QUANT_KERNELS = ("quantize", "dequantize", "dequantize_accumulate")
+QUANT_KERNELS = ("quantize", "dequantize", "dequantize_accumulate",
+                 "fused_reduce_scatter")
 TRAIN_LAUNCHES = {**FLASH_TRAIN_LAUNCHES, **{k: 0 for k in QUANT_KERNELS}}
 
 
@@ -1029,10 +1043,242 @@ def phase_kernels_quantize():
     return out
 
 
+# --- K7: the fused int8 reduce-scatter over peer memory --------------------
+
+FUSED_LIBRARY_NOTE = ("no PyTorch call computes the quantize -> peer "
+                      "exchange -> in-order dequantize-accumulate hop")
+NVLINK_BYTES_PER_S = 450e9     # H100 SXM NVLink 4: 450 GB/s each way per card
+FUSED_REPEATS = 100
+FUSED_BLOCK = 256
+
+
+def _k7_bytes(world, sub, block=FUSED_BLOCK):
+    """K7's bytes for one rank: read 4*w*sub, store codes w*sub and scales
+    4*w*nblk, read both back, write 4*sub."""
+    nblk = sub // block
+    return 4 * world * sub + 2 * (world * sub + 4 * world * nblk) + 4 * sub
+
+
+def _k7_link_bytes(world, sub, block=FUSED_BLOCK):
+    """The bytes one rank's K7 sends to other cards: w-1 rows of codes and
+    their scales."""
+    return (world - 1) * (sub + 4 * (sub // block))
+
+
+def _same_bits(a, b):
+    """Equal, NaN where NaN (its payload aside)."""
+    import torch
+
+    return (torch.equal(a.isnan(), b.isnan())
+            and torch.equal(torch.where(a.isnan(), 0, a),
+                            torch.where(b.isnan(), 0, b)))
+
+
+def _fused_input(lead, sub, seed, nonfinite=False):
+    """[*lead, sub] from _quant_input's spread of magnitudes; with
+    nonfinite, a NaN block and an inf block in the first and last row."""
+    import torch
+
+    n = math.prod(lead) * sub
+    x = _quant_input(n, torch.float32, seed).view(*lead, sub)
+    if nonfinite:
+        x.view(-1, sub)[0, 7] = float("nan")
+        x.view(-1, sub)[-1, 300] = float("inf")
+        x.view(-1, sub)[-1, 5000 % sub] = float("-inf")
+    return x
+
+
+def _staged_hop_loopback(xs, scale):
+    """Every rank's staged hop on one card: K4 of its rows, the exchange as
+    a transpose, K6."""
+    import torch
+
+    from ray_tpu_torch.ops import quantize as qz
+
+    world, _, sub = xs.shape
+    codes = [qz.quantize_blockwise(xs[r], FUSED_BLOCK, reciprocal_scale=True)
+             for r in range(world)]
+    out = []
+    for d in range(world):
+        q = torch.cat([c.view(world, sub)[d] for c, _ in codes])
+        s = torch.cat([c.view(world, -1)[d] for _, c in codes])
+        out.append(qz.dequantize_accumulate(q, s, world, FUSED_BLOCK,
+                                            scale=scale))
+    return torch.stack(out)
+
+
+def _staged_hop(x2d, pg, scale):
+    """One rank's staged hop over the group: K4, all_to_all, K6."""
+    from ray_tpu_torch.collective import nccl_group
+    from ray_tpu_torch.ops import quantize as qz
+
+    q, s = qz.quantize_blockwise(x2d, FUSED_BLOCK, reciprocal_scale=True)
+    qx, sx, works = nccl_group._exchange(q, s, pg)
+    nccl_group._wait(works)
+    return qz.dequantize_accumulate(qx, sx, x2d.shape[0], FUSED_BLOCK,
+                                    scale=scale)
+
+
+def _dp_chunk_sub(n, world):
+    """The largest per-rank chunk the quantized allreduce cuts from n f32
+    at auto chunks (the collectives' layout)."""
+    from ray_tpu_torch.collective.compression import (auto_pipeline_chunks,
+                                                      chunk_layout)
+    from ray_tpu_torch.ops.quantize import padded_len
+
+    sub = padded_len(n, world * FUSED_BLOCK) // world
+    return max(chunk_layout(sub // FUSED_BLOCK,
+                            auto_pipeline_chunks(n, 4, "gpu"))) * FUSED_BLOCK
+
+
+def phase_kernels_fused():
+    """K7 against its plain version and the staged K4 -> K6 hop, bitwise:
+    a real one-rank NCCL group, and every rank of worlds 2/4/8 in one
+    cooperative launch on the card (loopback); 100 back-to-back calls; a
+    peer that never arrives."""
+    import torch
+
+    from ray_tpu_torch.collective import collective as col
+    from ray_tpu_torch.collective.peer_memory import PeerBuffers
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.ops import quantize as qz
+
+    n_gpt = gpt.num_params(gpt.GPTConfig.gpt2_small())
+    n_wte = 50304 * 768          # the dp path's largest bucket (wte alone)
+    out = {"cases": [], "repeat": None, "timeout": None}
+
+    def run_case(world, label, sub, timed, fused, plain, staged, nonfinite,
+                 lead):
+        x = _fused_input(lead, sub, SEED + 60 + world + len(out["cases"]),
+                         nonfinite)
+        for op in ("sum", "mean"):
+            scale = qz.reciprocal(world) if op == "mean" else None
+            got, want, st = (fused(x, scale), plain(x, scale),
+                             staged(x, scale))
+            torch.cuda.synchronize()
+            check(_same_bits(got, want), f"K7 world {world} {label} {op}: "
+                  f"differs from the plain version in "
+                  f"{(got != want).sum().item()} elements")
+            check(_same_bits(got, st), f"K7 world {world} {label} {op}: "
+                  f"differs from the staged K4 -> K6 hop in "
+                  f"{(got != st).sum().item()} elements")
+            check(not nonfinite or got.isnan().any().item(),
+                  f"K7 {label}: the NaN block left no NaN")
+        ranks = world if len(lead) == 2 else 1
+        rec = {"world": world, "case": label, "sub": sub,
+               "ranks_per_launch": ranks, "max_abs_err": 0.0,
+               "bytes": ranks * _k7_bytes(world, sub),
+               "bound_ms": ranks * _k7_bytes(world, sub) / HBM_BYTES_PER_S
+               * 1e3, "bound_by": "bytes"}
+        if timed:
+            rec["ms"] = cuda_time_ms(lambda: fused(x, None))
+            rec["staged_ms"] = cuda_time_ms(lambda: staged(x, None))
+            rec["plain_ms"] = cuda_time_ms(lambda: plain(x, None), iters=2,
+                                           warmup=1)
+        out["cases"].append(rec)
+        log(f"[kernels-fused] world {world} {label} sub={sub} "
+            f"({ranks} rank(s) per launch): K7 == plain == staged K4->K6 "
+            f"bitwise (sum, mean)" + (
+                f"; K7 {rec['ms']:.4f} ms, staged {rec['staged_ms']:.4f} "
+                f"ms, plain {rec['plain_ms']:.3f} ms, bound "
+                f"{rec['bound_ms']:.4f} ms (bytes)" if timed else ""))
+        del x
+
+    # a real one-rank NCCL group: the peer buffers of init_collective_group
+    gh = col.init_collective_group(1, 0, backend="nccl",
+                                   group_name="fused1")
+    try:
+        check(gh.peers is not None, "a one-rank NCCL group got no peer "
+              "memory")
+        pg = gh.pg
+        for label, sub, timed, nonfinite in (
+                ("bucket", 1 << 20, True, False),
+                ("dp-chunk", _dp_chunk_sub(n_wte, 1), True, False),
+                ("gpt-sync-chunk", _dp_chunk_sub(n_gpt, 1), True, False),
+                ("ragged", qz.padded_len(1_000_003, FUSED_BLOCK), False,
+                 False),
+                ("nonfinite", 1 << 16, False, True)):
+            run_case(1, label, sub, timed,
+                     lambda x, sc: qz.fused_reduce_scatter(
+                         x, pg, FUSED_BLOCK, scale=sc),
+                     lambda x, sc: qz.fused_reduce_scatter_plain(
+                         x, pg, FUSED_BLOCK, scale=sc),
+                     lambda x, sc: _staged_hop(x, pg, sc),
+                     nonfinite, (1,))
+        gh.peers.check()
+    finally:
+        col.destroy_collective_group("fused1")
+
+    for world in (2, 4, 8):
+        peers = PeerBuffers.loopback(world)
+        try:
+            for label, sub, timed, nonfinite in (
+                    ("bucket", (1 << 20) // world, True, False),
+                    ("dp-chunk", _dp_chunk_sub(n_wte, world), True, False),
+                    ("ragged", qz.padded_len(1_000_003, world * FUSED_BLOCK)
+                     // world, False, False),
+                    ("nonfinite", 1 << 14, False, True)):
+                run_case(world, label, sub, timed,
+                         lambda x, sc: qz.fused_reduce_scatter_loopback(
+                             x, peers, FUSED_BLOCK, scale=sc),
+                         lambda x, sc: qz.fused_reduce_scatter_loopback_plain(
+                             x, FUSED_BLOCK, scale=sc),
+                         _staged_hop_loopback, nonfinite,
+                         (world, world))
+            peers.check()
+            if world == 4:
+                # epochs: every call reuses the rows of the one before
+                x = _fused_input((world, world), (1 << 20) // world,
+                                 SEED + 90)
+                e0 = peers.epoch
+                for i in range(FUSED_REPEATS):
+                    xi = x * float(1 + i % 7)
+                    got = qz.fused_reduce_scatter_loopback(xi, peers)
+                    check(_same_bits(got, _staged_hop_loopback(xi, None)),
+                          f"K7 call {i} of {FUSED_REPEATS} back to back "
+                          f"differs from the staged hop")
+                peers.check()
+                check(peers.epoch == e0 + FUSED_REPEATS,
+                      f"epoch {peers.epoch} after {FUSED_REPEATS} calls")
+                out["repeat"] = {"world": world, "calls": FUSED_REPEATS,
+                                 "sub": (1 << 20) // world,
+                                 "epochs": [e0 + 1, peers.epoch]}
+                log(f"[kernels-fused] {FUSED_REPEATS} back-to-back calls at "
+                    f"world {world}: each == the staged hop (epochs "
+                    f"{e0 + 1}..{peers.epoch})")
+        finally:
+            peers.close()
+        torch.cuda.empty_cache()
+
+    # a peer that never arrives: the launch ends within its bound, raises
+    peers = PeerBuffers.loopback(2, timeout_s=0.25)
+    try:
+        x = _fused_input((1, 2), 1024, SEED + 91)
+        t0 = time.perf_counter()
+        qz.fused_reduce_scatter_loopback(x, peers)
+        try:
+            peers.check()
+            raised = None
+        except RuntimeError as e:
+            raised = str(e)
+        waited = time.perf_counter() - t0
+    finally:
+        peers.close()
+    check(raised is not None and "did not arrive" in raised,
+          f"K7 with a missing peer did not raise: {raised}")
+    out["timeout"] = {"timeout_s": 0.25, "returned_after_s": waited,
+                      "error": raised}
+    log(f"[kernels-fused] missing peer: the launch gave up and raised after "
+        f"{waited:.2f} s (bound 0.25 s): {raised}")
+    log(f"[kernels-fused] library: none ({FUSED_LIBRARY_NOTE})")
+    return out
+
+
 # --- data-parallel training with int8 gradient sync -------------------------
 
 DP_STEPS = 10
-DP_MODES = ("int8", "fp32", "none")
+DP_MODES = ("int8", "int8-fused", "fp32", "none")
 SYNC_RTOL = 1e-2          # the reference's bound on int8 sync error
 LOSS_GAP = 0.25           # final loss, int8 sync over fp32 sync
 
@@ -1052,37 +1298,65 @@ def _bucket_sizes(sizes, cap):
     return out
 
 
-def dp_predicted_launches(sizes, cc, world):
-    """K4/K5/K6 launches of one GradientSynchronizer sync of float leaves
-    of ``sizes`` elements, from the bucket layout: per compressed bucket,
-    phase 1 quantizes and accumulates once per pipeline chunk, phase 2
-    requantizes and dequantizes once per chunk (or once, when chunks
-    cannot pipeline it), and error feedback quantizes and dequantizes the
-    bucket once more."""
+def dp_predicted_launches(sizes, cc, world, peers=True, fused=None):
+    """K4/K5/K6/K7 launches of one GradientSynchronizer sync of float
+    leaves of ``sizes`` elements, from the bucket layout.  Per compressed
+    bucket, phase 1 runs once per pipeline chunk: K7 where the reference's
+    rule picks the fused hop (``_resolve_rs_impl``: world > 1, a block
+    multiple of 128, deterministic rounding, the chunk under the 8 MiB
+    VMEM cap, ``peers`` — the group has peer memory), else K4 and K6;
+    phase 2 requantizes and dequantizes once per chunk (or once, when
+    chunks cannot pipeline it); error feedback quantizes and dequantizes
+    the bucket once more.  ``fused=True`` counts a run that forces the
+    fused hop on every chunk."""
     from ray_tpu_torch.collective.compression import (auto_pipeline_chunks,
                                                       chunk_layout,
                                                       result_block_size)
+    from ray_tpu_torch.collective.nccl_group import _resolve_rs_impl
     from ray_tpu_torch.ops.quantize import padded_len
 
-    k4 = k5 = k6 = 0
+    k4 = k5 = k6 = k7 = 0
     block, rblock = cc.block_size, result_block_size(cc.block_size)
     for n in _bucket_sizes(sizes, cc.bucket_bytes):
         if n < cc.min_size:
             continue
         sub = padded_len(n, world * block) // world
-        chunks = len(chunk_layout(sub // block,
-                                  cc.pipeline_chunks
-                                  or auto_pipeline_chunks(n, 4, "gpu")))
+        layout = chunk_layout(sub // block,
+                              cc.pipeline_chunks
+                              or auto_pipeline_chunks(n, 4, "gpu"))
+        chunks = len(layout)
         phase2 = chunks if chunks > 1 and block % rblock == 0 else 1
         ef = 1 if cc.error_feedback else 0
-        k4 += chunks + phase2 + ef
+        if fused is None:
+            fused_here = _resolve_rs_impl("auto", world, block, cc.stochastic,
+                                          max(layout) * block,
+                                          peers) == "fused"
+        else:
+            fused_here = fused
+        if fused_here:
+            k7 += chunks
+            k4 += phase2 + ef
+        else:
+            k4 += chunks + phase2 + ef
+            k6 += chunks
         k5 += phase2 + ef
-        k6 += chunks
-    return {"quantize": k4, "dequantize": k5, "dequantize_accumulate": k6}
+    return {"quantize": k4, "dequantize": k5, "dequantize_accumulate": k6,
+            "fused_reduce_scatter": k7}
+
+
+def _forced_fused():
+    """The quantized allreduce with the fused hop on every chunk (K7),
+    where the reference's rule would keep a chunk over its VMEM cap
+    staged: the measurement of K7 on the dp path."""
+    from ray_tpu_torch.collective import nccl_group
+
+    return mock.patch.object(nccl_group, "_resolve_rs_impl",
+                             lambda impl, *a: "fused")
 
 
 # ordered: the first group whose key a kernel's name holds takes it
-_DP_PROFILE_GROUPS = (("K6 dequantize_accumulate", ("dequant_accum_kernel",)),
+_DP_PROFILE_GROUPS = (("K7 fused_reduce_scatter", ("fused_rs_kernel",)),
+                      ("K6 dequantize_accumulate", ("dequant_accum_kernel",)),
                       ("K5 dequantize", ("dequantize_kernel",)),
                       ("K4 quantize", ("quantize_kernel",)),
                       ("nccl", ("nccl",)),
@@ -1091,8 +1365,8 @@ _DP_PROFILE_GROUPS = (("K6 dequantize_accumulate", ("dequant_accum_kernel",)),
 
 
 def _dp_profile(step, n=2):
-    """Device ms per step of K4/K5/K6, the NCCL kernels and the device
-    copies over n int8 steps (torch.profiler)."""
+    """Device ms per step of K4-K7, the NCCL kernels and the device copies
+    over n int8 steps (torch.profiler), and of all device work."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1146,7 +1420,8 @@ def _dp_run(mode, cfg, batch, group, world):
     leaves = [t for _, t in training.param_leaves(state["params"])]
     opt = state["opt_state"]
     sync = (None if mode == "none" else GradientSynchronizer(
-        group, compression="int8" if mode == "int8" else None))
+        group, compression=None if mode == "fp32" else "int8"))
+    force = _forced_fused if mode == "int8-fused" else contextlib.nullcontext
     sync_ev, sync_host = [], []
 
     def step():
@@ -1158,7 +1433,8 @@ def _dp_run(mode, cfg, batch, group, world):
                   torch.cuda.Event(enable_timing=True))
             ev[0].record()
             t0 = time.perf_counter()
-            synced = sync([t.grad for t in leaves])
+            with force():
+                synced = sync([t.grad for t in leaves])
             # the host's time to issue the sync (nothing in it waits for
             # the card): when it exceeds the events' time, the host
             # bounds the sync
@@ -1192,16 +1468,18 @@ def _dp_run(mode, cfg, batch, group, world):
            "sync_ms": sync_ms, "sync_share": sync_ms / step_ms,
            "sync_host_ms": host_ms,
            "launches": launches}
-    if mode == "int8":
+    if mode.startswith("int8"):
         rec["profile"] = _dp_profile(step)
     return rec, state, leaves
 
 
-def _dp_sync_checks(state, leaves, cfg, batch, group):
+def _dp_sync_checks(state, leaves, cfg, batch, group, predicted_fused):
     """One fresh backward on the trained params: its grads synced through
     the kernels == synced through the plain versions (bitwise, with the
-    error-feedback residuals), and the int8 sync against the fp32 sync
-    within the reference's 1e-2 relative L2 error."""
+    error-feedback residuals) == synced with the fused hop forced on every
+    chunk (K7) == synced with RAY_TPU_FUSED_RS=0, and the int8 sync
+    against the fp32 sync within the reference's 1e-2 relative L2
+    error."""
     import torch
 
     from ray_tpu_torch.models import gpt
@@ -1228,23 +1506,49 @@ def _dp_sync_checks(state, leaves, cfg, batch, group):
            if not torch.equal(a, b)]
     check(not bad, f"synced grads through the kernels differ from the "
           f"plain versions in leaves {bad}")
-    res_k, res_p = sync_k.residuals, sync_p.residuals
-    check(res_k.keys() == res_p.keys()
-          and all(torch.equal(res_k[k], res_p[k]) for k in res_k),
-          "error-feedback residuals through the kernels differ from the "
-          "plain versions")
+    res_k = sync_k.residuals
+    fused_launches = None
+    for what, sync_o, ctx in (
+            ("the plain versions", sync_p, None),
+            ("the fused hop (K7) on every chunk", GradientSynchronizer(
+                group, compression="int8"), _forced_fused),
+            ("RAY_TPU_FUSED_RS=0", GradientSynchronizer(
+                group, compression="int8"),
+             lambda: mock.patch.dict(os.environ, {"RAY_TPU_FUSED_RS": "0"}))):
+        if ctx is not None:
+            with ctx():
+                _kernels.reset_launch_counts()
+                other = sync_o(grads)
+                if what.startswith("the fused"):
+                    fused_launches = _kernels.launch_counts()
+            torch.cuda.synchronize()
+            bad = [i for i, (a, b) in enumerate(zip(got, other))
+                   if not torch.equal(a, b)]
+            check(not bad, f"synced grads through the kernels differ from "
+                  f"{what} in leaves {bad}")
+        res_o = sync_o.residuals
+        check(res_k.keys() == res_o.keys()
+              and all(torch.equal(res_k[k], res_o[k]) for k in res_k),
+              f"error-feedback residuals through the kernels differ from "
+              f"{what}")
+    want_f = {k: predicted_fused[k] for k in QUANT_KERNELS}
+    check({k: fused_launches[k] for k in QUANT_KERNELS} == want_f,
+          f"fused sync launches {fused_launches}, predicted {want_f}")
     fp32 = GradientSynchronizer(group, compression=None)(grads)
     rel = _rel(_flat(got), _flat(fp32))
     check(rel < SYNC_RTOL, f"int8 sync vs fp32 sync: relative L2 error "
           f"{rel:.4g} >= {SYNC_RTOL}")
     rel_local = _rel(_flat(got), _flat(grads))
     return {"rel_err_vs_fp32_sync": rel, "rel_err_vs_local_grads": rel_local,
-            "leaves": len(grads), "kernel_launches": kernel_launches}
+            "leaves": len(grads), "kernel_launches": kernel_launches,
+            "fused_launches": fused_launches}
 
 
 def _gpt_sync(grads, group_handle):
     """mesh_allreduce(op="mean") of the flattened gradient, fp32 against
-    int8 (auto chunks): times, error, chunked == chunks=1 bitwise."""
+    int8 (auto chunks) against int8 with the fused hop (K7, impl="fused"):
+    times, error, chunked == chunks=1 bitwise, fused == staged bitwise,
+    K7's device ms beside the fused allreduce's."""
     import torch
 
     from ray_tpu_torch.collective import nccl_group
@@ -1252,29 +1556,68 @@ def _gpt_sync(grads, group_handle):
     from ray_tpu_torch.ops import _kernels
 
     pg = group_handle.pg
+    world = group_handle.world_size
     flat = _flat(grads)
     auto = nccl_group.resolve_chunks(parse_compression("int8"), flat)
+    check(group_handle.peers is not None,
+          "the NCCL group has no peer memory: K7 cannot run")
     _kernels.reset_launch_counts()
     q8 = nccl_group.mesh_allreduce(flat, pg, op="mean", compression="int8")
     launches = _kernels.launch_counts()
     mono = nccl_group.mesh_allreduce(flat, pg, op="mean",
                                      compression="int8:chunks=1")
     full = nccl_group.mesh_allreduce(flat, pg, op="mean")
-    torch.cuda.synchronize()
+    # the staged path by name, whatever auto picks
+    with mock.patch.dict(os.environ, {"RAY_TPU_FUSED_RS": "0"}):
+        staged = nccl_group.mesh_allreduce(flat, pg, op="mean",
+                                           compression="int8")
+    _kernels.reset_launch_counts()
+    fused = nccl_group.mesh_allreduce(flat, pg, op="mean", compression="int8",
+                                      impl="fused")
+    fused_launches = _kernels.launch_counts()
+    fused1 = nccl_group.mesh_allreduce(flat, pg, op="mean",
+                                       compression="int8:chunks=1",
+                                       impl="fused")
+    group_handle.peers.check()
     check(torch.equal(q8, mono), f"chunked ({auto}) int8 allreduce differs "
           f"from chunks=1 in {(q8 != mono).sum().item()} elements")
+    check(torch.equal(fused, staged), f"int8 allreduce with the fused hop "
+          f"differs from the staged one in "
+          f"{(fused != staged).sum().item()} elements")
+    check(torch.equal(fused1, mono), "fused chunks=1 differs from staged")
+    check(fused_launches["fused_reduce_scatter"] == auto
+          and fused_launches["dequantize_accumulate"] == 0,
+          f"fused allreduce launches {fused_launches}, expected K7 x {auto}")
     rel = _rel(q8, full)
     check(rel < SYNC_RTOL, f"int8 allreduce of the GPT gradient: relative "
           f"error {rel:.4g} >= {SYNC_RTOL}")
-    ms = {"fp32": cuda_time_ms(lambda: nccl_group.mesh_allreduce(
-              flat, pg, op="mean"), iters=5, warmup=1),
-          "int8": cuda_time_ms(lambda: nccl_group.mesh_allreduce(
-              flat, pg, op="mean", compression="int8"), iters=5, warmup=1),
-          "int8_chunks1": cuda_time_ms(lambda: nccl_group.mesh_allreduce(
-              flat, pg, op="mean", compression="int8:chunks=1"), iters=5,
+
+    def run(**kw):
+        return lambda: nccl_group.mesh_allreduce(flat, pg, op="mean", **kw)
+
+    ms = {"fp32": cuda_time_ms(run(), iters=5, warmup=1),
+          "int8": cuda_time_ms(run(compression="int8"), iters=5, warmup=1),
+          "int8_chunks1": cuda_time_ms(run(compression="int8:chunks=1"),
+                                       iters=5, warmup=1),
+          "int8_fused": cuda_time_ms(run(compression="int8", impl="fused"),
+                                     iters=5, warmup=1),
+          "int8_fused_chunks1": cuda_time_ms(
+              run(compression="int8:chunks=1", impl="fused"), iters=5,
               warmup=1)}
+    prof = _dp_profile(run(compression="int8", impl="fused"), n=1)
+    group_handle.peers.check()
+    sub = _dp_chunk_sub(flat.numel(), world)
     return {"n": flat.numel(), "chunks": auto, "ms": ms,
-            "rel_err_int8_vs_fp32": rel, "launches_int8": launches}
+            "rel_err_int8_vs_fp32": rel, "launches_int8": launches,
+            "launches_int8_fused": fused_launches,
+            "fused_device_ms": {
+                "k7": prof["groups"]["K7 fused_reduce_scatter"],
+                "all": prof["device_ms_per_step"]},
+            "k7_chunk_sub": sub,
+            "k7_bound_ms": {
+                "bytes": auto * _k7_bytes(world, sub) / HBM_BYTES_PER_S * 1e3,
+                "nvlink": auto * _k7_link_bytes(world, sub)
+                / NVLINK_BYTES_PER_S * 1e3}}
 
 
 def _dp_body(rank, world, init_method):
@@ -1299,21 +1642,28 @@ def _dp_body(rank, world, init_method):
         sizes = [math.prod(shape) for _, shape in
                  training.param_leaves(gpt.param_shapes(cfg))]
         cc = parse_compression("int8")
+        peers = gh.peers is not None
         predicted = {**FLASH_TRAIN_LAUNCHES,
-                     **dp_predicted_launches(sizes, cc, world)}
+                     **dp_predicted_launches(sizes, cc, world, peers)}
+        predicted_fused = {**FLASH_TRAIN_LAUNCHES,
+                           **dp_predicted_launches(sizes, cc, world, peers,
+                                                   fused=True)}
         runs = {}
         for mode in DP_MODES:
             rec, state, leaves = _dp_run(mode, cfg, batch, "dp", world)
             losses = rec["losses"]
             check(all(np.isfinite(losses)), f"dp {mode}: non-finite loss "
                   f"{losses}")
-            if mode == "int8":
+            if mode.startswith("int8"):
+                want = predicted if mode == "int8" else predicted_fused
                 for n in rec["launches"]:
-                    check(n == predicted, f"dp int8 launches per step {n}, "
-                          f"the bucket layout predicts {predicted}")
-                checks = _dp_sync_checks(state, leaves, cfg, batch, "dp")
+                    check(n == want, f"dp {mode} launches per step {n}, "
+                          f"the bucket layout predicts {want}")
+            if mode == "int8":
+                checks = _dp_sync_checks(state, leaves, cfg, batch, "dp",
+                                         predicted_fused)
                 sync_rec = _gpt_sync([t.grad for t in leaves], gh)
-            else:
+            elif mode != "int8-fused":
                 want = {**FLASH_TRAIN_LAUNCHES,
                         **{k: 0 for k in QUANT_KERNELS}}
                 for n in rec["launches"]:
@@ -1329,6 +1679,8 @@ def _dp_body(rank, world, init_method):
         return {"dp_train": {"world": world, "tokens": [B, S + 1],
                              "steps": DP_STEPS, "runs": runs,
                              "predicted_launches": predicted,
+                             "predicted_launches_fused": predicted_fused,
+                             "peer_memory": peers,
                              "final_loss_gap_int8_minus_fp32": gap,
                              "checks": checks,
                              "buckets": _bucket_sizes(sizes,
@@ -1383,26 +1735,38 @@ def phase_dp_train():
             f"it); losses {[round(x, 4) for x in r['losses']]}")
     log(f"[dp-train] launches per int8 step {dp['runs']['int8']['launches'][-1]}"
         f" == predicted from {len(dp['buckets'])} buckets "
-        f"{dp['predicted_launches']}")
+        f"{dp['predicted_launches']} (auto: the reference's rule; peer "
+        f"memory {dp['peer_memory']}); with the fused hop forced "
+        f"{dp['runs']['int8-fused']['launches'][-1]} == "
+        f"{dp['predicted_launches_fused']}")
     log(f"[dp-train] final loss int8 - fp32 = "
         f"{dp['final_loss_gap_int8_minus_fp32']:.4f} (limit {LOSS_GAP}); "
-        f"synced grads kernels == plain (bitwise, residuals too); int8 vs "
+        f"synced grads kernels == plain == fused hop forced == "
+        f"RAY_TPU_FUSED_RS=0 (bitwise, residuals too); int8 vs "
         f"fp32 sync rel L2 {dp['checks']['rel_err_vs_fp32_sync']:.4g} "
         f"(limit {SYNC_RTOL}), vs local grads "
         f"{dp['checks']['rel_err_vs_local_grads']:.4g}")
-    prof = dp["runs"]["int8"]["profile"]
-    log(f"[dp-train] profile (torch.profiler, 2 int8 steps): device busy "
-        f"{prof['device_ms_per_step']:.2f} ms/step; "
-        + ", ".join(f"{g} {ms:.3f}" for g, ms in prof["groups"].items())
-        + " ms/step")
-    for name, ms in prof["kernels"]:
-        log(f"[dp-train]   {ms:8.3f} ms/step  {name}")
+    for mode in ("int8", "int8-fused"):
+        prof = dp["runs"][mode]["profile"]
+        log(f"[dp-train] profile (torch.profiler, 2 {mode} steps): device "
+            f"busy {prof['device_ms_per_step']:.2f} ms/step; "
+            + ", ".join(f"{g} {ms:.3f}" for g, ms in prof["groups"].items())
+            + " ms/step")
+        for name, ms in prof["kernels"]:
+            log(f"[dp-train]   {ms:8.3f} ms/step  {name}")
     log(f"[gpt-sync] mesh_allreduce mean of n={gs['n']} f32: fp32 "
         f"{gs['ms']['fp32']:.3f} ms, int8 ({gs['chunks']} chunks) "
         f"{gs['ms']['int8']:.3f} ms, int8 chunks=1 "
         f"{gs['ms']['int8_chunks1']:.3f} ms; rel err int8 vs fp32 "
         f"{gs['rel_err_int8_vs_fp32']:.4g} (limit {SYNC_RTOL}); chunked == "
         f"chunks=1 bitwise; launches {gs['launches_int8']}")
+    log(f"[gpt-sync] int8 with the fused hop (impl='fused', K7 x "
+        f"{gs['chunks']}): {gs['ms']['int8_fused']:.3f} ms, chunks=1 "
+        f"{gs['ms']['int8_fused_chunks1']:.3f} ms; == staged bitwise; K7 "
+        f"device {gs['fused_device_ms']['k7']:.3f} ms of "
+        f"{gs['fused_device_ms']['all']:.3f} ms device work in one call; "
+        f"K7 bound {gs['k7_bound_ms']['bytes']:.4f} ms (bytes), "
+        f"{gs['k7_bound_ms']['nvlink']:.4f} ms (NVLink)")
     return dp, gs
 
 
@@ -1422,7 +1786,7 @@ def _kernel_entry(k, case, launches_by_path, **extra):
 
 
 PHASES = ("kernels", "forward", "serve", "parity", "train",
-          "kernels-quantize", "dp-train")
+          "kernels-quantize", "kernels-fused", "dp-train")
 
 
 def main(argv=None):
@@ -1472,6 +1836,8 @@ def main(argv=None):
         torch.cuda.empty_cache()
     if "kernels-quantize" in phases:
         report["kernels_quantize"] = phase_kernels_quantize()
+    if "kernels-fused" in phases:
+        report["kernels_fused"] = phase_kernels_fused()
     if "dp-train" in phases:
         report["dp_train"], report["gpt_sync"] = phase_dp_train()
 
@@ -1483,13 +1849,18 @@ def main(argv=None):
     dp_launches = report["dp_train"]["runs"]["int8"]["launches"][-1]
     train_launches = report["train"]["launches_per_step"]
 
+    dp_fused_launches = report["dp_train"]["runs"]["int8-fused"]["launches"][-1]
+    gs_fused_launches = report["gpt_sync"]["launches_int8_fused"]
+
     def by_path(name):
         return {"forward": (report["forward"]["flash_launches"]
                             if name == "flash_fwd" else 0),
                 "serve": (report["serve"]["flash_launches"]
                           if name == "flash_fwd" else 0),
                 "train_step": train_launches[name],
-                "dp_train_step": dp_launches[name]}
+                "dp_train_step": dp_launches[name],
+                "dp_train_step_fused_hop": dp_fused_launches[name],
+                "gpt_sync_fused": gs_fused_launches[name]}
 
     k1 = report["kernels"][0]
     bwd = report["kernels_bwd"][0]
@@ -1523,6 +1894,21 @@ def main(argv=None):
             library_note=QUANT_LIBRARY_NOTE,
             shape={"n": case["n"], "block": case["block"],
                    "world": case.get("world", 1)}))
+    # K7 at the shape of the dp path's chunks on this machine: a one-rank
+    # group on one card; its path is the dp step with the fused hop (auto
+    # keeps every GPT-2-small chunk staged: the reference's VMEM cap)
+    k7 = next(c for c in report["kernels_fused"]["cases"]
+              if c["world"] == 1 and c["case"] == "dp-chunk")
+    k7_launches = by_path(_kernels.FUSED_REDUCE_SCATTER.name)
+    check(k7_launches["dp_train_step_fused_hop"] > 0
+          and k7_launches["gpt_sync_fused"] > 0,
+          f"K7 was not launched on its paths: {k7_launches}")
+    k7_entry = _kernel_entry(
+        _kernels.FUSED_REDUCE_SCATTER, k7, k7_launches, library_ms=None,
+        library_note=FUSED_LIBRARY_NOTE, staged_ms=k7["staged_ms"],
+        shape={"world": 1, "sub": k7["sub"], "block": FUSED_BLOCK})
+    k7_entry["launches"] = k7_launches["dp_train_step_fused_hop"]
+    entries.append(k7_entry)
     line = {"kernels": entries}
     log(report["device"]["nvidia_smi"])     # name, power limit
     log(json.dumps(line))

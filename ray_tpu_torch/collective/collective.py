@@ -8,7 +8,9 @@ reducescatter :472, send :531, recv :594).
 Backends:
 
   * "nccl" — CUDA tensors, one card per member process (rank r takes card
-    r mod the local card count).  The reference's "xla" backend, whose
+    r mod the local card count; every rank must see every card, since the
+    group also maps its peers' memory for the fused reduce-scatter K7,
+    ``collective/peer_memory.py``).  The reference's "xla" backend, whose
     members sit in one SPMD runtime, maps here: the collectives are
     ``collective/nccl_group.py``'s.
   * "gloo" — CPU tensors over the same code path (the CPU tests run the
@@ -41,7 +43,7 @@ from typing import Callable, Dict, List, Optional, Union
 import torch
 import torch.distributed as dist
 
-from ray_tpu_torch.collective import nccl_group
+from ray_tpu_torch.collective import nccl_group, peer_memory
 from ray_tpu_torch.collective.compression import (CompressionConfig,
                                                   resolve_compression)
 
@@ -70,6 +72,7 @@ class GroupHandle:
     owns_default: bool
     store_dir: Optional[str] = None
     op_idx: int = 0
+    peers: Optional[peer_memory.PeerBuffers] = None
 
 
 _groups: Dict[str, GroupHandle] = {}
@@ -127,6 +130,12 @@ def init_collective_group(world_size: int, rank: int, backend: str = "nccl",
         owns_default = False
     g = GroupHandle(group_name, world_size, rank, backend, pg, device,
                     owns_default, store_dir)
+    if backend == "nccl":
+        # K7's receive regions, mapped by every peer (None where a pair of
+        # cards cannot map each other's memory: the staged path then)
+        g.peers = peer_memory.PeerBuffers.for_group(pg, device)
+        if g.peers is not None:
+            peer_memory.register(pg, g.peers)
     _groups[group_name] = g
     return g
 
@@ -146,6 +155,12 @@ def destroy_collective_group(group_name: str = "default") -> None:
     g = _groups.pop(group_name, None)
     if g is None:
         return
+    doomed = list(_groups.values()) + [g] if g.owns_default else [g]
+    for h in doomed:
+        if h.peers is not None:
+            peer_memory.unregister(h.pg)
+            h.peers.close()
+            h.peers = None
     if g.owns_default:
         _groups.clear()
         dist.destroy_process_group()
@@ -249,7 +264,7 @@ def allreduce_async(tensor, group_name: str = "default", op: str = "sum",
     cc = _resolve_op_compression(x, op, compression)
     if cc is not None:
         out = nccl_group.mesh_allreduce(x, g.pg, op=op, compression=cc,
-                                        seed=g.op_idx)
+                                        seed=g.op_idx, impl="auto")
         return AllreduceHandle(lambda: out)
     _, finish = nccl_group._allreduce(x, g.pg, op, async_op=True)
     return AllreduceHandle(finish)

@@ -21,14 +21,28 @@ dequantize (K5).  Stochastic draws keep the reference's seed arithmetic
 (``seed * world + rank + chunk``, ``+ 1`` for the requantize), so they
 reproduce from run to run; the bits themselves are the port's own.
 
-Not ported: ``impl="fused"`` (K7, one kernel doing quantize, remote-DMA
-exchange and accumulate; ROADMAP A.6) and ``profile=True`` (the fenced
-stage programs and their flight-recorder breakdown; ROADMAP A.5).  Both
-raise ``NotImplementedError``.
+Phase 1 of a chunk may instead run as ONE kernel, K7
+(``ops.quantize.fused_reduce_scatter``: quantize, store each peer its row
+over CUDA peer memory, accumulate), chosen per call by
+``_resolve_rs_impl`` with the reference's rule (``xla_group.py:103``):
+``impl="auto"`` takes K7 for deterministic rounding, a block that is a
+multiple of 128, world > 1 and a chunk under the reference's 8 MiB VMEM
+cap, when the group has peer memory on CUDA; ``RAY_TPU_FUSED_RS=0``
+turns it off.  ``impl="fused"`` asks for K7 at any world and chunk size
+and raises where the group has no peer memory (gloo, or cards that cannot
+map each other's memory); ``impl="fused_plain"`` runs K7's plain version
+(its exchange through ``all_to_all``), as the reference's
+``fused_interpret`` runs its kernel through the interpreter.  Both phase-1
+paths give the same bits.
+
+Not ported: ``profile=True`` (the fenced stage programs and their
+flight-recorder breakdown; ROADMAP A.5).  It raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -39,8 +53,11 @@ from ray_tpu_torch.collective.compression import (CompressionConfig,
                                                   chunk_layout,
                                                   parse_compression,
                                                   result_block_size)
+from ray_tpu_torch.collective import peer_memory
 from ray_tpu_torch.ops.quantize import (dequantize_accumulate,
-                                        dequantize_blockwise, padded_len,
+                                        dequantize_blockwise,
+                                        fused_reduce_scatter,
+                                        fused_rs_vmem_bytes, padded_len,
                                         quantize_blockwise, reciprocal)
 
 Group = Optional[dist.ProcessGroup]
@@ -70,20 +87,49 @@ def _mean(x: torch.Tensor, world: int) -> torch.Tensor:
                           device=x.device)
 
 
+_IMPLS = ("auto", "plain", "fused", "fused_plain")
+# the reference's cap on the fused kernel's VMEM footprint per chunk
+# (xla_group.py:100), kept so auto picks what the reference picks
+_FUSED_RS_VMEM_CAP = 8 << 20
+
+
 def _check_impl(impl: str, profile: bool) -> None:
     if profile:
         raise NotImplementedError(
             "profile=True (the fenced stage programs that report quantize/"
             "transfer/dequantize seconds to the flight recorder) is not "
             "ported; it comes with the tracing slice, ROADMAP A.5")
-    if impl in ("fused", "fused_interpret"):
-        raise NotImplementedError(
-            "impl='fused' (K7: one kernel doing quantize, remote-DMA "
-            "exchange and accumulate) is not ported; it needs peer memory "
-            "across cards and comes with the meshes slice, ROADMAP A.6")
-    if impl not in ("auto", "plain"):
-        raise ValueError(f"unknown impl {impl!r} (the port has 'auto': the "
-                         f"Hopper kernels for CUDA tensors; and 'plain')")
+    if impl not in _IMPLS:
+        raise ValueError(
+            f"unknown impl {impl!r} (the port has 'auto': the Hopper "
+            f"kernels for CUDA tensors, K7 where the reference's rule picks "
+            f"its fused kernel; 'plain'; 'fused': K7 forced; 'fused_plain': "
+            f"K7's plain version)")
+
+
+def has_peer_memory(x: torch.Tensor, group: Group) -> bool:
+    """Whether K7 can run x's reduce-scatter hop: a CUDA tensor, and a
+    group with peer memory (``collective/peer_memory.py``)."""
+    return x.device.type == "cuda" and peer_memory.lookup(group) is not None
+
+
+def _resolve_rs_impl(impl: str, world: int, block: int, stochastic: bool,
+                     max_chunk_elems: int, peers: bool) -> str:
+    """How phase 1 (the reduce-scatter hop) runs: "fused" (K7), "staged"
+    (K4 -> all_to_all -> K6) or "fused_plain" (K7's plain version).  The
+    reference's rule (``xla_group.py:103-120``) with "the group has peer
+    memory on CUDA" (``peers``) in place of "the backend is a TPU"."""
+    if impl in ("fused", "fused_plain"):
+        return impl
+    if impl != "auto":
+        return "staged"
+    if os.environ.get("RAY_TPU_FUSED_RS", "1") in ("0", "false", "off"):
+        return "staged"
+    if (peers and not stochastic and block % 128 == 0 and world > 1
+            and fused_rs_vmem_bytes(world, max_chunk_elems)
+            <= _FUSED_RS_VMEM_CAP):
+        return "fused"
+    return "staged"
 
 
 def resolve_chunks(cc: CompressionConfig, x: torch.Tensor) -> int:
@@ -107,8 +153,10 @@ def mesh_allreduce(x: torch.Tensor, group: Group = None, op: str = "sum",
     the quantize of chunk k+1 runs on the compute stream while chunk k's
     ``all_to_all`` is in flight.  Chunked and monolithic results are
     bit-identical for deterministic rounding.  ``impl="plain"`` runs the
-    kernels' plain versions on any device.  ``seed`` feeds stochastic
-    rounding."""
+    kernels' plain versions on any device; ``"fused"`` forces K7 for the
+    reduce-scatter hop (raising where the group has no peer memory),
+    ``"fused_plain"`` its plain version; "auto" picks K7 where the
+    reference's rule does.  ``seed`` feeds stochastic rounding."""
     _check_impl(impl, profile)
     if op not in _REDUCE_OPS:
         raise ValueError(f"unknown reduce op {op!r}")
@@ -174,7 +222,9 @@ def _q_allreduce(x: torch.Tensor, seed: int, group: Group, op: str,
     (``chunk_layout``).  Per chunk: quantize (K4, reading the column
     slice in place) -> ``all_to_all`` -> dequantize-accumulate (K6, the
     mean's 1/world fused) -> requantize at the finer result block (K4)
-    -> ``all_gather`` -> dequantize (K5).  Chunk boundaries land on block
+    -> ``all_gather`` -> dequantize (K5); where ``_resolve_rs_impl``
+    says "fused", one K7 launch per chunk does the first three (the
+    reference's ``xla_group.py:275-280``).  Chunk boundaries land on block
     and result-block boundaries, so every per-block scale and the
     accumulation order over peers are those of ``chunks=1``."""
     world, idx = _world_rank(group)
@@ -196,6 +246,19 @@ def _q_allreduce(x: torch.Tensor, seed: int, group: Group, op: str,
     # restitched and phase 2 runs once — bit-identical either way
     p2_chunked = C > 1 and block % rblock == 0
     mean_scale = reciprocal(world) if op == "mean" else None
+    peers = has_peer_memory(x, group)
+    rs = _resolve_rs_impl(impl, world, block, stochastic, max(csizes), peers)
+    if rs == "fused" and not peers:
+        raise RuntimeError(
+            f"impl='fused' needs CUDA peer memory, and this {x.device.type} "
+            f"tensor's group has none (an NCCL group made by "
+            f"collective.init_collective_group on cards that can map each "
+            f"other's memory has it); the staged path is impl='auto'")
+    if rs != "staged" and stochastic:
+        raise ValueError("the fused reduce-scatter rounds deterministically "
+                         "only (stochastic rounding takes the staged path)")
+    if impl in ("fused", "fused_plain"):
+        impl = "plain" if impl == "fused_plain" else "auto"
 
     def quantize_chunk(c):
         return quantize_blockwise(x2d[:, offs[c]:offs[c] + csizes[c]], block,
@@ -215,16 +278,23 @@ def _q_allreduce(x: torch.Tensor, seed: int, group: Group, op: str,
                                    rblock, impl=impl)
         return out.view(world, -1)[:, :csz]
 
-    # phase 1: exchange chunk c while quantizing chunk c+1
     reds = [None] * C
-    q, s = quantize_chunk(0)
-    for c in range(C):
-        qx, sx, works = _exchange(q, s, group)
-        if c + 1 < C:
-            q, s = quantize_chunk(c + 1)
-        _wait(works)
-        reds[c] = dequantize_accumulate(qx, sx, world, block, impl=impl,
-                                        scale=mean_scale)
+    if rs != "staged":
+        # phase 1 as one K7 launch per chunk (the mean's 1/world fused)
+        for c in range(C):
+            reds[c] = fused_reduce_scatter(
+                x2d[:, offs[c]:offs[c] + csizes[c]], group, block,
+                scale=mean_scale, impl=impl)
+    else:
+        # phase 1: exchange chunk c while quantizing chunk c+1
+        q, s = quantize_chunk(0)
+        for c in range(C):
+            qx, sx, works = _exchange(q, s, group)
+            if c + 1 < C:
+                q, s = quantize_chunk(c + 1)
+            _wait(works)
+            reds[c] = dequantize_accumulate(qx, sx, world, block, impl=impl,
+                                            scale=mean_scale)
 
     # phase 2: gather chunk c while requantizing chunk c+1
     if p2_chunked:

@@ -8,7 +8,8 @@
 // and compute the same functions as the reference's XLA path, bit for bit:
 //   scale = absmax / 127 (1.0 when absmax > 0 fails: an all-zero block, or
 //   a NaN in the block), y = x * (1 / scale), q = clip(round_half_even(y))
-//   or clip(floor(y + u)); deq = float(q) * scale; the accumulate takes
+//   or clip(floor(y + u)), a NaN y giving code 0 (XLA's float -> int8
+//   conversion); deq = float(q) * scale; the accumulate takes
 //   the peers in order 0..world-1 as fused multiply-adds onto an f32 zero,
 //   acc = fma(q, s, acc) (as XLA compiles the reference's (q * s).sum(0)),
 //   then multiplies by an optional f32 factor (the mean's 1/world).  Every
@@ -127,7 +128,9 @@ quantize_kernel(const T* __restrict__ x, long long cols, long long row_stride,
       } else {
         rq = rintf(y);  // half to even, as torch.round / jnp.round
       }
-      rq = fminf(fmaxf(rq, -127.f), 127.f);
+      // NaN (a NaN element, or an inf one times 1/inf) -> 0, as XLA
+      // converts float to int8; fmaxf alone would make it -127
+      rq = (rq != rq) ? 0.f : fminf(fmaxf(rq, -127.f), 127.f);
       q[base + j] = (int8_t)(int)rq;
     }
     if (lane == 0) scales[b] = scale;

@@ -72,8 +72,12 @@ DEQUANTIZE = Kernel(
 DEQUANTIZE_ACCUMULATE = Kernel(
     name="dequantize_accumulate", source="quantize.cu",
     replaces="ray_tpu/ops/quantize.py:120 _dequant_accum_kernel")
+FUSED_REDUCE_SCATTER = Kernel(
+    name="fused_reduce_scatter", source="fused_rs.cu",
+    replaces="ray_tpu/ops/quantize.py:316 _fused_rs_kernel")
 KERNELS: Tuple[Kernel, ...] = (FLASH_FWD, FLASH_BWD_DKV, FLASH_BWD_DQ,
-                               QUANTIZE, DEQUANTIZE, DEQUANTIZE_ACCUMULATE)
+                               QUANTIZE, DEQUANTIZE, DEQUANTIZE_ACCUMULATE,
+                               FUSED_REDUCE_SCATTER)
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}   # guarded-by: _lock   (by source)
@@ -176,6 +180,30 @@ def _bind(source: str, lib: ctypes.CDLL) -> None:
         # q, scales, out, world, m, block, post_scale, stream
         lib.rtt_dequantize_accumulate.argtypes = [p, p, p, i, i, i, f, p]
         lib.rtt_dequantize_accumulate.restype = i
+    elif source == FUSED_REDUCE_SCATTER.source:
+        ll, u, ull = ctypes.c_longlong, ctypes.c_uint, ctypes.c_ulonglong
+        pp, ip = ctypes.POINTER(p), ctypes.POINTER(i)
+        # x, rank_stride, row_stride, sub, block, world, my0, nranks, table,
+        # scales_off, epoch, post_scale, out, out_rank_stride, err,
+        # timeout_ns, grid, cooperative, stream
+        lib.rtt_fused_rs.argtypes = [p, ll, ll, i, i, i, i, i, p, ll, u, f,
+                                     p, ll, p, ull, i, i, p]
+        lib.rtt_fused_rs_layout.argtypes = [ctypes.POINTER(ll), ip, ip]
+        lib.rtt_fused_rs_residency.argtypes = [ip, ip]
+        lib.rtt_peer_alloc.argtypes = [ll, pp]
+        lib.rtt_peer_free.argtypes = [p]
+        lib.rtt_ipc_get_handle.argtypes = [p, ctypes.c_char_p]
+        lib.rtt_ipc_open.argtypes = [ctypes.c_char_p, pp]
+        lib.rtt_ipc_close.argtypes = [p]
+        lib.rtt_can_access_peer.argtypes = [i, i, ip]
+        lib.rtt_host_word.argtypes = [pp, pp]
+        lib.rtt_host_free.argtypes = [p]
+        for fn in ("rtt_fused_rs", "rtt_fused_rs_layout",
+                   "rtt_fused_rs_residency", "rtt_peer_alloc",
+                   "rtt_peer_free", "rtt_ipc_get_handle", "rtt_ipc_open",
+                   "rtt_ipc_close", "rtt_can_access_peer", "rtt_host_word",
+                   "rtt_host_free"):
+            getattr(lib, fn).restype = i
 
 
 def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
@@ -462,4 +490,125 @@ def dequantize_accumulate(q: torch.Tensor, scales: torch.Tensor, world: int,
             block_size, float(post_scale), stream)
     _check(lib, err, "dequantize_accumulate")
     DEQUANTIZE_ACCUMULATE.launches += 1
+    return out
+
+
+# --- K7: the fused int8 reduce-scatter over CUDA peer memory ---------------
+
+
+def _peer(fn: str, *args) -> None:
+    lib = _load(FUSED_REDUCE_SCATTER)
+    _check(lib, getattr(lib, fn)(*args), fn)
+
+
+def fused_rs_layout() -> Tuple[int, int, int]:
+    """(data offset of a receive region, largest world, most CTAs) as
+    csrc/fused_rs.cu lays regions out."""
+    off, w, c = ctypes.c_longlong(), ctypes.c_int(), ctypes.c_int()
+    _peer("rtt_fused_rs_layout", ctypes.byref(off), ctypes.byref(w),
+          ctypes.byref(c))
+    return off.value, w.value, c.value
+
+
+def fused_rs_residency() -> Tuple[int, int]:
+    """(K7's CTAs co-resident on the current device, its SM count)."""
+    r, s = ctypes.c_int(), ctypes.c_int()
+    _peer("rtt_fused_rs_residency", ctypes.byref(r), ctypes.byref(s))
+    return r.value, s.value
+
+
+def peer_alloc(nbytes: int) -> int:
+    """A zeroed ``cudaMalloc`` region of nbytes on the current device (not
+    torch's caching allocator: an IPC handle names a whole allocation)."""
+    ptr = ctypes.c_void_p()
+    _peer("rtt_peer_alloc", int(nbytes), ctypes.byref(ptr))
+    return ptr.value
+
+
+def peer_free(ptr: int) -> None:
+    _peer("rtt_peer_free", ptr)
+
+
+def ipc_handle(ptr: int) -> bytes:
+    buf = ctypes.create_string_buffer(64)
+    _peer("rtt_ipc_get_handle", ptr, buf)
+    return buf.raw
+
+
+def ipc_open(handle: bytes) -> int:
+    ptr = ctypes.c_void_p()
+    _peer("rtt_ipc_open", handle, ctypes.byref(ptr))
+    return ptr.value
+
+
+def ipc_close(ptr: int) -> None:
+    _peer("rtt_ipc_close", ptr)
+
+
+def can_access_peer(device: int, peer: int) -> bool:
+    ok = ctypes.c_int()
+    _peer("rtt_can_access_peer", device, peer, ctypes.byref(ok))
+    return bool(ok.value)
+
+
+def host_word() -> Tuple[int, int]:
+    """(host, device) pointers of a zeroed int in mapped pinned memory."""
+    host, dev = ctypes.c_void_p(), ctypes.c_void_p()
+    _peer("rtt_host_word", ctypes.byref(host), ctypes.byref(dev))
+    return host.value, dev.value
+
+
+def host_free(host: int) -> None:
+    _peer("rtt_host_free", host)
+
+
+def fused_reduce_scatter(x: torch.Tensor, peers, block_size: int, *,
+                         post_scale: float = 1.0) -> torch.Tensor:
+    """Launch K7 (csrc/fused_rs.cu).  ``peers`` is a
+    ``collective.peer_memory.PeerBuffers``.  x is this rank's [world, sub]
+    float32 contributions (unit column stride: contiguous, or a column
+    slice of a contiguous tensor), sub a multiple of block_size; returns
+    f32 [sub], the in-order sum over peers of their quantized row for this
+    rank, times ``post_scale``.  For a loopback ``peers`` (every rank on
+    one card) x is [nranks, world, sub], ranks 0..nranks-1, and the result
+    [nranks, sub]; nranks < world leaves the last ranks missing, so the
+    launch times out (a test of the bound)."""
+    _check_cuda("fused_reduce_scatter", ("x", x))
+    _check_block_size("fused_reduce_scatter", block_size)
+    loop = peers.loopback
+    if x.dtype != torch.float32:
+        raise ValueError(f"fused_reduce_scatter: x has dtype {x.dtype}; the "
+                         f"kernel takes float32")
+    if x.dim() != (3 if loop else 2) or x.stride(-1) != 1:
+        raise ValueError(
+            f"fused_reduce_scatter: x must be "
+            f"{'[nranks, world, sub]' if loop else '[world, sub]'} with unit "
+            f"column stride, got shape {tuple(x.shape)} strides "
+            f"{tuple(x.stride())}")
+    if x.device != peers.device:
+        raise ValueError(f"fused_reduce_scatter: x is on {x.device}, the "
+                         f"peer buffers on {peers.device}")
+    world, sub = x.shape[-2], x.shape[-1]
+    nranks = x.shape[0] if loop else 1
+    if world != peers.world or not 1 <= nranks <= world:
+        raise ValueError(f"fused_reduce_scatter: {tuple(x.shape)} does not "
+                         f"fit a group of {peers.world}")
+    if sub < block_size or sub % block_size:
+        raise ValueError(f"fused_reduce_scatter: sub ({sub}) must be a "
+                         f"positive multiple of block_size ({block_size})")
+    _check_elems("fused_reduce_scatter", world * sub)
+    lib = _load(FUSED_REDUCE_SCATTER)
+    epoch, scales_off, grid = peers.prepare(sub, block_size, nranks)
+    out = torch.empty((nranks, sub) if loop else (sub,), dtype=torch.float32,
+                      device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.rtt_fused_rs(
+            x.data_ptr(), x.stride(0) if loop else 0, x.stride(-2), sub,
+            block_size, world, 0 if loop else peers.rank, nranks,
+            peers.table.data_ptr(), scales_off, epoch, float(post_scale),
+            out.data_ptr(), sub, peers.error_device_ptr,
+            int(peers.timeout_s * 1e9), grid, int(loop), stream)
+    _check(lib, err, "fused_reduce_scatter")
+    FUSED_REDUCE_SCATTER.launches += 1
     return out

@@ -1,18 +1,23 @@
 """Block-wise int8 quantization: the compressed-collective building block.
 
 Counterpart of ``ray_tpu/ops/quantize.py`` (its public functions and the
-layout contract below; the fused remote-DMA reduce-scatter K7 is not
-ported, see ROADMAP A.6).  Each function has a plain PyTorch version
+layout contract below).  Each function has a plain PyTorch version
 (``*_plain``), the counterpart of the reference's ``impl="xla"`` path, and
-a hand-written Hopper kernel (``csrc/quantize.cu``, bound in
-``ops/_kernels.py``):
+a hand-written Hopper kernel (``csrc/quantize.cu`` and
+``csrc/fused_rs.cu``, bound in ``ops/_kernels.py``):
 
   * K4 ``quantize_blockwise``     — per-block absmax, scale, round;
   * K5 ``dequantize_blockwise``   — int8 x scale, written in the output
     dtype;
   * K6 ``dequantize_accumulate``  — the sum over peers of their
     dequantized blocks (the accumulate half of the quantized
-    reduce-scatter).
+    reduce-scatter);
+  * K7 ``fused_reduce_scatter``   — the whole reduce-scatter hop in one
+    kernel: K4 of every row with the reciprocal scale, each row stored
+    straight into its peer's receive region over CUDA peer memory
+    (``collective/peer_memory.py``), then K6 of the rows that arrive.
+    Its plain version exchanges through the group's ``all_to_all``, so
+    it is the staged path's arithmetic, bit for bit.
 
 Dispatch follows ``ops.attention``: a CUDA tensor goes to the kernel, a
 CPU tensor to the plain version; ``impl="plain"`` forces the plain
@@ -170,8 +175,11 @@ def quantize_blockwise_plain(x: torch.Tensor, block_size: int = 256, *,
         q = torch.floor(y + u)
     else:
         q = torch.round(y)   # half-to-even, as jnp.round
-    q = torch.clamp(q, -INT8_MAX, INT8_MAX).to(torch.int8)
-    return q.reshape(-1), scales[:, 0]
+    # a NaN y (a NaN element, or an inf one in its inf-scaled block) is
+    # code 0, as XLA converts float to int8; torch's cast leaves it to
+    # the device
+    q = torch.nan_to_num(torch.clamp(q, -INT8_MAX, INT8_MAX), nan=0.0)
+    return q.to(torch.int8).reshape(-1), scales[:, 0]
 
 
 def dequantize_blockwise_plain(q: torch.Tensor, scales: torch.Tensor,
@@ -303,6 +311,122 @@ def dequantize_accumulate(q: torch.Tensor, scales: torch.Tensor, world: int,
     return _kernels.dequantize_accumulate(
         q, scales, world, block_size,
         post_scale=1.0 if scale is None else scale)
+
+
+# ---------------------------------------------------------------------------
+# K7: the fused quantize -> peer exchange -> accumulate hop
+# ---------------------------------------------------------------------------
+
+
+def fused_rs_vmem_bytes(world: int, sub: int) -> int:
+    """The reference's VMEM footprint estimate of its fused kernel (input +
+    output + scratch, ``ray_tpu/ops/quantize.py:409``): the collectives'
+    auto rule keeps chunks above its cap on the staged path, as the
+    reference does."""
+    nblk_bytes = (sub // 256 + 1) * 128 * 4
+    return world * (sub * 4 + 2 * sub + 2 * nblk_bytes) + sub * 4
+
+
+def _check_fused(x2d: torch.Tensor, block_size: int) -> None:
+    _check_block(block_size)
+    if x2d.dim() != 2 or x2d.shape[1] < block_size or (
+            x2d.shape[1] % block_size):
+        raise ValueError(f"fused_reduce_scatter needs [world, sub] with sub "
+                         f"a positive multiple of block_size ({block_size}), "
+                         f"got shape {tuple(x2d.shape)}")
+
+
+def fused_reduce_scatter_plain(x2d: torch.Tensor, group=None,
+                               block_size: int = 256, *,
+                               scale: Optional[float] = None) -> torch.Tensor:
+    """Plain version of K7 for this rank: the plain K4 of its [world, sub]
+    rows with the reciprocal scale, the exchange (rank p receives row p of
+    every peer, in peer order: ``all_to_all`` over ``group``, a process
+    group of ``world`` ranks), then the plain K6, times ``scale``."""
+    _check_fused(x2d, block_size)
+    world = x2d.shape[0]
+    q, s = quantize_blockwise_plain(x2d, block_size, reciprocal_scale=True)
+    if world > 1:
+        import torch.distributed as dist
+
+        if dist.get_world_size(group) != world:
+            raise ValueError(f"fused_reduce_scatter: {world} rows for a "
+                             f"group of {dist.get_world_size(group)}")
+        qx, sx = torch.empty_like(q), torch.empty_like(s)
+        dist.all_to_all_single(qx, q, group=group)
+        dist.all_to_all_single(sx, s, group=group)
+        q, s = qx, sx
+    return dequantize_accumulate_plain(q, s, world, block_size, scale)
+
+
+def fused_reduce_scatter_loopback_plain(xs: torch.Tensor,
+                                        block_size: int = 256, *,
+                                        scale: Optional[float] = None
+                                        ) -> torch.Tensor:
+    """Plain version of K7 for every rank of a group at once, on one
+    device: xs is the ranks' inputs [world, world, sub]; returns each
+    rank's result [world, sub] (the exchange is a transpose)."""
+    world = xs.shape[0]
+    if xs.dim() != 3 or xs.shape[1] != world:
+        raise ValueError(f"loopback K7 takes [world, world, sub], got "
+                         f"{tuple(xs.shape)}")
+    _check_fused(xs[0], block_size)
+    sub = xs.shape[2]
+    codes = [quantize_blockwise_plain(xs[r], block_size,
+                                      reciprocal_scale=True)
+             for r in range(world)]
+    out = []
+    for d in range(world):
+        qx = torch.cat([q.view(world, sub)[d] for q, _ in codes])
+        sx = torch.cat([s.view(world, -1)[d] for _, s in codes])
+        out.append(dequantize_accumulate_plain(qx, sx, world, block_size,
+                                               scale))
+    return torch.stack(out)
+
+
+def fused_reduce_scatter(x2d: torch.Tensor, group=None,
+                         block_size: int = 256, *,
+                         scale: Optional[float] = None,
+                         impl: str = "auto") -> torch.Tensor:
+    """One-kernel quantized reduce-scatter hop (the reference's
+    ``fused_reduce_scatter``).  x2d is this rank's [world, sub] f32
+    contributions (sub a multiple of block_size; a column slice of a
+    contiguous tensor is read in place); returns f32 [sub]: the sum over
+    all ranks, in rank order, of their once-quantized row for this rank,
+    times ``scale`` when one is given (a mean's ``reciprocal(world)``).
+    Deterministic rounding only, as the reference's.
+
+    A CUDA tensor launches K7 over the peer memory of ``group`` (a
+    process group set up by ``collective.init_collective_group``; raises
+    if it has none); a CPU tensor, or ``impl="plain"``, takes the plain
+    version, which exchanges through the group's ``all_to_all``."""
+    _check_fused(x2d, block_size)
+    if not _use_kernel(x2d, impl):
+        return fused_reduce_scatter_plain(x2d, group, block_size,
+                                          scale=scale)
+    from ray_tpu_torch.collective import peer_memory
+    from ray_tpu_torch.ops import _kernels
+
+    return _kernels.fused_reduce_scatter(
+        x2d, peer_memory.require(group), block_size,
+        post_scale=1.0 if scale is None else scale)
+
+
+def fused_reduce_scatter_loopback(xs: torch.Tensor, peers,
+                                  block_size: int = 256, *,
+                                  scale: Optional[float] = None,
+                                  impl: str = "auto") -> torch.Tensor:
+    """K7 hosting every rank of a group in one launch on one card (a test
+    of the exchange protocol, not a path users take): xs [world, world,
+    sub] on the card of ``peers`` (``PeerBuffers.loopback``) -> [world,
+    sub].  A CPU tensor or ``impl="plain"`` takes the plain version."""
+    if not _use_kernel(xs, impl):
+        return fused_reduce_scatter_loopback_plain(xs, block_size,
+                                                   scale=scale)
+    from ray_tpu_torch.ops import _kernels
+
+    return _kernels.fused_reduce_scatter(
+        xs, peers, block_size, post_scale=1.0 if scale is None else scale)
 
 
 def quantization_error(x: torch.Tensor, block_size: int = 256,

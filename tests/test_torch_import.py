@@ -29,6 +29,7 @@ import ray_tpu_torch.ops.quantize as quantize
 import ray_tpu_torch.collective as collective
 import ray_tpu_torch.collective.compression
 import ray_tpu_torch.collective.nccl_group
+import ray_tpu_torch.collective.peer_memory
 import ray_tpu_torch.parallel as parallel
 import ray_tpu_torch.parallel.sharding
 bad = sorted(m for m in sys.modules

@@ -9,7 +9,10 @@ Tolerances: bf16 outputs within one bf16 ulp (4e-3 + 2^-7*|ref|), f32
 outputs and lse at 1e-4 (summation order).  The backward kernels' dq,
 dk, dv are held to the same limits against their plain version.  The
 quantize kernels K4-K6 are held to their plain versions bitwise: int8
-values, scales and f32 sums all equal.
+values, scales and f32 sums all equal, and so is K7, the fused
+reduce-scatter, in its one-card loopback launch (every rank of a group in
+one cooperative launch) against its plain version and the staged K4 ->
+K6 path.
 """
 
 import concurrent.futures
@@ -182,7 +185,8 @@ def test_flash_attention_grad_runs_the_kernels(gpu):
     out.transpose(1, 2).backward(do.transpose(1, 2))
     assert _kernels.launch_counts() == {
         "flash_fwd": 1, "flash_bwd_dkv": 1, "flash_bwd_dq": 1, "quantize": 0,
-        "dequantize": 0, "dequantize_accumulate": 0}
+        "dequantize": 0, "dequantize_accumulate": 0,
+        "fused_reduce_scatter": 0}
     want = _kernels.flash_bwd(q, k, v, do, lse, flash_bwd_di(o, do),
                               causal=True, scale=64 ** -0.5)
     for a, b in zip(leaves, want):
@@ -276,10 +280,13 @@ def test_quantize_kernel_nan_and_inf_blocks(gpu):
     x = _quant_input(gpu, torch.float32, (1024,))
     x[300] = float("nan")
     x[600] = float("inf")
-    _, s = qz.quantize_blockwise(x, 256)
-    _, ps = qz.quantize_blockwise(x, 256, impl="plain")
+    q, s = qz.quantize_blockwise(x, 256)
+    pq, ps = qz.quantize_blockwise(x, 256, impl="plain")
     assert torch.equal(s, ps)
     assert s[1].item() == 1.0 and s[2].item() == float("inf")
+    # a NaN ratio is code 0 (XLA's float -> int8), in both versions
+    assert torch.equal(q, pq)
+    assert q[300].item() == 0 and q[600].item() == 0
 
 
 @pytest.mark.cuda
@@ -336,3 +343,139 @@ def test_quantize_kernels_reject_what_they_do_not_take(gpu):
         _kernels.dequantize(q.float(), s, 1024, 256, torch.float32)
     with pytest.raises(ValueError, match="JAX package"):
         qz.quantize_blockwise(x, 256, impl="pallas")
+
+
+# --- K7: the fused reduce-scatter, every rank on one card ------------------
+
+
+def _fused_inputs(gpu, world, sub, seed=5):
+    """[world, world, sub]: rank r's [world, sub] contributions, with a
+    NaN block and an inf block."""
+    xs = _quant_input(gpu, torch.float32, (world, world, sub), seed)
+    xs[0, 0, 7] = float("nan")
+    xs[-1, -1, 300] = float("inf")
+    return xs
+
+
+def _staged_loopback(xs, block, scale):
+    """Every rank's staged hop on the card: K4 of its rows, the exchange
+    as a transpose, K6."""
+    world, _, sub = xs.shape
+    codes = [qz.quantize_blockwise(xs[r], block, reciprocal_scale=True)
+             for r in range(world)]
+    out = []
+    for d in range(world):
+        q = torch.cat([c.view(world, sub)[d] for c, _ in codes])
+        s = torch.cat([c.view(world, -1)[d] for _, c in codes])
+        out.append(qz.dequantize_accumulate(q, s, world, block, scale=scale))
+    return torch.stack(out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [1, 2, 4, 8])
+@pytest.mark.parametrize("mean", [False, True])
+@pytest.mark.parametrize("block,sub", [(256, 3 * 2048), (128, 640),
+                                       (100, 1000)])
+def test_fused_rs_loopback_matches_plain(gpu, world, mean, block, sub):
+    from ray_tpu_torch.collective.peer_memory import PeerBuffers
+
+    xs = _fused_inputs(gpu, world, sub)
+    scale = qz.reciprocal(world) if mean else None
+    peers = PeerBuffers.loopback(world, gpu)
+    try:
+        before = _kernels.FUSED_REDUCE_SCATTER.launches
+        got = qz.fused_reduce_scatter_loopback(xs, peers, block, scale=scale)
+        assert _kernels.FUSED_REDUCE_SCATTER.launches == before + 1
+        peers.check()
+        want = qz.fused_reduce_scatter_loopback_plain(xs, block, scale=scale)
+        staged = _staged_loopback(xs, block, scale)
+        assert got.shape == (world, sub)
+        assert torch.equal(got.nan_to_num(), want.nan_to_num())
+        assert torch.equal(got.isnan(), want.isnan())
+        assert torch.equal(got.nan_to_num(), staged.nan_to_num())
+    finally:
+        peers.close()
+
+
+@pytest.mark.cuda
+def test_fused_rs_reuses_epochs_and_grows(gpu):
+    """100 back-to-back calls on one set of buffers (every epoch reuses
+    the rows of the one before), with inputs that change each call, then
+    a chunk larger than the regions (they grow, the epoch restarts)."""
+    from ray_tpu_torch.collective.peer_memory import PeerBuffers
+
+    world, sub = 4, 4096
+    peers = PeerBuffers.loopback(world, gpu)
+    try:
+        xs = _fused_inputs(gpu, world, sub)
+        outs, wants = [], []
+        for i in range(100):
+            x = xs * (1 + i % 7)
+            outs.append(qz.fused_reduce_scatter_loopback(x, peers))
+            wants.append(_staged_loopback(x, 256, None))
+        peers.check()
+        assert peers.epoch == 100
+        for a, b in zip(outs, wants):
+            assert torch.equal(a.nan_to_num(), b.nan_to_num())
+        big = _fused_inputs(gpu, world, 1 << 18, seed=9)
+        got = qz.fused_reduce_scatter_loopback(big, peers)
+        peers.check()
+        assert peers.epoch == 1 and peers.data_bytes >= world * (1 << 18)
+        assert torch.equal(got.nan_to_num(),
+                           _staged_loopback(big, 256, None).nan_to_num())
+    finally:
+        peers.close()
+
+
+@pytest.mark.cuda
+def test_fused_rs_missing_peer_fails_within_its_bound(gpu):
+    """A launch hosting 3 of 4 ranks: rank 3 never arrives, the kernel
+    gives up after its timeout and the next call raises."""
+    import time
+
+    from ray_tpu_torch.collective.peer_memory import PeerBuffers
+
+    peers = PeerBuffers.loopback(4, gpu, timeout_s=0.5)
+    try:
+        xs = _fused_inputs(gpu, 4, 1024)[:3]
+        t0 = time.perf_counter()
+        qz.fused_reduce_scatter_loopback(xs, peers)
+        with pytest.raises(RuntimeError, match="did not arrive"):
+            peers.check()
+        assert time.perf_counter() - t0 < 10
+        with pytest.raises(RuntimeError, match="unusable"):
+            qz.fused_reduce_scatter_loopback(xs, peers)
+    finally:
+        peers.close()
+
+
+@pytest.mark.cuda
+def test_fused_rs_rejects_what_it_does_not_take(gpu):
+    from ray_tpu_torch.collective.peer_memory import PeerBuffers
+
+    peers = PeerBuffers.loopback(2, gpu)
+    try:
+        xs = _fused_inputs(gpu, 2, 512)
+        with pytest.raises(ValueError, match="float32"):
+            _kernels.fused_reduce_scatter(xs.double(), peers, 256)
+        with pytest.raises(ValueError, match="multiple"):
+            _kernels.fused_reduce_scatter(xs[:, :, :300], peers, 256)
+        with pytest.raises(ValueError, match="unit"):
+            _kernels.fused_reduce_scatter(xs.transpose(1, 2), peers, 256)
+        with pytest.raises(ValueError, match="group of 2"):
+            _kernels.fused_reduce_scatter(
+                _fused_inputs(gpu, 3, 512), peers, 256)
+        with pytest.raises(ValueError, match="world"):
+            PeerBuffers.loopback(17, gpu)
+    finally:
+        peers.close()
+    with pytest.raises(RuntimeError, match="peer memory"):
+        qz.fused_reduce_scatter(xs[0], None, 256)
+
+
+@pytest.mark.cuda
+def test_fused_rs_builds_with_its_ptxas_report(gpu):
+    _kernels.build([_kernels.FUSED_REDUCE_SCATTER])
+    log = _kernels.build_log(_kernels.FUSED_REDUCE_SCATTER)
+    assert "fused_rs_kernel" in log and "Used" in log, log
+    assert "bytes spill" in log

@@ -3,11 +3,12 @@
 // the gradients are deterministic.
 //
 // Replaces the Pallas TPU kernels of ray_tpu/ops/attention.py:
-//   flash_bwd_dkv_kernel <- _flash_bwd_dkv_kernel (dK, dV; K2)
-//   flash_bwd_dq_kernel  <- _flash_bwd_dq_kernel  (dQ; K3)
+//   K2 (dK, dV) <- _flash_bwd_dkv_kernel: flash_bwd_dkv_mma_kernel for
+//                  bfloat16, flash_bwd_dkv_kernel for float32
+//   K3 (dQ)     <- _flash_bwd_dq_kernel:  flash_bwd_dq_kernel
 // Both recompute, tile by tile, the forward's scores from the residuals
 // (q, k, v, lse) and take di = rowsum(dO * O) - dlse from the caller:
-//   s  = (q . k) * scale                     f32
+//   s  = (q . k) * scale                     f32, rounded
 //   p  = exp(s - lse), 0 where masked         f32
 //   dp = dO . v                              f32
 //   ds = p * (dp - di) * scale, rounded to q's dtype
@@ -16,29 +17,53 @@
 // preferred_element_type=f32.  Masked and ragged (row >= Sq, key >= Sk)
 // entries get p = 0, hence ds = 0.
 //
-// What bounds it on this card: at the training shape (causal bf16
+// What bounds them on this card: at the training shape (causal bf16
 // [16, 12, 512, 512, 64]) K2 does 8 d FLOPs and K3 6 d FLOPs per unmasked
 // (q, k) pair, about 170 and 150 FLOPs per byte of q/k/v/dO/lse/di/outputs,
 // below the H100's ~295 FLOPs/byte bf16 ridge, so the ideal kernels are
-// memory-bound.  These first kernels run their products on the CUDA cores
-// in f32 FMA (no tensor cores), so in practice they are bound by those
-// operations and by shared-memory traffic.  What the design does about
-// it: each block reads its fixed tile (K2: K, V; K3: Q, dO) once and
-// streams the other side through shared memory as f32; S, P, dP and dS
-// never leave the chip; the causal loop starts (K2) or stops (K3) at the
-// diagonal.  wgmma/TMA, and folding dQ into K2 with atomics, are later work.
+// memory-bound.
 //
-// Layout: q/dO [B, H, Sq, D], k/v [B, H, Sk, D], contiguous, one dtype;
-// lse/di [B, H, Sq] f32; dq like q, dk/dv like k.  256 threads, four per
-// row of a 64-row tile.  K2: grid (ceil(Sk / 64), H, B), one block per key
-// tile looping over q tiles.  K3: grid (ceil(Sq / 64), H, B), one block
-// per q tile looping over key tiles.  Any Sq, Sk >= 1; q_offset >= 0 is
-// the global position of q's row 0 in the causal mask; D a multiple of 16
-// up to 128; float32 or bfloat16.
+// K2 in bfloat16 (the model's dtype) runs on the tensor cores (mma.sync
+// m16n8k16, bf16 inputs, f32 sums): one block of 4 warps per 64-key tile,
+// each warp owning 16 keys, looping over the q tiles from the first the
+// causal mask lets through.  It computes the scores transposed, keys as
+// the M dimension: S^T = K Q^T and dP^T = V dO^T, so their f32
+// accumulators, once p and ds are formed and rounded, are already the A
+// fragments of dV += P^T dO and dK += dS^T Q; P and dS never touch shared
+// memory.  K and V are copied once (16-byte cp.async) and stay in shared
+// memory, each warp reading its keys' A fragments with ldmatrix for each
+// q tile (registers hold the dK and dV accumulators).  Q and dO
+// stream as bf16 through a two-stage cp.async ring (tile i + 1 in flight
+// while tile i computes), rows padded by 8 elements for conflict-free
+// ldmatrix, with lse and di beside them; a thread reads those by its
+// fragment's query index.  dK and dV leave through shared memory as
+// 16-byte stores.  The tensor cores sum s and dp in their own order; an
+// entry whose p or |ds| is at least 2^-3 (rare) takes them again as an
+// in-order f32 chain, the plain version's order, so that its bf16
+// rounding, which one ulp of moves dK or dV by more than an output ulp,
+// is the plain version's (REDO_MIN).
+//
+// K3, and K2 in float32, run their products on the CUDA cores in f32
+// FMA: each block reads its fixed tile (K2: K, V; K3: Q, dO) once and
+// streams the other side through shared memory as f32; the causal loop
+// starts (K2) or stops (K3) at the diagonal.  f32 stays off the tensor
+// cores: the card has no full-precision f32 product there, and TF32
+// would not hold the plain version's limits.
+//
+// Layout: q/dO [B, H, Sq, D], k/v [B, H, Sk, D], contiguous, one dtype
+// (bf16: 16-byte aligned); lse/di [B, H, Sq] f32; dq like q, dk/dv like
+// k.  K2: grid (ceil(Sk / 64), H, B), 128 threads (bf16) or 256 (f32,
+// four per row of a 64-row tile).  K3: grid (ceil(Sq / 64), H, B), 256
+// threads.  Any Sq, Sk >= 1; q_offset >= 0 is the global position of q's
+// row 0 in the causal mask; D a multiple of 16 up to 128.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stddef.h>
+
+#include <type_traits>
+
+#include "tc.cuh"
 
 namespace {
 
@@ -159,7 +184,8 @@ constexpr size_t dq_smem_bytes() {
          (2 * BQ * (D + 4) + 2 * D * KS + BK * D + BQ * SS + 2 * BQ);
 }
 
-// K2: dK, dV for one 64-key tile, summed over the q tiles that reach it.
+// K2 in float32: dK, dV for one 64-key tile, summed over the q tiles that
+// reach it.
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -347,6 +373,227 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// --- K2 in bfloat16: tensor cores ---------------------------------------
+
+constexpr int MMA_THREADS = 128;  // 4 warps, 16 keys each
+// p and |ds| at or above this are formed again from s and dp summed in
+// the plain version's order.  The tensor cores sum in another order, so
+// an f32 p or ds near a bf16 rounding boundary can round the other way
+// than the plain version's; one bf16 ulp of it, times |dO| or |q|, then
+// moves dV or dK.  Below 2^-3 that ulp is at most 2^-11, a move under an
+// output's 4e-3 floor for |dO|, |q| < 8; above it, it can exceed an
+// output's own ulp.
+constexpr float REDO_MIN = 0.125f;
+
+template <int D>
+constexpr size_t dkv_mma_smem_bytes() {
+  // K, V, Q x 2, dO x 2 as bf16 [64][D + 8]; lse, di x 2 as f32 [64]
+  return sizeof(tc::bf16) * 6 * 64 * (D + 8) + sizeof(float) * 4 * BQ;
+}
+
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS)
+flash_bwd_dkv_mma_kernel(const tc::bf16* __restrict__ q,
+                         const tc::bf16* __restrict__ k,
+                         const tc::bf16* __restrict__ v,
+                         const tc::bf16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ di,
+                         tc::bf16* __restrict__ dk, tc::bf16* __restrict__ dv,
+                         int Sq, int Sk, int causal, int q_offset,
+                         float scale) {
+  using tc::bf16;
+  constexpr int RS = D + 8;        // padded row stride (elements)
+  constexpr int KD = D / 16;       // k16 steps over D
+  constexpr int ND = D / 8;        // n8 tiles over D
+  constexpr int NQ = BQ / 8;       // n8 tiles of queries per q tile
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [BK][RS]
+  bf16* Vs = Ks + BK * RS;                       // [BK][RS]
+  bf16* Qs = Vs + BK * RS;                       // [2][BQ][RS]
+  bf16* Os = Qs + 2 * BQ * RS;                   // [2][BQ][RS]  dO
+  float* Ls = reinterpret_cast<float*>(Os + 2 * BQ * RS);  // [2][BQ]
+  float* Ds = Ls + 2 * BQ;                                  // [2][BQ]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int k0 = blockIdx.x * BK;
+  const size_t bh = (size_t)blockIdx.z * gridDim.y + blockIdx.y;
+  const bf16* qb = q + bh * (size_t)Sq * D;
+  const bf16* ob = dout + bh * (size_t)Sq * D;
+  const float* lb = lse + bh * (size_t)Sq;
+  const float* db = di + bh * (size_t)Sq;
+
+  // q tile at q0 into ring stage st: Q, dO, and lse / di one f32 a thread
+  auto load_q = [&](int st, int q0) {
+    tc::load_tile<BQ, D, MMA_THREADS>(Qs + st * BQ * RS, qb, q0, Sq);
+    tc::load_tile<BQ, D, MMA_THREADS>(Os + st * BQ * RS, ob, q0, Sq);
+    const int r = tid & (BQ - 1), qi = q0 + r;
+    tc::cp_async4((tid < BQ ? Ls : Ds) + st * BQ + r,
+                  (tid < BQ ? lb : db) + min(qi, Sq - 1), qi < Sq ? 4 : 0);
+  };
+
+  tc::load_tile<BK, D, MMA_THREADS>(Ks, k + bh * (size_t)Sk * D, k0, Sk);
+  tc::load_tile<BK, D, MMA_THREADS>(Vs, v + bh * (size_t)Sk * D, k0, Sk);
+  // causal: q tiles before the one holding row max(0, k0 - q_offset) see
+  // none of these keys (the reference's `run` condition)
+  const int qstart = causal ? (max(0, k0 - q_offset) / BQ) * BQ : 0;
+  const int nq = qstart < Sq ? (Sq - qstart + BQ - 1) / BQ : 0;
+  if (nq > 0) load_q(0, qstart);
+  tc::cp_async_commit();
+
+  // this warp's 16 keys: rows of Ks / Vs read by no other warp
+  const bf16* Kw = Ks + warp * 16 * RS;
+  const bf16* Vw = Vs + warp * 16 * RS;
+  const int key0 = k0 + warp * 16 + g;  // this thread's keys: key0, +8
+  float dka[ND][4], dva[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+
+  for (int i = 0; i < nq; ++i) {
+    const int st = i & 1, q0 = qstart + i * BQ;
+    if (i + 1 < nq) {  // the next q tile loads while this one computes
+      load_q(st ^ 1, q0 + BQ);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* Qt = Qs + st * BQ * RS;
+    const bf16* Ot = Os + st * BQ * RS;
+    const float* Lt = Ls + st * BQ;
+    const float* Dt = Ds + st * BQ;
+
+    // S^T = K Q^T and dP^T = V dO^T: 16 keys x 64 queries per warp
+    float s[NQ][4], dp[NQ][4];
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t ka[4], va[4];  // this warp's keys, d 16 kk + (0..15)
+      const int koff = (lane & 15) * RS + kk * 16 + (lane >> 4) * 8;
+      tc::ldmatrix_x4(ka, Kw + koff);
+      tc::ldmatrix_x4(va, Vw + koff);
+#pragma unroll
+      for (int np = 0; np < NQ / 2; ++np) {
+        // queries 16 np + (0..7 | 8..15), d 16 kk + (0..7 | 8..15)
+        const int off = (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * RS +
+                        kk * 16 + ((lane >> 3) & 1) * 8;
+        uint32_t b[4];
+        tc::ldmatrix_x4(b, Qt + off);
+        tc::mma_bf16(s[2 * np], ka, b[0], b[1]);
+        tc::mma_bf16(s[2 * np + 1], ka, b[2], b[3]);
+        tc::ldmatrix_x4(b, Ot + off);
+        tc::mma_bf16(dp[2 * np], va, b[0], b[1]);
+        tc::mma_bf16(dp[2 * np + 1], va, b[2], b[3]);
+      }
+    }
+
+    // p = exp(s - lse) (0 where masked), ds = p (dp - di) scale, in place
+    const bool edge = q0 + BQ > Sq || k0 + BK > Sk ||
+                      (causal && k0 + BK - 1 > q_offset + q0);
+    uint32_t redo = 0;  // bit 4 n + e: entry (n, e) is formed again
+#pragma unroll
+    for (int n = 0; n < NQ; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qc = 8 * n + 2 * t + (e & 1);  // query within the tile
+        // s is rounded before lse is taken off (no fused multiply-add)
+        float p = expf(__fmul_rn(s[n][e], scale) - Lt[qc]);
+        if (edge) {
+          const int qi = q0 + qc, key = key0 + (e >> 1) * 8;
+          p = (qi < Sq && key < Sk && (!causal || q_offset + qi >= key))
+                  ? p : 0.f;
+        }
+        s[n][e] = p;
+        dp[n][e] = p * (dp[n][e] - Dt[qc]) * scale;
+        if (p >= REDO_MIN || fabsf(dp[n][e]) >= REDO_MIN)
+          redo |= 1u << (4 * n + e);
+      }
+    }
+    // Large p and ds are taken again from s and dp summed in the plain
+    // version's order (see REDO_MIN).  Rare, so the warp branches only
+    // when one of its lanes holds such an entry, and the recomputation is
+    // one rolled loop over the set bits, its results merged after.
+    if (__any_sync(0xffffffffu, redo)) {
+      float redo_p[4 * NQ], redo_ds[4 * NQ];
+      for (uint32_t bits = redo; bits; bits &= bits - 1) {
+        const int i = __ffs(bits) - 1;
+        const int qc = 8 * (i >> 2) + 2 * t + (i & 1);
+        const int kr = warp * 16 + g + ((i >> 1) & 1) * 8;
+        float sc, dc;
+        tc::dot_chains<D>(Qt + qc * RS, Ks + kr * RS, Ot + qc * RS,
+                          Vs + kr * RS, sc, dc);
+        redo_p[i] = expf(__fmul_rn(sc, scale) - Lt[qc]);
+        redo_ds[i] = redo_p[i] * (dc - Dt[qc]) * scale;
+      }
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (redo >> (4 * n + e) & 1) {
+            s[n][e] = redo_p[4 * n + e];
+            dp[n][e] = redo_ds[4 * n + e];
+          }
+        }
+      }
+    }
+
+    // dV += P^T dO, dK += dS^T Q, P and dS rounded to bf16 in registers
+#pragma unroll
+    for (int c = 0; c < BQ / 16; ++c) {
+      uint32_t pa[4], sa[4];
+      tc::c_to_a(pa, s[2 * c], s[2 * c + 1]);
+      tc::c_to_a(sa, dp[2 * c], dp[2 * c + 1]);
+#pragma unroll
+      for (int dn = 0; dn < ND / 2; ++dn) {
+        // queries 16 c + (0..15), d 16 dn + (0..7 | 8..15)
+        const int off = (c * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * RS +
+                        dn * 16 + (lane >> 4) * 8;
+        uint32_t b[4];
+        tc::ldmatrix_x4_trans(b, Ot + off);
+        tc::mma_bf16(dva[2 * dn], pa, b[0], b[1]);
+        tc::mma_bf16(dva[2 * dn + 1], pa, b[2], b[3]);
+        tc::ldmatrix_x4_trans(b, Qt + off);
+        tc::mma_bf16(dka[2 * dn], sa, b[0], b[1]);
+        tc::mma_bf16(dka[2 * dn + 1], sa, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // this stage is refilled by the next iteration
+  }
+
+  // dK, dV through this warp's own rows of Ks / Vs (with no q tile the
+  // K / V copies must land first); keys no row sees leave as zeros
+  tc::cp_async_wait<0>();
+  __syncthreads();
+  bf16* dKw = Ks + warp * 16 * RS;
+  bf16* dVw = Vs + warp * 16 * RS;
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    const int lo = g * RS + 8 * n + 2 * t, hi = lo + 8 * RS;
+    *reinterpret_cast<__nv_bfloat162*>(dKw + lo) =
+        __floats2bfloat162_rn(dka[n][0], dka[n][1]);
+    *reinterpret_cast<__nv_bfloat162*>(dKw + hi) =
+        __floats2bfloat162_rn(dka[n][2], dka[n][3]);
+    *reinterpret_cast<__nv_bfloat162*>(dVw + lo) =
+        __floats2bfloat162_rn(dva[n][0], dva[n][1]);
+    *reinterpret_cast<__nv_bfloat162*>(dVw + hi) =
+        __floats2bfloat162_rn(dva[n][2], dva[n][3]);
+  }
+  __syncwarp();
+  tc::store_rows16<D>(dk + bh * (size_t)Sk * D, dKw, k0 + warp * 16, Sk,
+                      lane);
+  tc::store_rows16<D>(dv + bh * (size_t)Sk * D, dVw, k0 + warp * 16, Sk,
+                      lane);
+}
+
 struct Args {
   const void *q, *k, *v, *dout, *lse, *di;
   void *g0, *g1;  // K2: dk, dv; K3: dq, unused
@@ -355,17 +602,22 @@ struct Args {
   cudaStream_t stream;
 };
 
+// K2: the tensor-core kernel for bfloat16, the CUDA-core one for float32
 template <typename T, int D>
 cudaError_t launch_dkv(const Args& a) {
-  constexpr size_t smem = dkv_smem_bytes<D>();
+  constexpr bool bf = std::is_same<T, __nv_bfloat16>::value;
+  constexpr size_t smem = bf ? dkv_mma_smem_bytes<D>() : dkv_smem_bytes<D>();
+  void (*kernel)(const T*, const T*, const T*, const T*, const float*,
+                 const float*, T*, T*, int, int, int, int, float);
+  if constexpr (bf) kernel = flash_bwd_dkv_mma_kernel<D>;
+  else kernel = flash_bwd_dkv_kernel<T, D>;
   // set on every launch: the attribute is per device, and the caller
   // makes the inputs' device current (a host-side call of ~1 us)
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((a.Sk + BK - 1) / BK, a.H, a.B);
-  flash_bwd_dkv_kernel<T, D><<<grid, THREADS, smem, a.stream>>>(
+  kernel<<<grid, bf ? MMA_THREADS : THREADS, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.di),

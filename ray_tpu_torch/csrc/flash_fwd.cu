@@ -9,59 +9,245 @@
 //
 // What bounds it on this card: at the model's shapes (d = 64, S = 1024)
 // causal bf16 attention does ~256 FLOPs per byte of q/k/v/o, below the
-// H100's ~295 FLOPs/byte ridge, so the ideal kernel is memory-bound
+// H100's ~295 FLOPs/byte bf16 ridge, so the ideal kernel is memory-bound
 // (non-causal, ~512 FLOPs/byte, is bound by the tensor cores).
-// This first kernel runs its products on the CUDA cores in f32 FMA (no
-// tensor cores), so in practice it is bound by those operations and by
-// shared-memory traffic, well above the memory bound.  What the design
-// does about it: each Q/K/V element is read from device memory once per
-// tile and staged in shared memory as f32; K is stored transposed so a
-// thread's 32 scores read 16-byte vectors; S and P never leave the chip;
-// causal tiles above the diagonal are skipped.  wgmma/TMA and warp
-// specialisation are later work.
 //
-// Layout: q [B, H, Sq, D], k/v [B, H, Sk, D], contiguous; o like q.
-// Grid (ceil(Sq / 64), H, B); 128 threads, two per query row: thread
-// (r, half) owns 32 of the 64 scores of row r in a key tile and half of
-// the row's D accumulator columns.  Any Sq, Sk >= 1 (ragged edges are
-// masked); D a multiple of 16 up to 128; float32 or bfloat16.
+// bfloat16 (the model's dtype): flash_fwd_mma_kernel, FlashAttention-2
+// style on the tensor cores.  One block of 4 warps per 64 query rows,
+// each warp owning 16 rows; both products are mma.sync m16n8k16 with bf16
+// inputs and f32 sums, as the reference runs them on the MXU.
+//   - Q is copied once to shared memory (16-byte cp.async) and held in
+//     registers as A fragments (ldmatrix) for the whole key loop.
+//   - K and V stay bf16 in a two-stage cp.async ring of 64-key tiles, so
+//     tile j + 1 is in flight while tile j computes; rows are padded by 8
+//     elements so ldmatrix reads are free of bank conflicts; rows past Sk
+//     are zero-filled.  S = Q K^T reads K with ldmatrix, P V reads V with
+//     ldmatrix.trans.
+//   - The softmax runs on the accumulator fragments: a thread holds 16
+//     scores of 2 rows; the row max and sum take two shuffles over the
+//     quad that shares a row.  The reference's rounding points are kept:
+//     s = acc * scale rounded, then max, alpha = exp(m - m_new),
+//     p = exp(s - m_new) summed into l in f32, and only P V takes p
+//     rounded to bf16.  P never leaves registers: two n8 tiles of S are
+//     one k16 A fragment of P V.
+//   - Causal blocks stop at the diagonal tile; only tiles that cross the
+//     diagonal or the ragged Sk edge are masked.
+//   - O = acc / max(l, 1e-30) goes out through shared memory as 16-byte
+//     stores.
+//
+// float32 keeps flash_fwd_kernel on the CUDA cores (f32 FMA): the card
+// has no full-precision f32 tensor-core product, and TF32 would not hold
+// the f32 results to the plain version's summation-order limits.  Q/K/V
+// are staged in shared memory, K transposed, two threads per query row.
+//
+// Layout: q [B, H, Sq, D], k/v [B, H, Sk, D], contiguous (bf16: 16-byte
+// aligned); o like q.  Grid (ceil(Sq / 64), H, B), 128 threads.  Any
+// Sq, Sk >= 1 (ragged edges are masked); D a multiple of 16 up to 128.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stddef.h>
 
+#include "tc.cuh"
+
 namespace {
+
+using tc::bf16;
 
 constexpr int BQ = 64;        // query rows per block
 constexpr int BK = 64;        // keys per tile
-constexpr int THREADS = 128;  // two per query row
+constexpr int THREADS = 128;  // f32: two per query row; bf16: 4 warps
 // rounded from the double product, as DEFAULT_MASK_VALUE is in Python
 constexpr float MASK_VALUE = (float)(-0.7 * 3.40282346638528859812e+38);
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+// --- bfloat16: tensor cores ---------------------------------------------
 
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's .to()
+template <int D>
+constexpr size_t mma_smem_bytes() {
+  return sizeof(bf16) * (BQ + 4 * BK) * (D + 8);  // Q, K x 2, V x 2
 }
 
 template <int D>
-constexpr size_t smem_bytes() {
+__global__ void __launch_bounds__(THREADS)
+flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ o,
+                     float* __restrict__ lse, int Sq, int Sk, int causal,
+                     int q_offset, float scale) {
+  constexpr int RS = D + 8;   // padded row stride (elements)
+  constexpr int KD = D / 16;  // k16 steps over D
+  constexpr int ND = D / 8;   // n8 tiles over D
+  constexpr int NS = BK / 8;  // n8 tiles of scores per key tile
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [BQ][RS]
+  bf16* Ks = Qs + BQ * RS;                       // [2][BK][RS]
+  bf16* Vs = Ks + 2 * BK * RS;                   // [2][BK][RS]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * BQ;
+  const size_t bh = (size_t)blockIdx.z * gridDim.y + blockIdx.y;
+  const bf16* qb = q + bh * (size_t)Sq * D;
+  const bf16* kb = k + bh * (size_t)Sk * D;
+  const bf16* vb = v + bh * (size_t)Sk * D;
+
+  // keys past the block's last row are masked for every row: skip them
+  const int kend = causal ? min(Sk, q_offset + q0 + BQ) : Sk;
+  const int ntiles = (kend + BK - 1) / BK;
+
+  tc::load_tile<BQ, D, THREADS>(Qs, qb, q0, Sq);
+  tc::load_tile<BK, D, THREADS>(Ks, kb, 0, Sk);
+  tc::load_tile<BK, D, THREADS>(Vs, vb, 0, Sk);
+  tc::cp_async_commit();
+
+  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, +8
+  uint32_t qf[KD][4];
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m[2] = {MASK_VALUE, MASK_VALUE}, l[2] = {0.f, 0.f};
+
+  for (int j = 0; j < ntiles; ++j) {
+    const int st = j & 1;
+    if (j + 1 < ntiles) {  // the next tile loads while this one computes
+      tc::load_tile<BK, D, THREADS>(Ks + (st ^ 1) * BK * RS, kb,
+                                    (j + 1) * BK, Sk);
+      tc::load_tile<BK, D, THREADS>(Vs + (st ^ 1) * BK * RS, vb,
+                                    (j + 1) * BK, Sk);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (j == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk)
+        tc::ldmatrix_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * RS +
+                                    kk * 16 + (lane >> 4) * 8);
+    }
+    const bf16* Kt = Ks + st * BK * RS;
+    const bf16* Vt = Vs + st * BK * RS;
+
+    // S = Q K^T: 16 rows x 64 keys per warp
+    float s[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        uint32_t b[4];  // keys 16 np + (0..7 | 8..15), d 16 kk + (0..7 | 8..15)
+        tc::ldmatrix_x4(b, Kt + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) *
+                                    RS + kk * 16 + ((lane >> 3) & 1) * 8);
+        tc::mma_bf16(s[2 * np], qf[kk], b[0], b[1]);
+        tc::mma_bf16(s[2 * np + 1], qf[kk], b[2], b[3]);
+      }
+    }
+
+    // s = dot * scale (rounded, as the reference), masked where needed
+    const int k0 = j * BK;
+    const bool edge =
+        k0 + BK > Sk || (causal && k0 + BK - 1 > q_offset + q0);
+    float mx[2] = {MASK_VALUE, MASK_VALUE};
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = __fmul_rn(s[n][e], scale);
+        if (edge) {
+          const int col = k0 + 8 * n + 2 * t + (e & 1);
+          const int grow = q_offset + row0 + (e >> 1) * 8;
+          x = (col < Sk && (!causal || grow >= col)) ? x : MASK_VALUE;
+        }
+        s[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float alpha[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float mnew = fmaxf(m[r], mx[r]);
+      alpha[r] = expf(m[r] - mnew);
+      m[r] = mnew;
+    }
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[n][e] - m[e >> 1]);
+        s[n][e] = p;
+        psum[e >> 1] += p;  // l sums p in f32, before its rounding
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 1);
+      psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 2);
+      l[r] = __fadd_rn(__fmul_rn(alpha[r], l[r]), psum[r]);
+    }
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+
+    // acc += P V, P rounded to bf16 straight from the S fragments
+#pragma unroll
+    for (int c = 0; c < BK / 16; ++c) {
+      uint32_t pa[4];
+      tc::c_to_a(pa, s[2 * c], s[2 * c + 1]);
+#pragma unroll
+      for (int dp = 0; dp < ND / 2; ++dp) {
+        uint32_t b[4];  // keys 16 c + (0..15), d 16 dp + (0..7 | 8..15)
+        tc::ldmatrix_x4_trans(
+            b, Vt + (c * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * RS +
+                   dp * 16 + (lane >> 4) * 8);
+        tc::mma_bf16(acc[2 * dp], pa, b[0], b[1]);
+        tc::mma_bf16(acc[2 * dp + 1], pa, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // this stage is refilled by the next iteration
+  }
+
+  // O through this warp's own rows of Qs (read only by this warp)
+  const float lc[2] = {fmaxf(l[0], 1e-30f), fmaxf(l[1], 1e-30f)};
+  bf16* Ow = Qs + warp * 16 * RS;
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    *reinterpret_cast<__nv_bfloat162*>(Ow + g * RS + 8 * n + 2 * t) =
+        __floats2bfloat162_rn(acc[n][0] / lc[0], acc[n][1] / lc[0]);
+    *reinterpret_cast<__nv_bfloat162*>(Ow + (g + 8) * RS + 8 * n + 2 * t) =
+        __floats2bfloat162_rn(acc[n][2] / lc[1], acc[n][3] / lc[1]);
+  }
+  __syncwarp();
+  tc::store_rows16<D>(o + bh * (size_t)Sq * D, Ow, q0 + warp * 16, Sq, lane);
+  if (lse != nullptr && t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (row0 + 8 * r < Sq)
+        lse[bh * (size_t)Sq + row0 + 8 * r] = m[r] + logf(lc[r]);
+  }
+}
+
+// --- float32: CUDA cores ------------------------------------------------
+
+template <int D>
+constexpr size_t f32_smem_bytes() {
   return sizeof(float) *
          (BQ * (D + 1) + D * (BK + 4) + BK * D + BQ * (BK + 1));
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int Sq, int Sk, int causal,
                  int q_offset, float scale) {
   constexpr int QS = D + 1;   // padded strides: no bank conflicts on
@@ -81,14 +267,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int half = tid & 1;
   const int q0 = blockIdx.x * BQ;
   const size_t bh = (size_t)blockIdx.z * gridDim.y + blockIdx.y;
-  const T* qb = q + bh * (size_t)Sq * D;
-  const T* kb = k + bh * (size_t)Sk * D;
-  const T* vb = v + bh * (size_t)Sk * D;
+  const float* qb = q + bh * (size_t)Sq * D;
+  const float* kb = k + bh * (size_t)Sk * D;
+  const float* vb = v + bh * (size_t)Sk * D;
 
   for (int i = tid; i < BQ * D; i += THREADS) {
     const int rr = i / D, cc = i % D;
     const int qi = q0 + rr;
-    Qs[rr * QS + cc] = qi < Sq ? to_f32(qb[(size_t)qi * D + cc]) : 0.f;
+    Qs[rr * QS + cc] = qi < Sq ? qb[(size_t)qi * D + cc] : 0.f;
   }
 
   const int row = q0 + r;
@@ -108,8 +294,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int kj = k0 + j;
       float kx = 0.f, vx = 0.f;
       if (kj < Sk) {
-        kx = to_f32(kb[(size_t)kj * D + cc]);
-        vx = to_f32(vb[(size_t)kj * D + cc]);
+        kx = kb[(size_t)kj * D + cc];
+        vx = vb[(size_t)kj * D + cc];
       }
       Kt[cc * KS + j] = kx;
       Vs[j * D + cc] = vx;
@@ -152,7 +338,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < SC; ++c) {
       const float p = expf(s[c] - mnew);
       psum += p;
-      pr[c] = to_f32(from_f32<T>(p));  // P in the input dtype for P.V
+      pr[c] = p;
     }
     psum += __shfl_xor_sync(0xffffffffu, psum, 1);
     l = alpha * l + psum;
@@ -179,9 +365,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (row < Sq) {
     const float lc = fmaxf(l, 1e-30f);
-    T* orow = o + (bh * (size_t)Sq + row) * D + half * DH;
+    float* orow = o + (bh * (size_t)Sq + row) * D + half * DH;
 #pragma unroll
-    for (int d = 0; d < DH; ++d) orow[d] = from_f32<T>(acc[d] / lc);
+    for (int d = 0; d < DH; ++d) orow[d] = acc[d] / lc;
     if (lse != nullptr && half == 0) lse[bh * (size_t)Sq + row] = m + logf(lc);
   }
 }
@@ -190,15 +376,19 @@ template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* lse, int B, int H, int Sq, int Sk, int causal,
                    int q_offset, float scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
+  constexpr bool bf = sizeof(T) == 2;
+  constexpr size_t smem = bf ? mma_smem_bytes<D>() : f32_smem_bytes<D>();
+  void (*kernel)(const T*, const T*, const T*, T*, float*, int, int, int,
+                 int, float);
+  if constexpr (bf) kernel = flash_fwd_mma_kernel<D>;
+  else kernel = flash_fwd_kernel<D>;
   // set on every launch: the attribute is per device, and the caller
   // makes the inputs' device current (a host-side call of ~1 us)
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
+  kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o),
       static_cast<float*>(lse), Sq, Sk, causal, q_offset, scale);
@@ -243,8 +433,8 @@ int rtt_flash_fwd(const void* q, const void* k, const void* v, void* o,
     return (int)dispatch<float>(D, q, k, v, o, lse, B, H, Sq, Sk, causal,
                                 q_offset, scale, st);
   if (dtype == 1)
-    return (int)dispatch<__nv_bfloat16>(D, q, k, v, o, lse, B, H, Sq, Sk,
-                                        causal, q_offset, scale, st);
+    return (int)dispatch<bf16>(D, q, k, v, o, lse, B, H, Sq, Sk, causal,
+                               q_offset, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

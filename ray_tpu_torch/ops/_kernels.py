@@ -18,6 +18,7 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -50,6 +51,8 @@ class Kernel:
 
     def lib_path(self) -> Path:
         h = hashlib.sha256(self.source_path.read_bytes())
+        for header in sorted(CSRC.glob("*.cuh")):   # tc.cuh and the like
+            h.update(header.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"{self.source_path.stem}-{h.hexdigest()[:16]}.so"
 
@@ -140,6 +143,40 @@ def build_log(kernel: Kernel) -> str:
     return path.read_text() if path.exists() else ""
 
 
+def ptxas_entries(kernel: Kernel) -> Dict[str, Dict[str, int]]:
+    """ptxas's report of each entry function in ``kernel``'s source, by
+    mangled name: registers and spill bytes (stores + loads)."""
+    out = {}
+    for chunk in build_log(kernel).split("Compiling entry function '")[1:]:
+        name = chunk.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", chunk)
+        out[name] = {"registers": int(regs.group(1)) if regs else -1,
+                     "spill_bytes": (int(spill.group(1)) + int(spill.group(2))
+                                     if spill else -1)}
+    return out
+
+
+def sass_opcode_counts(kernel: Kernel, opcode: str) -> Dict[str, int]:
+    """How many instructions of ``opcode`` (e.g. ``HMMA``, the tensor-core
+    product) ``cuobjdump -sass`` shows in each function of ``kernel``'s
+    built library, by mangled name."""
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(kernel.lib_path())],
+                          capture_output=True, text=True, check=True).stdout
+    op = re.compile(rf"\b{opcode}\b")
+    counts: Dict[str, int] = {}
+    name = None
+    for line in text.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ", 1)[1].strip()
+            counts.setdefault(name, 0)
+        elif name is not None and op.search(line):
+            counts[name] += 1
+    return counts
+
+
 def _load(kernel: Kernel) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(kernel.source)
@@ -222,8 +259,11 @@ def _check_attention(what: str, q: torch.Tensor, k: torch.Tensor,
                      ) -> Tuple[int, int, int, int, int]:
     """What the flash kernels take: q (and each ``q_like``) [B, H, Sq, D],
     k/v [B, H, Sk, D], contiguous CUDA tensors of one dtype (float32 or
-    bfloat16) on one device, D a multiple of 16 up to 128; each of
-    ``rows`` a contiguous f32 [B, H, Sq].  Returns (B, H, Sq, Sk, D)."""
+    bfloat16) on one device, D a multiple of 16 up to 128, bfloat16 ones
+    16-byte aligned (the tensor-core kernels copy rows with 16-byte
+    ``cp.async``; a view at an odd offset raises, it is never copied);
+    each of ``rows`` a contiguous f32 [B, H, Sq].  Returns
+    (B, H, Sq, Sk, D)."""
     for name, t in (("q", q), ("k", k), ("v", v)) + q_like + rows:
         if t.device.type != "cuda":
             raise ValueError(f"{what}: {name} is on {t.device}, not cuda")
@@ -238,6 +278,9 @@ def _check_attention(what: str, q: torch.Tensor, k: torch.Tensor,
         if t.dtype != q.dtype or t.dtype not in _FLASH_DTYPES:
             raise ValueError(f"{what}: {name} has dtype {t.dtype}; the "
                              f"inputs must share float32 or bfloat16")
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} is not 16-byte aligned "
+                             f"(data_ptr {t.data_ptr():#x})")
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
     if (k.shape != (B, H, Sk, D) or v.shape != k.shape

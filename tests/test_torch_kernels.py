@@ -7,7 +7,16 @@ file imports no JAX, so it also runs where only PyTorch is installed:
 (the variable keeps tests/conftest.py from pinning JAX to the CPU).
 Tolerances: bf16 outputs within one bf16 ulp (4e-3 + 2^-7*|ref|), f32
 outputs and lse at 1e-4 (summation order).  The backward kernels' dq,
-dk, dv are held to the same limits against their plain version.  The
+dk, dv are held to the same limits against their plain version.  In
+bf16, K1 and K2 run on the tensor cores (mma.sync, which sums in another
+order than the plain version's f32 matmuls: the same per-output limits
+hold, K2 forming its large p and ds in the plain version's order, which
+a peaked-softmax case drives); the cases cover every head dim's tile loop (D = 16 to 128,
+including 48, 80 and 112) and sequence lengths that are multiples of
+neither 16 nor 64 (77, 1).  A bf16 input that is not 16-byte aligned
+raises; ptxas reports no spill for the bf16 D = 64 instances, and their
+SASS holds HMMA (tensor-core) instructions while no bf16 instance of the
+f32 CUDA-core kernels is built.  The
 quantize kernels K4-K6 are held to their plain versions bitwise: int8
 values, scales and f32 sums all equal, and so is K7, the fused
 reduce-scatter, in its one-card loopback launch (every rank of a group in
@@ -35,6 +44,10 @@ KERNEL_CASES = [
     (torch.bfloat16, False, 200, 200, 64, False),
     (torch.bfloat16, True, 64, 256, 128, True),
     (torch.bfloat16, True, 1, 300, 16, True),
+    (torch.bfloat16, True, 77, 77, 48, True),
+    (torch.bfloat16, False, 77, 1, 80, True),
+    (torch.bfloat16, True, 1, 77, 112, True),
+    (torch.bfloat16, False, 130, 77, 112, False),
     (torch.float32, True, 130, 130, 32, True),
     (torch.float32, False, 70, 33, 96, True),
 ]
@@ -126,6 +139,10 @@ BWD_CASES = [
     (torch.bfloat16, True, 1, 300, 16, 299, False),
     (torch.bfloat16, True, 64, 256, 64, 64, False),   # keys no row sees
     (torch.bfloat16, True, 100, 100, 64, 0, True),
+    (torch.bfloat16, True, 77, 77, 48, 0, False),
+    (torch.bfloat16, False, 77, 1, 80, 0, True),
+    (torch.bfloat16, True, 1, 77, 112, 76, False),
+    (torch.bfloat16, True, 77, 200, 112, 50, True),   # keys no row sees
     (torch.float32, True, 130, 130, 32, 0, False),
     (torch.float32, False, 70, 33, 96, 0, True),
 ]
@@ -173,6 +190,32 @@ def test_flash_bwd_kernels_match_plain(gpu, dtype, causal, sq, sk, d,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_dkv_large_p_and_ds_match_plain(gpu, causal):
+    """Peaked attention (softmax scale 0.5 on unit-variance q and k) with
+    a unit-variance dO gives many entries whose p or ds is large enough
+    that a bf16 rounding flip would move dK or dV by more than an output
+    ulp; K2 forms those in the plain version's order, so the per-output
+    limits hold there too."""
+    from ray_tpu_torch.ops.attention import flash_attention_bwd_dkv_plain
+
+    g = torch.Generator(device=gpu).manual_seed(3)
+    q, k, v, do = (torch.randn(2, 3, 192, 64, generator=g, device=gpu)
+                   .bfloat16() for _ in range(4))
+    o, lse = _kernels.flash_fwd(q, k, v, causal=causal, scale=0.5,
+                                with_lse=True)
+    di = flash_bwd_di(o, do)
+    got = _kernels.flash_bwd_dkv(q, k, v, do, lse, di, causal=causal,
+                                 scale=0.5)
+    want = flash_attention_bwd_dkv_plain(q, k, v, do, lse, di, causal, 0.5)
+    torch.cuda.synchronize()
+    atol, rtol = BF16_TOL
+    for name, a, b in zip(("dk", "dv"), got, want):
+        err = (a.float() - b.float()).abs()
+        assert (err <= atol + rtol * b.float().abs()).all(), (name, err.max())
+
+
+@pytest.mark.cuda
 def test_flash_attention_grad_runs_the_kernels(gpu):
     """Through the autograd Function: K1 once, K2 and K3 once each, and
     the grads are the kernels' own (a transposed do is made
@@ -215,6 +258,48 @@ def test_flash_bwd_rejects_what_it_does_not_take(gpu):
         _kernels.flash_bwd(h, h, h, h, lse, di, **kw)
     with pytest.raises(ValueError, match="cuda"):
         _kernels.flash_bwd(q.cpu(), k, v, do, lse, di, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["flash_fwd", "flash_bwd_dkv"])
+def test_flash_kernels_reject_unaligned_bf16(gpu, entry):
+    """A contiguous bf16 view at an odd element offset is not 16-byte
+    aligned: the wrapper raises rather than copy it."""
+    shape = (1, 2, 64, 64)
+    buf = torch.randn(2 * 64 * 64 + 1, device=gpu).to(torch.bfloat16)
+    odd = buf[1:].view(shape)
+    assert odd.is_contiguous() and odd.data_ptr() % 16
+    ok = torch.randn(shape, device=gpu).to(torch.bfloat16)
+    rows = torch.zeros(1, 2, 64, device=gpu)
+    kernel = getattr(_kernels, entry.upper())
+    before = kernel.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        if entry == "flash_fwd":
+            _kernels.flash_fwd(ok, odd, ok, causal=True, scale=0.125)
+        else:
+            _kernels.flash_bwd_dkv(ok, ok, ok, odd, rows, rows, causal=True,
+                                   scale=0.125)
+    assert kernel.launches == before
+
+
+@pytest.mark.cuda
+def test_flash_bf16_kernels_run_on_the_tensor_cores(gpu):
+    """ptxas reports no spill for the bf16 D = 64 instances of K1 and K2
+    (the main path's head dim); every bf16 instance holds HMMA
+    instructions; the f32 CUDA-core kernels have no bf16 instance."""
+    for kernel, fn, old in (
+            (_kernels.FLASH_FWD, "flash_fwd_mma_kernel", "flash_fwd_kernel"),
+            (_kernels.FLASH_BWD_DKV, "flash_bwd_dkv_mma_kernel",
+             "flash_bwd_dkv_kernel")):
+        _kernels.build([kernel])
+        entries = _kernels.ptxas_entries(kernel)
+        d64 = [e for name, e in entries.items() if f"{fn}ILi64E" in name]
+        assert len(d64) == 1, entries
+        assert d64[0]["spill_bytes"] == 0, d64
+        hmma = _kernels.sass_opcode_counts(kernel, "HMMA")
+        mine = {n: c for n, c in hmma.items() if fn in n}
+        assert len(mine) == 8 and all(c > 0 for c in mine.values()), hmma
+        assert not [n for n in hmma if f"{old}I13__nv_bfloat16" in n], hmma
 
 
 QUANT_CASES = [

@@ -8,15 +8,17 @@ Phases, each of which must pass (any failure exits non-zero):
   1. device   — the card's name and power limit (nvidia-smi); no CUDA fails.
   2. build    — nvcc builds every kernel from csrc/ for sm_90a, one
                 process per source, all started together; ptxas's
-                register and spill report per source; the bf16 K1 and K2
-                run on the tensor cores (HMMA in their SASS, by cuobjdump)
-                and do not spill at D = 64.
+                register and spill report per source; the bf16 K1, K2 and
+                K3 run on the tensor cores (HMMA in the SASS of every
+                instance, by cuobjdump) and do not spill at D = 64.
   3. kernels  — each kernel against its plain PyTorch version on the card
                 at the main paths' shapes and a few edge shapes, with
                 times: kernel, plain version, one library call (a yardstick
                 the port never calls; with the device kernels it ran, by
                 torch.profiler) and the roofline bound.  K1 the flash
-                forward; K2 (dK, dV) and K3 (dQ) the backward.
+                forward; K2 (dK, dV) and K3 (dQ) the backward, with a
+                peaked-softmax case that drives their re-forming of large
+                p and ds.
   4. forward  — GPT-2-small at full width (12 layers, d 768, vocab 50304)
                 in bf16 on tokens [8, 1024]: the flash kernel launches
                 once per layer, logits agree with the same model run
@@ -39,7 +41,9 @@ Phases, each of which must pass (any failure exits non-zero):
                 world 1/2/4/8) against their plain versions, bitwise, on a
                 4 MiB gradient bucket, its requantize block, the whole
                 flattened GPT-2-small gradient, a bf16 input, a ragged
-                length and NaN/inf blocks; times against the bytes bound.
+                length and NaN/inf blocks; times (CUDA events, and each
+                kernel's device time by torch.profiler) against the bytes
+                bound.
   9. kernels-fused — K7 (the fused int8 reduce-scatter over CUDA peer
                 memory) against its plain version and the staged K4 -> K6
                 hop, bitwise, sum and mean: a real one-rank NCCL group
@@ -113,15 +117,23 @@ LSE_ATOL = 1e-4
 # rule K1 uses, one ulp of the output type plus the f32 summation order
 # (bf16 4e-3 + 2^-7*|ref|, f32 1e-4 + 1e-5*|ref|).  A ds or p that
 # lands on a bf16 rounding boundary can round the other way when its f32
-# sum was taken in another order; K2 in bf16 forms its large p and ds
-# (>= 2^-3, where one ulp of them can move an output by more than its
-# own ulp) in the plain version's order (REDO_MIN in csrc/flash_bwd.cu).
+# sum was taken in another order; K2 and K3 in bf16 form their large p
+# and ds (>= 2^-3, where one ulp of them can move an output by more than
+# its own ulp) in the plain version's order (REDO_MIN in
+# csrc/flash_bwd.cu).
 # The mean error over all outputs of a case has its own limit, about 3x
-# the largest mean seen on the H100: dq (K3, CUDA cores) bf16 1.92e-8,
-# f32 2.96e-8 over all three outputs when K2 ran on the CUDA cores too;
-# dk, dv bf16 (K2 on the tensor cores) 1.85e-7.
-BWD_MEAN_ATOL = {"bfloat16": {"dq": 6e-8, "dk": 6e-7, "dv": 6e-7},
+# the largest mean seen on the H100: f32 2.96e-8 over all three outputs
+# (CUDA cores); bf16, K2 and K3 on the tensor cores, dk, dv 1.85e-7 and
+# dq 1.58e-7 (d128; 7.7e-8 to 1.2e-7 in the other cases, where the f32
+# FMA K3 read 1.92e-8).  The peaked cases (softmax scale 0.5) have
+# outputs ~10x larger, so their one-ulp differences are too: their own
+# limits, about 3x their readings dq 8.06e-7, dk 7.66e-7, dv 2.97e-7.
+BWD_MEAN_ATOL = {"bfloat16": {"dq": 5e-7, "dk": 6e-7, "dv": 6e-7},
                  "float32": {"dq": 9e-8, "dk": 9e-8, "dv": 9e-8}}
+BWD_MEAN_ATOL_PEAKED = {"dq": 2.4e-6, "dk": 2.4e-6, "dv": 9e-7}
+# p and |ds| at or above this are re-formed by K2 and K3 in the plain
+# version's order (REDO_MIN in csrc/flash_bwd.cu)
+REDO_MIN = 0.125
 # train phase, f32 grads through the kernels vs through the plain
 # versions at full width: per leaf within GRAD_RTOL * max|g| (sums in
 # another order through 12 layers), the loss within LOSS_ATOL
@@ -209,16 +221,20 @@ def phase_build():
         log(f"[build] {k.source} ({', '.join(names)}): "
             f"{secs[k.name]:.1f} s; ptxas {json.dumps(ptxas[k.source])}")
     log(f"[build] all kernels in {wall:.1f} s")
-    # the bf16 attention kernels run on the tensor cores: HMMA in their
-    # SASS, and no spill at the main path's head dim (D = 64); registers
-    # and spills of every head dim's instance are recorded
+    # the bf16 attention kernels run on the tensor cores: HMMA in the SASS
+    # of every head dim's instance, and no spill at the main path's head
+    # dim (D = 64); registers and spills of every instance are recorded
     import re
 
     hmma, bf16 = {}, {}
     for k, fn in ((_kernels.FLASH_FWD, "flash_fwd_mma_kernel"),
-                  (_kernels.FLASH_BWD_DKV, "flash_bwd_dkv_mma_kernel")):
-        hmma[k.source] = sum(_kernels.sass_opcode_counts(k, "HMMA").values())
-        check(hmma[k.source] > 0, f"no HMMA in the SASS of {k.source}")
+                  (_kernels.FLASH_BWD_DKV, "flash_bwd_dkv_mma_kernel"),
+                  (_kernels.FLASH_BWD_DQ, "flash_bwd_dq_mma_kernel")):
+        counts = {n: c for n, c in
+                  _kernels.sass_opcode_counts(k, "HMMA").items() if fn in n}
+        hmma[fn] = sum(counts.values())
+        check(len(counts) == 8 and all(counts.values()),
+              f"{fn}: an instance without HMMA in its SASS: {counts}")
         bf16[fn] = {int(re.search(r"ILi(\d+)E", name).group(1)): e
                     for name, e in _kernels.ptxas_entries(k).items()
                     if fn in name}
@@ -227,7 +243,7 @@ def phase_build():
         log(f"[build] {fn} by head dim (registers, spill bytes): "
             + ", ".join(f"{d}: {e['registers']}/{e['spill_bytes']}"
                         for d, e in sorted(bf16[fn].items())))
-    log(f"[build] HMMA instructions per source {json.dumps(hmma)}")
+    log(f"[build] HMMA instructions per kernel {json.dumps(hmma)}")
     return {"seconds": wall, "per_kernel": secs, "ptxas": ptxas,
             "hmma": hmma, "bf16_instances": bf16}
 
@@ -350,7 +366,7 @@ def _bound(flops, nbytes, dtype):
                                      else "bytes")
 
 
-def _sdpa_bwd(q, k, v, do, causal, q_offset):
+def _sdpa_bwd(q, k, v, do, causal, q_offset, scale):
     """The backward of scaled_dot_product_attention: one library call's
     dq, dk and dv, the K2+K3 pair's yardstick, as device time (the
     kernels of forward + backward less those of the forward, by
@@ -362,10 +378,11 @@ def _sdpa_bwd(q, k, v, do, causal, q_offset):
 
     sq, sk = q.shape[-2], k.shape[-2]
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    kw = {"is_causal": causal}
+    kw = {"is_causal": causal, "scale": scale}
     if causal and sq != sk:
         kw = {"attn_mask": torch.ones(sq, sk, dtype=torch.bool,
-                                      device=q.device).tril(q_offset)}
+                                      device=q.device).tril(q_offset),
+              "scale": scale}
 
     def fwd():
         return F.scaled_dot_product_attention(*leaves, **kw)
@@ -386,6 +403,27 @@ def _sdpa_bwd(q, k, v, do, causal, q_offset):
              if ms > 1e-4])
 
 
+def _redo_share(q, k, v, do, lse, di, causal, scale, q_offset):
+    """Share of the unmasked (q, k) entries whose p or |ds| is at least
+    REDO_MIN: those K2 and K3 form again in the plain version's order (a
+    reading, from f32 products of the whole score matrix, one batch row
+    at a time)."""
+    import torch
+
+    sq, sk = q.shape[-2], k.shape[-2]
+    keep = torch.ones(sq, sk, dtype=torch.bool, device=q.device)
+    if causal:
+        keep = keep.tril(q_offset)
+    big = 0
+    for b in range(q.shape[0]):
+        s = (q[b].float() @ k[b].float().transpose(-1, -2)) * scale
+        p = torch.where(keep, torch.exp(s - lse[b][..., None]), 0.0)
+        dp = do[b].float() @ v[b].float().transpose(-1, -2)
+        ds = p * (dp - di[b][..., None]) * scale
+        big += ((p >= REDO_MIN) | (ds.abs() >= REDO_MIN)).sum().item()
+    return big / (q.shape[0] * q.shape[1] * keep.sum().item())
+
+
 def phase_kernels_bwd():
     import torch
 
@@ -394,27 +432,40 @@ def phase_kernels_bwd():
                                              flash_attention_bwd_dq_plain)
 
     cases = [
-        # name, dtype, (B, H, Sq, Sk, D), causal, q_offset, with dlse
-        ("main", torch.bfloat16, (16, 12, 512, 512, 64), True, 0, False),
+        # name, dtype, (B, H, Sq, Sk, D), causal, q_offset, with dlse,
+        # softmax scale (None: D^-0.5)
+        ("main", torch.bfloat16, (16, 12, 512, 512, 64), True, 0, False,
+         None),
         ("non-causal", torch.bfloat16, (16, 12, 512, 512, 64), False, 0,
-         False),
+         False, None),
         ("rect-causal", torch.bfloat16, (16, 12, 128, 512, 64), True, 384,
-         False),
+         False, None),
         ("ragged-500", torch.bfloat16, (16, 12, 500, 500, 64), True, 0,
-         False),
-        ("d128", torch.bfloat16, (8, 12, 512, 512, 128), True, 0, False),
-        ("f32", torch.float32, (16, 12, 512, 512, 64), True, 0, False),
-        ("dlse", torch.bfloat16, (16, 12, 512, 512, 64), True, 0, True),
+         False, None),
+        ("d128", torch.bfloat16, (8, 12, 512, 512, 128), True, 0, False,
+         None),
+        ("f32", torch.float32, (16, 12, 512, 512, 64), True, 0, False,
+         None),
+        ("dlse", torch.bfloat16, (16, 12, 512, 512, 64), True, 0, True,
+         None),
+        # peaked attention (scale 0.5 on unit-variance inputs): many p and
+        # ds >= 2^-3, so K2 and K3 re-form many entries (REDO_MIN)
+        ("peaked-causal", torch.bfloat16, (16, 12, 512, 512, 64), True, 0,
+         False, 0.5),
+        ("peaked", torch.bfloat16, (16, 12, 512, 512, 64), False, 0, False,
+         0.5),
     ]
     g = torch.Generator(device="cuda").manual_seed(SEED + 10)
     results = []
-    for name, dtype, (B, H, Sq, Sk, D), causal, qoff, with_dlse in cases:
+    for (name, dtype, (B, H, Sq, Sk, D), causal, qoff, with_dlse,
+         scale) in cases:
         dname = str(dtype).split(".")[-1]
         q, do = (torch.randn(B, H, Sq, D, generator=g, device="cuda")
                  .to(dtype) for _ in range(2))
         k, v = (torch.randn(B, H, Sk, D, generator=g, device="cuda")
                 .to(dtype) for _ in range(2))
-        scale = D ** -0.5
+        peaked = scale is not None
+        scale = scale if peaked else D ** -0.5
         kw = dict(causal=causal, scale=scale, q_offset=qoff)
         with torch.no_grad():
             o, lse = _kernels.flash_fwd(q, k, v, with_lse=True, **kw)
@@ -429,6 +480,7 @@ def phase_kernels_bwd():
             pq = flash_attention_bwd_dq_plain(*args, causal, scale, qoff)
             torch.cuda.synchronize()
             atol, rtol = TOL[dname]
+            mean_tol = BWD_MEAN_ATOL_PEAKED if peaked else BWD_MEAN_ATOL[dname]
             errs = {}
             for out, got, want in (("dq", dq, pq), ("dk", dk, pk),
                                    ("dv", dv, pv)):
@@ -436,15 +488,17 @@ def phase_kernels_bwd():
                 bad = (err > atol + rtol * want.float().abs()).sum().item()
                 errs[out] = {"max": err.max().item(),
                              "mean": err.mean().item(), "bad": bad,
-                             "max_ref": want.float().abs().max().item()}
+                             "max_ref": want.float().abs().max().item(),
+                             "mean_ref": want.float().abs().mean().item()}
                 check(torch.isfinite(got).all().item(),
                       f"bwd {name}: non-finite {out}")
                 check(bad == 0, f"bwd {name}: {bad} of {out} off by more "
                       f"than {atol} + {rtol:.3g}*|ref| (max err "
                       f"{errs[out]['max']:.3g})")
-                check(errs[out]["mean"] <= BWD_MEAN_ATOL[dname][out],
+                check(errs[out]["mean"] <= mean_tol[out],
                       f"bwd {name}: {out} mean err {errs[out]['mean']:.3g} "
-                      f"> {BWD_MEAN_ATOL[dname][out]}")
+                      f"> {mean_tol[out]}")
+            redo = _redo_share(*args, causal, scale, qoff)
             if causal and qoff + Sq < Sk:
                 check(not dk[:, :, qoff + Sq:].any().item()
                       and not dv[:, :, qoff + Sq:].any().item(),
@@ -459,7 +513,7 @@ def phase_kernels_bwd():
         # sdpa cannot take an lse cotangent: no yardstick for that case
         library_ms, library_kernels = ((None, None) if with_dlse
                                        else _sdpa_bwd(q, k, v, do, causal,
-                                                      qoff))
+                                                      qoff, scale))
         pairs = B * H * _pairs(Sq, Sk, causal, qoff)
         esize = q.element_size()
         in_bytes = 2 * B * H * (Sq + Sk) * D * esize + 2 * 4 * B * H * Sq
@@ -469,8 +523,8 @@ def phase_kernels_bwd():
                              in_bytes + B * H * Sq * D * esize, dname)
         rec = {"case": name, "dtype": dname, "shape": [B, H, Sq, Sk, D],
                "causal": causal, "q_offset": qoff, "dlse": with_dlse,
-               "errors": errs, "tol": [atol, rtol],
-               "mean_tol": BWD_MEAN_ATOL[dname],
+               "scale": scale, "errors": errs, "tol": [atol, rtol],
+               "mean_tol": mean_tol, "redo_share": redo,
                "dkv": {"ms": ms_dkv, "plain_ms": plain_dkv,
                        "bound_ms": b_dkv, "bound_by": by_dkv,
                        "max_abs_err": max(errs["dk"]["max"],
@@ -482,12 +536,13 @@ def phase_kernels_bwd():
         results.append(rec)
         lib = "n/a" if library_ms is None else f"{library_ms:.4f} ms"
         log(f"[kernels-bwd] {name} {dname} {rec['shape']} causal={causal} "
-            f"q_offset={qoff} dlse={with_dlse}: max err dq "
-            f"{errs['dq']['max']:.3g} dk {errs['dk']['max']:.3g} dv "
+            f"q_offset={qoff} dlse={with_dlse} scale={scale:.4g}: max err "
+            f"dq {errs['dq']['max']:.3g} dk {errs['dk']['max']:.3g} dv "
             f"{errs['dv']['max']:.3g}; mean err dq {errs['dq']['mean']:.3g} "
             f"dk {errs['dk']['mean']:.3g} dv {errs['dv']['mean']:.3g} "
-            f"(tol {atol}+{rtol:.3g}*|ref|, mean "
-            f"{BWD_MEAN_ATOL[dname]})")
+            f"(tol {atol}+{rtol:.3g}*|ref|, mean {mean_tol}); mean |ref| "
+            f"dq {errs['dq']['mean_ref']:.3g}; p or |ds| >= {REDO_MIN} "
+            f"(re-formed) in {redo:.3%} of the unmasked entries")
         log(f"[kernels-bwd] {name}: K2 dkv {ms_dkv:.4f} ms (plain "
             f"{plain_dkv:.3f}, bound {b_dkv:.4f} {by_dkv}); K3 dq "
             f"{ms_dq:.4f} ms (plain {plain_dq:.3f}, bound {b_dq:.4f} "
@@ -968,6 +1023,19 @@ def _codes_equal(what, got, want):
                (s - ps).abs().max().item())
 
 
+def _kernel_device_ms(fn, kernel, n=20):
+    """Device ms per call of fn of the kernel named ``kernel``, by
+    torch.profiler over n calls after one warm-up: the kernel's own time,
+    beside the CUDA-event time of its wrapper's calls back to back (a
+    reading, not a check)."""
+    import re
+
+    fn()
+    own = re.compile(rf"\b{kernel}\b")
+    return sum(ms for name, ms in _device_ms_by_kernel(fn, n).items()
+               if own.search(name))
+
+
 def _k4_bytes(n, block, esize):
     return esize * n + n + 4 * (-(-n // block))
 
@@ -1037,31 +1105,38 @@ def phase_kernels_quantize():
                     x, block, impl="plain", **kw), iters=plain_iters,
                     warmup=1)}
         k4_bound = _k4_bytes(n, block, esize) / HBM_BYTES_PER_S * 1e3
+        k4_dev = _kernel_device_ms(
+            lambda: qz.quantize_blockwise(x, block, reciprocal_scale=True),
+            "quantize_kernel")
         rec4 = {"case": name, "n": n, "block": block, "dtype": dname,
                 "max_abs_err": max(errs.values()), "errors": errs,
                 "ms": k4["det"]["ms"], "plain_ms": k4["det"]["plain_ms"],
+                "device_ms": k4_dev,
                 "stochastic_ms": k4["stoch"]["ms"],
                 "stochastic_plain_ms": k4["stoch"]["plain_ms"],
                 "bound_ms": k4_bound, "bound_by": "bytes",
                 "bytes": _k4_bytes(n, block, esize)}
         out["quantize"].append(rec4)
-        k5_ms = cuda_time_ms(lambda: qz.dequantize_blockwise(
-            q, s, (n,), torch.float32, block))
+        k5_call = lambda: qz.dequantize_blockwise(  # noqa: E731
+            q, s, (n,), torch.float32, block)
+        k5_ms = cuda_time_ms(k5_call)
+        k5_dev = _kernel_device_ms(k5_call, "dequantize_kernel")
         k5_plain = cuda_time_ms(lambda: qz.dequantize_blockwise(
             q, s, (n,), torch.float32, block, impl="plain"),
             iters=plain_iters, warmup=1)
         rec5 = {"case": name, "n": n, "block": block, "out_dtype": "float32",
                 "max_abs_err": max(deq.values()), "errors": deq,
-                "ms": k5_ms, "plain_ms": k5_plain,
+                "ms": k5_ms, "plain_ms": k5_plain, "device_ms": k5_dev,
                 "bound_ms": _k5_bytes(n, block) / HBM_BYTES_PER_S * 1e3,
                 "bound_by": "bytes", "bytes": _k5_bytes(n, block)}
         out["dequantize"].append(rec5)
         log(f"[kernels-quantize] {name} n={n} block={block} {dname}: K4 == "
             f"plain (both scale rules, det + stochastic); K4 "
-            f"{rec4['ms']:.4f} ms (stochastic {rec4['stochastic_ms']:.4f}), "
-            f"plain {rec4['plain_ms']:.3f} ms, bound {k4_bound:.4f} ms; "
-            f"K5 == plain; K5 {k5_ms:.4f} ms, plain {k5_plain:.3f} ms, "
-            f"bound {rec5['bound_ms']:.4f} ms")
+            f"{rec4['ms']:.4f} ms by events, {k4_dev:.4f} ms device "
+            f"(stochastic {rec4['stochastic_ms']:.4f}), plain "
+            f"{rec4['plain_ms']:.3f} ms, bound {k4_bound:.4f} ms; K5 == "
+            f"plain; K5 {k5_ms:.4f} ms by events, {k5_dev:.4f} ms device, "
+            f"plain {k5_plain:.3f} ms, bound {rec5['bound_ms']:.4f} ms")
         del x, q, s
         torch.cuda.empty_cache()
 
@@ -1097,18 +1172,22 @@ def phase_kernels_quantize():
                   f"differs from the plain version in "
                   f"{(got != want).sum().item()} elements")
             errs["mean" if mean else "sum"] = (got - want).abs().max().item()
-        ms = cuda_time_ms(lambda: qz.dequantize_accumulate(q, s, world, 256))
+        k6_call = lambda: qz.dequantize_accumulate(  # noqa: E731
+            q, s, world, 256)
+        ms = cuda_time_ms(k6_call)
+        dev = _kernel_device_ms(k6_call, "dequant_accum_kernel")
         plain_ms = cuda_time_ms(lambda: qz.dequantize_accumulate(
             q, s, world, 256, impl="plain"), iters=5, warmup=1)
         rec6 = {"case": f"world{world}", "world": world, "n": n,
                 "block": 256, "max_abs_err": max(errs.values()),
                 "errors": errs, "ms": ms, "plain_ms": plain_ms,
+                "device_ms": dev,
                 "bound_ms": _k6_bytes(world, n, 256) / HBM_BYTES_PER_S * 1e3,
                 "bound_by": "bytes", "bytes": _k6_bytes(world, n, 256)}
         out["dequantize_accumulate"].append(rec6)
         log(f"[kernels-quantize] K6 world={world} n={n}: == plain (sum and "
-            f"mean); {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-            f"{rec6['bound_ms']:.4f} ms")
+            f"mean); {ms:.4f} ms by events, {dev:.4f} ms device, plain "
+            f"{plain_ms:.3f} ms, bound {rec6['bound_ms']:.4f} ms")
         del x, q, s
     torch.cuda.empty_cache()
     log(f"[kernels-quantize] library: none ({QUANT_LIBRARY_NOTE})")
@@ -1954,7 +2033,7 @@ def main(argv=None):
                           if c["world"] == min(world, 8)))):
         entries.append(_kernel_entry(
             k, case, by_path(k.name), library_ms=None,
-            library_note=QUANT_LIBRARY_NOTE,
+            library_note=QUANT_LIBRARY_NOTE, device_ms=case["device_ms"],
             shape={"n": case["n"], "block": case["block"],
                    "world": case.get("world", 1)}))
     # K7 at the shape of the dp path's chunks on this machine: a one-rank

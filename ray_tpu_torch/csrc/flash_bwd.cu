@@ -5,7 +5,8 @@
 // Replaces the Pallas TPU kernels of ray_tpu/ops/attention.py:
 //   K2 (dK, dV) <- _flash_bwd_dkv_kernel: flash_bwd_dkv_mma_kernel for
 //                  bfloat16, flash_bwd_dkv_kernel for float32
-//   K3 (dQ)     <- _flash_bwd_dq_kernel:  flash_bwd_dq_kernel
+//   K3 (dQ)     <- _flash_bwd_dq_kernel:  flash_bwd_dq_mma_kernel for
+//                  bfloat16, flash_bwd_dq_kernel for float32
 // Both recompute, tile by tile, the forward's scores from the residuals
 // (q, k, v, lse) and take di = rowsum(dO * O) - dlse from the caller:
 //   s  = (q . k) * scale                     f32, rounded
@@ -43,19 +44,32 @@
 // rounding, which one ulp of moves dK or dV by more than an output ulp,
 // is the plain version's (REDO_MIN).
 //
-// K3, and K2 in float32, run their products on the CUDA cores in f32
-// FMA: each block reads its fixed tile (K2: K, V; K3: Q, dO) once and
-// streams the other side through shared memory as f32; the causal loop
-// starts (K2) or stops (K3) at the diagonal.  f32 stays off the tensor
-// cores: the card has no full-precision f32 product there, and TF32
-// would not hold the plain version's limits.
+// K3 in bfloat16 is the same design turned around, FlashAttention-2's
+// dQ pass: one block of 4 warps per 64-row q tile, each warp owning 16
+// query rows, looping over the key tiles up to the causal diagonal.  Q
+// and dO are copied once and stay in shared memory, each warp reading
+// its rows' A fragments with ldmatrix for each key tile (the registers
+// they would hold buy a third block per SM at D <= 64); K and V stream
+// through the two-stage cp.async ring.  S = Q K^T and dP = dO V^T
+// come out with queries as M, so once ds is formed (and its large
+// entries re-formed as in K2) two n8 tiles of it, rounded to bf16, are
+// one k16 A fragment of dQ += dS K, with K read by ldmatrix.trans.  dQ
+// is summed in f32 registers over the key tiles in order (no atomics)
+// and leaves through shared memory as 16-byte stores.
+//
+// In float32 both run their products on the CUDA cores in f32 FMA: each
+// block reads its fixed tile (K2: K, V; K3: Q, dO) once and streams the
+// other side through shared memory as f32; the causal loop starts (K2)
+// or stops (K3) at the diagonal.  f32 stays off the tensor cores: the
+// card has no full-precision f32 product there, and TF32 would not hold
+// the plain version's limits.
 //
 // Layout: q/dO [B, H, Sq, D], k/v [B, H, Sk, D], contiguous, one dtype
 // (bf16: 16-byte aligned); lse/di [B, H, Sq] f32; dq like q, dk/dv like
-// k.  K2: grid (ceil(Sk / 64), H, B), 128 threads (bf16) or 256 (f32,
-// four per row of a 64-row tile).  K3: grid (ceil(Sq / 64), H, B), 256
-// threads.  Any Sq, Sk >= 1; q_offset >= 0 is the global position of q's
-// row 0 in the causal mask; D a multiple of 16 up to 128.
+// k.  K2: grid (ceil(Sk / 64), H, B); K3: grid (ceil(Sq / 64), H, B);
+// 128 threads (bf16) or 256 (f32, four per row of a 64-row tile).  Any
+// Sq, Sk >= 1; q_offset >= 0 is the global position of q's row 0 in the
+// causal mask; D a multiple of 16 up to 128.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -289,7 +303,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// K3: dQ for one 64-row q tile, summed over the key tiles it reaches.
+// K3 in float32: dQ for one 64-row q tile, summed over the key tiles it
+// reaches.
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -594,6 +609,209 @@ flash_bwd_dkv_mma_kernel(const tc::bf16* __restrict__ q,
                       lane);
 }
 
+// --- K3 in bfloat16: tensor cores ---------------------------------------
+
+template <int D>
+constexpr size_t dq_mma_smem_bytes() {
+  // Q, dO, K x 2, V x 2 as bf16 [64][D + 8]; lse, di as f32 [64]
+  return sizeof(tc::bf16) * 6 * 64 * (D + 8) + sizeof(float) * 2 * BQ;
+}
+
+// Three blocks per SM where D <= 64: at most 168 registers, so the main
+// path's head dim runs 12 warps per SM instead of 8 and more of them
+// hide each warp's ldmatrix / mma / expf latency (7-11% faster on the
+// H100 than two blocks holding Q and dO fragments in registers).  From
+// D = 80 on that cap spills, so those take the registers they need.
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS, (D <= 64 ? 3 : 1))
+flash_bwd_dq_mma_kernel(const tc::bf16* __restrict__ q,
+                        const tc::bf16* __restrict__ k,
+                        const tc::bf16* __restrict__ v,
+                        const tc::bf16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ di,
+                        tc::bf16* __restrict__ dq, int Sq, int Sk, int causal,
+                        int q_offset, float scale) {
+  using tc::bf16;
+  constexpr int RS = D + 8;   // padded row stride (elements)
+  constexpr int KD = D / 16;  // k16 steps over D
+  constexpr int ND = D / 8;   // n8 tiles over D
+  constexpr int NK = BK / 8;  // n8 tiles of keys per key tile
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [BQ][RS]
+  bf16* Os = Qs + BQ * RS;                       // [BQ][RS]  dO
+  bf16* Ks = Os + BQ * RS;                       // [2][BK][RS]
+  bf16* Vs = Ks + 2 * BK * RS;                   // [2][BK][RS]
+  float* Ls = reinterpret_cast<float*>(Vs + 2 * BK * RS);  // [BQ]
+  float* Ds = Ls + BQ;                                      // [BQ]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * BQ;
+  const size_t bh = (size_t)blockIdx.z * gridDim.y + blockIdx.y;
+  const bf16* kb = k + bh * (size_t)Sk * D;
+  const bf16* vb = v + bh * (size_t)Sk * D;
+
+  // causal: keys past the tile's last row are masked for every row
+  const int kend = causal ? min(Sk, q_offset + q0 + BQ) : Sk;
+  const int nk = (kend + BK - 1) / BK;
+
+  // Q, dO, lse, di (one f32 a thread) and the first K / V tile
+  tc::load_tile<BQ, D, MMA_THREADS>(Qs, q + bh * (size_t)Sq * D, q0, Sq);
+  tc::load_tile<BQ, D, MMA_THREADS>(Os, dout + bh * (size_t)Sq * D, q0, Sq);
+  {
+    const int r = tid & (BQ - 1), qi = q0 + r;
+    tc::cp_async4((tid < BQ ? Ls : Ds) + r,
+                  (tid < BQ ? lse : di) + bh * (size_t)Sq + min(qi, Sq - 1),
+                  qi < Sq ? 4 : 0);
+  }
+  tc::load_tile<BK, D, MMA_THREADS>(Ks, kb, 0, Sk);
+  tc::load_tile<BK, D, MMA_THREADS>(Vs, vb, 0, Sk);
+  tc::cp_async_commit();
+
+  const int qr = warp * 16 + g;  // this thread's rows in the tile: qr, +8
+  float lr[2], dr[2];  // lse and di of the two rows
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int j = 0; j < nk; ++j) {
+    const int st = j & 1, k0 = j * BK;
+    if (j + 1 < nk) {  // the next key tile loads while this one computes
+      tc::load_tile<BK, D, MMA_THREADS>(Ks + (st ^ 1) * BK * RS, kb, k0 + BK,
+                                        Sk);
+      tc::load_tile<BK, D, MMA_THREADS>(Vs + (st ^ 1) * BK * RS, vb, k0 + BK,
+                                        Sk);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (j == 0) {
+      lr[0] = Ls[qr];
+      lr[1] = Ls[qr + 8];
+      dr[0] = Ds[qr];
+      dr[1] = Ds[qr + 8];
+    }
+    const bf16* Kt = Ks + st * BK * RS;
+    const bf16* Vt = Vs + st * BK * RS;
+
+    // S = Q K^T and dP = dO V^T: 16 rows x 64 keys per warp
+    float s[NK][4], dp[NK][4];
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t qa[4], oa[4];  // this warp's rows of Q and dO, d 16 kk + ..
+      const int aoff = (warp * 16 + (lane & 15)) * RS + kk * 16 +
+                       (lane >> 4) * 8;
+      tc::ldmatrix_x4(qa, Qs + aoff);
+      tc::ldmatrix_x4(oa, Os + aoff);
+#pragma unroll
+      for (int np = 0; np < NK / 2; ++np) {
+        // keys 16 np + (0..7 | 8..15), d 16 kk + (0..7 | 8..15)
+        const int off = (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * RS +
+                        kk * 16 + ((lane >> 3) & 1) * 8;
+        uint32_t b[4];
+        tc::ldmatrix_x4(b, Kt + off);
+        tc::mma_bf16(s[2 * np], qa, b[0], b[1]);
+        tc::mma_bf16(s[2 * np + 1], qa, b[2], b[3]);
+        tc::ldmatrix_x4(b, Vt + off);
+        tc::mma_bf16(dp[2 * np], oa, b[0], b[1]);
+        tc::mma_bf16(dp[2 * np + 1], oa, b[2], b[3]);
+      }
+    }
+
+    // ds = p (dp - di) scale in place of dp, p = exp(s - lse) (0 where
+    // masked); K2's test for the tiles that reach a mask or an edge
+    const bool edge = q0 + BQ > Sq || k0 + BK > Sk ||
+                      (causal && k0 + BK - 1 > q_offset + q0);
+    uint32_t redo = 0;  // bit 4 n + e: entry (n, e) is formed again
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;  // row qr + 8 h
+        // s is rounded before lse is taken off (no fused multiply-add)
+        float p = expf(__fmul_rn(s[n][e], scale) - lr[h]);
+        if (edge) {
+          const int qi = q0 + qr + 8 * h, key = k0 + 8 * n + 2 * t + (e & 1);
+          p = (qi < Sq && key < Sk && (!causal || q_offset + qi >= key))
+                  ? p : 0.f;
+        }
+        dp[n][e] = p * (dp[n][e] - dr[h]) * scale;
+        if (p >= REDO_MIN || fabsf(dp[n][e]) >= REDO_MIN)
+          redo |= 1u << (4 * n + e);
+      }
+    }
+    // Large p and ds are taken again from s and dp summed in the plain
+    // version's order (see REDO_MIN), by K2's rule, so dS rounds as the
+    // plain version's where one ulp of it moves dQ by more than an output
+    // ulp.  Rare: the warp branches only when one of its lanes holds such
+    // an entry, and the recomputation is one rolled loop over the set
+    // bits, its results merged after.
+    if (__any_sync(0xffffffffu, redo)) {
+      float redo_ds[4 * NK];
+      for (uint32_t bits = redo; bits; bits &= bits - 1) {
+        const int i = __ffs(bits) - 1;
+        const int h = (i >> 1) & 1;
+        const int qc = qr + 8 * h;
+        const int kc = 8 * (i >> 2) + 2 * t + (i & 1);
+        float sc, dc;
+        tc::dot_chains<D>(Qs + qc * RS, Kt + kc * RS, Os + qc * RS,
+                          Vt + kc * RS, sc, dc);
+        const float l = h ? lr[1] : lr[0], d = h ? dr[1] : dr[0];
+        const float p = expf(__fmul_rn(sc, scale) - l);
+        redo_ds[i] = p * (dc - d) * scale;
+      }
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (redo >> (4 * n + e) & 1) dp[n][e] = redo_ds[4 * n + e];
+        }
+      }
+    }
+
+    // dQ += dS K, dS rounded to bf16 in registers, K read transposed
+#pragma unroll
+    for (int c = 0; c < BK / 16; ++c) {
+      uint32_t sa[4];
+      tc::c_to_a(sa, dp[2 * c], dp[2 * c + 1]);
+#pragma unroll
+      for (int dn = 0; dn < ND / 2; ++dn) {
+        // keys 16 c + (0..15), d 16 dn + (0..7 | 8..15)
+        const int off = (c * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * RS +
+                        dn * 16 + (lane >> 4) * 8;
+        uint32_t b[4];
+        tc::ldmatrix_x4_trans(b, Kt + off);
+        tc::mma_bf16(acc[2 * dn], sa, b[0], b[1]);
+        tc::mma_bf16(acc[2 * dn + 1], sa, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // this stage is refilled by the next iteration
+  }
+
+  // dQ through this warp's own rows of Qs (read only by this warp)
+  bf16* Qw = Qs + warp * 16 * RS;
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    *reinterpret_cast<__nv_bfloat162*>(Qw + g * RS + 8 * n + 2 * t) =
+        __floats2bfloat162_rn(acc[n][0], acc[n][1]);
+    *reinterpret_cast<__nv_bfloat162*>(Qw + (g + 8) * RS + 8 * n + 2 * t) =
+        __floats2bfloat162_rn(acc[n][2], acc[n][3]);
+  }
+  __syncwarp();
+  tc::store_rows16<D>(dq + bh * (size_t)Sq * D, Qw, q0 + warp * 16, Sq,
+                      lane);
+}
+
 struct Args {
   const void *q, *k, *v, *dout, *lse, *di;
   void *g0, *g1;  // K2: dk, dv; K3: dq, unused
@@ -626,15 +844,20 @@ cudaError_t launch_dkv(const Args& a) {
   return cudaGetLastError();
 }
 
+// K3: the tensor-core kernel for bfloat16, the CUDA-core one for float32
 template <typename T, int D>
 cudaError_t launch_dq(const Args& a) {
-  constexpr size_t smem = dq_smem_bytes<D>();
+  constexpr bool bf = std::is_same<T, __nv_bfloat16>::value;
+  constexpr size_t smem = bf ? dq_mma_smem_bytes<D>() : dq_smem_bytes<D>();
+  void (*kernel)(const T*, const T*, const T*, const T*, const float*,
+                 const float*, T*, int, int, int, int, float);
+  if constexpr (bf) kernel = flash_bwd_dq_mma_kernel<D>;
+  else kernel = flash_bwd_dq_kernel<T, D>;
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((a.Sq + BQ - 1) / BQ, a.H, a.B);
-  flash_bwd_dq_kernel<T, D><<<grid, THREADS, smem, a.stream>>>(
+  kernel<<<grid, bf ? MMA_THREADS : THREADS, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.di),

@@ -8,10 +8,11 @@ file imports no JAX, so it also runs where only PyTorch is installed:
 Tolerances: bf16 outputs within one bf16 ulp (4e-3 + 2^-7*|ref|), f32
 outputs and lse at 1e-4 (summation order).  The backward kernels' dq,
 dk, dv are held to the same limits against their plain version.  In
-bf16, K1 and K2 run on the tensor cores (mma.sync, which sums in another
-order than the plain version's f32 matmuls: the same per-output limits
-hold, K2 forming its large p and ds in the plain version's order, which
-a peaked-softmax case drives); the cases cover every head dim's tile loop (D = 16 to 128,
+bf16, K1, K2 and K3 run on the tensor cores (mma.sync, which sums in
+another order than the plain version's f32 matmuls: the same per-output
+limits hold, K2 and K3 forming their large p and ds in the plain
+version's order, which peaked-softmax cases drive); the cases cover
+every head dim's tile loop (D = 16 to 128,
 including 48, 80 and 112) and sequence lengths that are multiples of
 neither 16 nor 64 (77, 1).  A bf16 input that is not 16-byte aligned
 raises; ptxas reports no spill for the bf16 D = 64 instances, and their
@@ -216,6 +217,30 @@ def test_flash_bwd_dkv_large_p_and_ds_match_plain(gpu, causal):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_dq_large_p_and_ds_match_plain(gpu, causal):
+    """The same peaked attention through K3: one ulp of a large ds times
+    |k| can move dQ by more than an output ulp, so K3 forms those entries
+    in the plain version's order too and dQ holds the per-output
+    limits."""
+    from ray_tpu_torch.ops.attention import flash_attention_bwd_dq_plain
+
+    g = torch.Generator(device=gpu).manual_seed(3)
+    q, k, v, do = (torch.randn(2, 3, 192, 64, generator=g, device=gpu)
+                   .bfloat16() for _ in range(4))
+    o, lse = _kernels.flash_fwd(q, k, v, causal=causal, scale=0.5,
+                                with_lse=True)
+    di = flash_bwd_di(o, do)
+    got = _kernels.flash_bwd_dq(q, k, v, do, lse, di, causal=causal,
+                                scale=0.5)
+    want = flash_attention_bwd_dq_plain(q, k, v, do, lse, di, causal, 0.5)
+    torch.cuda.synchronize()
+    atol, rtol = BF16_TOL
+    err = (got.float() - want.float()).abs()
+    assert (err <= atol + rtol * want.float().abs()).all(), err.max()
+
+
+@pytest.mark.cuda
 def test_flash_attention_grad_runs_the_kernels(gpu):
     """Through the autograd Function: K1 once, K2 and K3 once each, and
     the grads are the kernels' own (a transposed do is made
@@ -261,7 +286,8 @@ def test_flash_bwd_rejects_what_it_does_not_take(gpu):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("entry", ["flash_fwd", "flash_bwd_dkv"])
+@pytest.mark.parametrize("entry", ["flash_fwd", "flash_bwd_dkv",
+                                   "flash_bwd_dq"])
 def test_flash_kernels_reject_unaligned_bf16(gpu, entry):
     """A contiguous bf16 view at an odd element offset is not 16-byte
     aligned: the wrapper raises rather than copy it."""
@@ -277,20 +303,22 @@ def test_flash_kernels_reject_unaligned_bf16(gpu, entry):
         if entry == "flash_fwd":
             _kernels.flash_fwd(ok, odd, ok, causal=True, scale=0.125)
         else:
-            _kernels.flash_bwd_dkv(ok, ok, ok, odd, rows, rows, causal=True,
-                                   scale=0.125)
+            getattr(_kernels, entry)(ok, ok, ok, odd, rows, rows,
+                                     causal=True, scale=0.125)
     assert kernel.launches == before
 
 
 @pytest.mark.cuda
 def test_flash_bf16_kernels_run_on_the_tensor_cores(gpu):
-    """ptxas reports no spill for the bf16 D = 64 instances of K1 and K2
-    (the main path's head dim); every bf16 instance holds HMMA
+    """ptxas reports no spill for the bf16 D = 64 instances of K1, K2 and
+    K3 (the main path's head dim); every bf16 instance holds HMMA
     instructions; the f32 CUDA-core kernels have no bf16 instance."""
     for kernel, fn, old in (
             (_kernels.FLASH_FWD, "flash_fwd_mma_kernel", "flash_fwd_kernel"),
             (_kernels.FLASH_BWD_DKV, "flash_bwd_dkv_mma_kernel",
-             "flash_bwd_dkv_kernel")):
+             "flash_bwd_dkv_kernel"),
+            (_kernels.FLASH_BWD_DQ, "flash_bwd_dq_mma_kernel",
+             "flash_bwd_dq_kernel")):
         _kernels.build([kernel])
         entries = _kernels.ptxas_entries(kernel)
         d64 = [e for name, e in entries.items() if f"{fn}ILi64E" in name]

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 from ray_tpu import ops as jops
 from ray_tpu_torch import ops as tops
 from ray_tpu_torch.ops import _kernels
+from ray_tpu_torch.ops.attention import flash_attention_bwd_dq_plain
 
 torch.set_num_threads(1)
 
@@ -212,6 +213,65 @@ def test_flash_bwd_plain_bf16_matches_pallas_interpret():
     got = _port_grads(q, k, v, do, True, 0, dtype=torch.bfloat16)
     assert all(g.dtype == torch.bfloat16 for g in got)
     _grads_close(got, want, atol=8e-3, rtol=2.0 ** -7)
+
+
+def _reference_dq(q, k, v, do, lse, di, causal, scale, block=64):
+    """dq from the reference's ``_flash_bwd_dq_kernel`` in its own
+    ``pallas_call`` (interpret mode), with the grid, block specs and
+    lane-replicated lse / di planes of ``ray_tpu/ops/attention.py:441-453``
+    (q_offset 0): the dq pass alone, on residuals the caller gives."""
+    import functools
+    import importlib
+
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    # the module: ray_tpu.ops re-exports a function of the same name
+    jattn = importlib.import_module("ray_tpu.ops.attention")
+
+    b, h, sq, d = q.shape
+    sk = k.shape[-2]
+    rows = pl.BlockSpec((1, 1, block, d), lambda b_, h_, i, j: (b_, h_, i, 0))
+    keys = pl.BlockSpec((1, 1, block, d), lambda b_, h_, i, j: (b_, h_, j, 0))
+    lanes = pl.BlockSpec((1, 1, block, 128),
+                         lambda b_, h_, i, j: (b_, h_, i, 0))
+    kernel = functools.partial(jattn._flash_bwd_dq_kernel, scale=scale,
+                               causal=causal, block_q=block, block_k=block,
+                               q_offset=0)
+    return pl.pallas_call(
+        kernel, grid=(b, h, sq // block, sk // block),
+        in_specs=[rows, keys, keys, rows, lanes, lanes], out_specs=rows,
+        out_shape=jax.ShapeDtypeStruct(q.shape, q.dtype),
+        scratch_shapes=[pltpu.VMEM((block, d), jnp.float32)],
+        interpret=True,
+    )(q, k, v, do, jnp.broadcast_to(lse[..., None], (b, h, sq, 128)),
+      jnp.broadcast_to(di[..., None], (b, h, sq, 128)))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_dq_plain_peaked_bf16_matches_pallas_interpret(causal):
+    # peaked bf16 attention (softmax scale 0.5 on unit-variance q, k, v
+    # and do): many p and ds >= 2^-3, the entries the kernels form again
+    # in the plain version's order.  K3's plain version against the
+    # reference's dq kernel on the same residuals (o, lse, di from the
+    # port's plain forward), within 8e-3 + 2^-7*|ref|, two bf16 ulps at
+    # [0.5, 1): the frameworks' f32 sums differ in order before ds and dq
+    # are rounded
+    rng = np.random.RandomState(14)
+    q, k, v, do = (rng.randn(1, 2, 192, 64).astype(np.float32)
+                   for _ in range(4))
+    tq, tk, tv, tdo = _t(q, k, v, do, dtype=torch.bfloat16)
+    o, lse = tops.flash_attention_plain(tq, tk, tv, causal=causal, scale=0.5,
+                                        with_lse=True)
+    di = tops.flash_bwd_di(o, tdo)
+    got = flash_attention_bwd_dq_plain(tq, tk, tv, tdo, lse, di, causal,
+                                       0.5)
+    want = _reference_dq(*_j(q, k, v, do, dtype=jnp.bfloat16),
+                         *_j(lse.numpy(), di.numpy()), causal, 0.5)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               atol=8e-3, rtol=2.0 ** -7)
 
 
 def test_cpu_backward_never_reaches_the_kernels():

@@ -10,7 +10,9 @@ Phases, each of which must pass (any failure exits non-zero):
                 process per source, all started together; ptxas's
                 register and spill report per source; the bf16 K1, K2 and
                 K3 run on the tensor cores (HMMA in the SASS of every
-                instance, by cuobjdump) and do not spill at D = 64.
+                instance, by cuobjdump) and do not spill at D = 64; K5
+                and K6 load 16 bytes at a time (LDG.E.128 in every
+                instance) and do not spill.
   3. kernels  — each kernel against its plain PyTorch version on the card
                 at the main paths' shapes and a few edge shapes, with
                 times: kernel, plain version, one library call (a yardstick
@@ -39,11 +41,17 @@ Phases, each of which must pass (any failure exits non-zero):
   8. kernels-quantize — K4 (quantize, both scale rules, deterministic and
                 stochastic), K5 (dequantize) and K6 (dequantize-accumulate,
                 world 1/2/4/8) against their plain versions, bitwise, on a
-                4 MiB gradient bucket, its requantize block, the whole
+                1,048,576-element bucket, its requantize block, the whole
                 flattened GPT-2-small gradient, a bf16 input, a ragged
                 length and NaN/inf blocks; times (CUDA events, and each
                 kernel's device time by torch.profiler) against the bytes
-                bound.
+                bound.  Then K5 and K6 at the dp step's own shapes (its
+                chunks of 1.18M, 3.54M and 4.83M elements, K6 at worlds
+                1/2/4/8 over the shard each world gives, K5 on phase 2's
+                chunks and on the 38.6M error-feedback bucket) with the
+                L2 flushed before every timed launch, each launch in the
+                16-wide vector body; a reading faster than the bytes
+                bound fails.  The wrappers' host us per call.
   9. kernels-fused — K7 (the fused int8 reduce-scatter over CUDA peer
                 memory) against its plain version and the staged K4 -> K6
                 hop, bitwise, sum and mean: a real one-rank NCCL group
@@ -57,7 +65,9 @@ Phases, each of which must pass (any failure exits non-zero):
                 7 with the grads synced by GradientSynchronizer("int8",
                 error feedback on) between backward and AdamW; K4/K5/K6/K7
                 launches per step equal to the bucket layout's count under
-                the reference's fused-hop rule; the same 11 steps with the
+                the reference's fused-hop rule, every K5/K6 launch in
+                the vector body, K4-K7 device ms per step beside the
+                summed bounds of its launches; the same 11 steps with the
                 fused hop forced on every chunk (K7), with an fp32 sync
                 and with no sync; synced grads through the kernels ==
                 through the plain versions == with the fused hop ==
@@ -244,8 +254,28 @@ def phase_build():
             + ", ".join(f"{d}: {e['registers']}/{e['spill_bytes']}"
                         for d, e in sorted(bf16[fn].items())))
     log(f"[build] HMMA instructions per kernel {json.dumps(hmma)}")
+    # K5 and K6 read their codes as 16-byte loads (LDG.E.128, in any of
+    # its suffixed forms) in every instance, and none spills
+    ldg128, regs = {}, {}
+    for k, fn in ((_kernels.DEQUANTIZE, "dequantize_kernel"),
+                  (_kernels.DEQUANTIZE_ACCUMULATE, "dequant_accum_kernel")):
+        counts = {n: c for n, c in _kernels.sass_opcode_counts(
+            k, r"LDG\.E[.\w]*\.128").items() if fn in n}
+        entries = {n: e for n, e in _kernels.ptxas_entries(k).items()
+                   if fn in n}
+        check(len(counts) == (2 if k is _kernels.DEQUANTIZE else 5)
+              and all(counts.values()),
+              f"{fn}: an instance without a 128-bit global load: {counts}")
+        check(entries and all(e["spill_bytes"] == 0
+                              for e in entries.values()),
+              f"{fn} spills: {entries}")
+        ldg128[fn] = sorted(counts.values())
+        regs[fn] = sorted(e["registers"] for e in entries.values())
+    log(f"[build] LDG.E.128 per instance {json.dumps(ldg128)}; registers "
+        f"per instance {json.dumps(regs)}; no spill")
     return {"seconds": wall, "per_kernel": secs, "ptxas": ptxas,
-            "hmma": hmma, "bf16_instances": bf16}
+            "hmma": hmma, "bf16_instances": bf16,
+            "ldg128": ldg128, "stream_registers": regs}
 
 
 def _attn_work(b, h, sq, sk, d, causal, q_offset, esize):
@@ -1048,6 +1078,136 @@ def _k6_bytes(world, n, block):
     return world * (n + 4 * (n // block)) + 4 * n
 
 
+# the dp step's chunks at world 1 (``parallel.sharding.sync_plan`` of
+# GPT-2-small's gradient under GradientSynchronizer("int8")), each with a
+# bucket that gives it: K6 (block 256) and phase 2's K5 (result block 32)
+# run once per chunk; the largest bucket is error feedback's K5 (block 256)
+DP_CHUNK_BUCKETS = ((1_179_648, 7_077_888), (3_538_944, 28_311_552),
+                    (4_829_184, 38_633_472))
+DP_EF_BUCKET = 38_633_472
+SMALL_N = 1 << 20              # the earlier "4 MiB bucket" reading
+L2_FLUSH_BYTES = 128 << 20     # written before each timed launch: > 2x L2
+COLD_REPS = 20
+
+
+def _cold_cases():
+    """(kernel, case, n, block, world) of the cold-L2 timings: K6 on each
+    dp chunk at world 1 and, in one process, at worlds 2/4/8 over the
+    shard that world gives (q [world, m]); K5 on the phase-2 chunks and
+    the error-feedback bucket; both at the 1,048,576-element case."""
+    cases = [("dequantize_accumulate", f"chunk {c}", _dp_chunk_sub(b, w),
+              256, w) for c, b in DP_CHUNK_BUCKETS for w in (1, 2, 4, 8)]
+    cases += [("dequantize", f"phase-2 chunk {c}", c, 32, 1)
+              for c, _ in DP_CHUNK_BUCKETS]
+    cases += [("dequantize", "error-feedback bucket", DP_EF_BUCKET, 256, 1),
+              ("dequantize", "small", SMALL_N, 256, 1),
+              ("dequantize_accumulate", "small", SMALL_N, 256, 1)]
+    return cases
+
+
+def quantize_cold_times(reps=COLD_REPS):
+    """K5 and K6 at the dp step's shapes (``_cold_cases``), each == its
+    plain version bitwise, timed with the L2 cold, as the sync finds it
+    (each chunk's codes arrive fresh from NCCL): before every launch a
+    128 MiB scratch buffer is written, outside the kernel, which leaves
+    the inputs in HBM and the L2 full of dirty lines; the kernel's own
+    device ms by torch.profiler over ``reps`` launches.  A reading faster
+    than the bytes bound fails (the L2 was not cold).  Uses only the
+    wrappers' public calls, so a copy of this script beside an earlier
+    tree of the package times that tree's kernels the same way."""
+    import torch
+
+    from ray_tpu_torch.ops import quantize as qz
+
+    scratch = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    out = []
+    for i, (kernel, case, n, block, world) in enumerate(_cold_cases()):
+        x = _quant_input(world * n, torch.float32, SEED + 60 + i)
+        q, s = qz.quantize_blockwise(x.view(world, n), block,
+                                     reciprocal_scale=True)
+        del x
+        if kernel == "dequantize":
+            def call(impl="auto"):
+                return qz.dequantize_blockwise(q, s, (n,), torch.float32,
+                                               block, impl=impl)
+            fn, nbytes = "dequantize_kernel", _k5_bytes(n, block)
+        else:
+            def call(impl="auto"):
+                return qz.dequantize_accumulate(q, s, world, block,
+                                                impl=impl)
+            fn, nbytes = "dequant_accum_kernel", _k6_bytes(world, n, block)
+        got, want = call(), call("plain")
+        check(torch.equal(got, want), f"{kernel} {case} world {world}: "
+              f"differs from the plain version in "
+              f"{(got != want).sum().item()} elements")
+        err = (got - want).abs().max().item()
+        del got, want
+
+        def cold():
+            scratch.fill_(1.0)
+            call()
+
+        dev = _kernel_device_ms(cold, fn, n=reps)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        check(0 < dev and bound <= dev, f"{kernel} {case} world {world}: "
+              f"{dev:.4f} ms reads {bound / dev:.0%} of its bound "
+              f"{bound:.4f} ms: the L2 was not cold")
+        rec = {"kernel": kernel, "case": case, "n": n, "block": block,
+               "world": world, "max_abs_err": err, "device_ms": dev,
+               "ms": dev, "bound_ms": bound, "bound_by": "bytes",
+               "bytes": nbytes, "share_of_bound": bound / dev,
+               "events_ms": cuda_time_ms(call),
+               "plain_ms": cuda_time_ms(lambda: call("plain"), iters=3,
+                                        warmup=1)}
+        out.append(rec)
+        log(f"[kernels-quantize] cold L2 {kernel} {case} n={n} "
+            f"block={block} world={world}: == plain; {dev:.4f} ms device, "
+            f"bound {bound:.4f} ms ({rec['share_of_bound']:.0%}); "
+            f"{rec['events_ms']:.4f} ms by events back to back, plain "
+            f"{rec['plain_ms']:.3f} ms")
+        del q, s
+    del scratch
+    torch.cuda.empty_cache()
+    return out
+
+
+def wrapper_host_us(calls=100, repeats=5):
+    """Host microseconds per call of ``_kernels.dequantize`` and
+    ``_kernels.dequantize_accumulate`` at the 1,048,576-element case: a
+    host clock over ``calls`` calls issued back to back without
+    synchronising (the card takes a few us a call, so the host paces
+    them); the median of ``repeats`` such runs."""
+    import statistics
+
+    import torch
+
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.ops import quantize as qz
+
+    q, s = qz.quantize_blockwise(_quant_input(SMALL_N, torch.float32,
+                                              SEED + 90), 256)
+    out = {}
+    for name, fn in (
+            ("dequantize", lambda: _kernels.dequantize(
+                q, s, SMALL_N, 256, torch.float32)),
+            ("dequantize_accumulate", lambda: _kernels.dequantize_accumulate(
+                q, s, 1, 256))):
+        fn()
+        torch.cuda.synchronize()
+        runs = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            runs.append((time.perf_counter() - t0) / calls * 1e6)
+            torch.cuda.synchronize()
+        out[name] = statistics.median(runs)
+    log(f"[kernels-quantize] wrapper host us per call (median of "
+        f"{repeats} x {calls} calls, no synchronise): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in out.items()))
+    return out
+
+
 def phase_kernels_quantize():
     import torch
 
@@ -1190,8 +1350,37 @@ def phase_kernels_quantize():
             f"{plain_ms:.3f} ms, bound {rec6['bound_ms']:.4f} ms")
         del x, q, s
     torch.cuda.empty_cache()
+    out["cold"] = _checked_cold_times()
+    out["wrapper_host_us"] = wrapper_host_us()
     log(f"[kernels-quantize] library: none ({QUANT_LIBRARY_NOTE})")
     return out
+
+
+def _checked_cold_times():
+    """``quantize_cold_times`` at shapes that are the dp step's (held
+    against ``sync_plan``), every launch in the vector body."""
+    from ray_tpu_torch.collective.compression import parse_compression
+    from ray_tpu_torch.models import gpt, training
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.parallel import sharding
+
+    sizes = [math.prod(shape) for _, shape in training.param_leaves(
+        gpt.param_shapes(gpt.GPTConfig.gpt2_small()))]
+    plan = sharding.sync_plan(sizes, parse_compression("int8"), 1)
+    k5 = {(l.n, l.block) for l in plan if l.kernel == "dequantize"}
+    k6 = {l.n for l in plan if l.kernel == "dequantize_accumulate"}
+    check(all(c in k6 and (c, 32) in k5 for c, _ in DP_CHUNK_BUCKETS)
+          and (DP_EF_BUCKET, 256) in k5,
+          f"the timed shapes are not the dp step's: K5 {sorted(k5)}, K6 "
+          f"{sorted(k6)}")
+    _kernels.reset_launch_counts()
+    cold = quantize_cold_times()
+    launched = {k: _kernels.launch_counts()[k]
+                for k in ("dequantize", "dequantize_accumulate")}
+    check(_kernels.vector_launch_counts() == launched,
+          f"of the launches {launched}, "
+          f"{_kernels.vector_launch_counts()} took the vector body")
+    return cold
 
 
 # --- K7: the fused int8 reduce-scatter over peer memory --------------------
@@ -1434,65 +1623,20 @@ SYNC_RTOL = 1e-2          # the reference's bound on int8 sync error
 LOSS_GAP = 0.25           # final loss, int8 sync over fp32 sync
 
 
-def _bucket_sizes(sizes, cap):
-    """GradientSynchronizer's buckets (f32 elements each): a bucket is
-    issued once the f32 bytes pending reach ``cap``, the rest at
-    finish()."""
-    out, cur = [], 0
-    for n in sizes:
-        cur += n
-        if 4 * cur >= cap:
-            out.append(cur)
-            cur = 0
-    if cur:
-        out.append(cur)
+def _plan_bound_ms(plan):
+    """The bytes bound of each of K4-K7 summed over a sync plan's
+    launches, in ms per sync."""
+    nbytes = {"quantize": lambda l: _k4_bytes(l.n, l.block, 4),
+              "dequantize": lambda l: _k5_bytes(l.n, l.block),
+              "dequantize_accumulate": lambda l: _k6_bytes(l.world, l.n,
+                                                           l.block),
+              "fused_reduce_scatter": lambda l: _k7_bytes(l.world, l.n,
+                                                          l.block)}
+    out = dict.fromkeys(QUANT_KERNELS, 0.0)
+    for launch in plan:
+        out[launch.kernel] += (nbytes[launch.kernel](launch)
+                               / HBM_BYTES_PER_S * 1e3)
     return out
-
-
-def dp_predicted_launches(sizes, cc, world, peers=True, fused=None):
-    """K4/K5/K6/K7 launches of one GradientSynchronizer sync of float
-    leaves of ``sizes`` elements, from the bucket layout.  Per compressed
-    bucket, phase 1 runs once per pipeline chunk: K7 where the reference's
-    rule picks the fused hop (``_resolve_rs_impl``: world > 1, a block
-    multiple of 128, deterministic rounding, the chunk under the 8 MiB
-    VMEM cap, ``peers`` — the group has peer memory), else K4 and K6;
-    phase 2 requantizes and dequantizes once per chunk (or once, when
-    chunks cannot pipeline it); error feedback quantizes and dequantizes
-    the bucket once more.  ``fused=True`` counts a run that forces the
-    fused hop on every chunk."""
-    from ray_tpu_torch.collective.compression import (auto_pipeline_chunks,
-                                                      chunk_layout,
-                                                      result_block_size)
-    from ray_tpu_torch.collective.nccl_group import _resolve_rs_impl
-    from ray_tpu_torch.ops.quantize import padded_len
-
-    k4 = k5 = k6 = k7 = 0
-    block, rblock = cc.block_size, result_block_size(cc.block_size)
-    for n in _bucket_sizes(sizes, cc.bucket_bytes):
-        if n < cc.min_size:
-            continue
-        sub = padded_len(n, world * block) // world
-        layout = chunk_layout(sub // block,
-                              cc.pipeline_chunks
-                              or auto_pipeline_chunks(n, 4, "gpu"))
-        chunks = len(layout)
-        phase2 = chunks if chunks > 1 and block % rblock == 0 else 1
-        ef = 1 if cc.error_feedback else 0
-        if fused is None:
-            fused_here = _resolve_rs_impl("auto", world, block, cc.stochastic,
-                                          max(layout) * block,
-                                          peers) == "fused"
-        else:
-            fused_here = fused
-        if fused_here:
-            k7 += chunks
-            k4 += phase2 + ef
-        else:
-            k4 += chunks + phase2 + ef
-            k6 += chunks
-        k5 += phase2 + ef
-    return {"quantize": k4, "dequantize": k5, "dequantize_accumulate": k6,
-            "fused_reduce_scatter": k7}
 
 
 def _forced_fused():
@@ -1588,12 +1732,13 @@ def _dp_run(mode, cfg, batch, group, world):
     torch.cuda.synchronize()
     sync_ev.clear()
     sync_host.clear()
-    launches = []
+    launches, vector = [], []
     t0 = time.perf_counter()
     for _ in range(DP_STEPS):
         _kernels.reset_launch_counts()
         losses.append(step())
         launches.append(_kernels.launch_counts())
+        vector.append(_kernels.vector_launch_counts())
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / DP_STEPS
     sync_ms = (sum(a.elapsed_time(b) for a, b in sync_ev) / len(sync_ev)
@@ -1605,7 +1750,7 @@ def _dp_run(mode, cfg, batch, group, world):
            * (batch["tokens"].shape[1] - 1) / (step_ms / 1e3),
            "sync_ms": sync_ms, "sync_share": sync_ms / step_ms,
            "sync_host_ms": host_ms,
-           "launches": launches}
+           "launches": launches, "vector_launches": vector}
     if mode.startswith("int8"):
         rec["profile"] = _dp_profile(step)
     return rec, state, leaves
@@ -1767,6 +1912,7 @@ def _dp_body(rank, world, init_method):
     from ray_tpu_torch.collective import collective as col
     from ray_tpu_torch.collective.compression import parse_compression
     from ray_tpu_torch.models import gpt, training
+    from ray_tpu_torch.parallel import sharding
 
     torch.backends.cuda.matmul.allow_tf32 = False
     gh = col.init_collective_group(world, rank, backend="nccl",
@@ -1781,11 +1927,13 @@ def _dp_body(rank, world, init_method):
                  training.param_leaves(gpt.param_shapes(cfg))]
         cc = parse_compression("int8")
         peers = gh.peers is not None
+        plans = {mode: sharding.sync_plan(sizes, cc, world, peers,
+                                          fused=mode == "int8-fused" or None)
+                 for mode in ("int8", "int8-fused")}
         predicted = {**FLASH_TRAIN_LAUNCHES,
-                     **dp_predicted_launches(sizes, cc, world, peers)}
+                     **sharding.sync_launch_counts(plans["int8"])}
         predicted_fused = {**FLASH_TRAIN_LAUNCHES,
-                           **dp_predicted_launches(sizes, cc, world, peers,
-                                                   fused=True)}
+                           **sharding.sync_launch_counts(plans["int8-fused"])}
         runs = {}
         for mode in DP_MODES:
             rec, state, leaves = _dp_run(mode, cfg, batch, "dp", world)
@@ -1797,6 +1945,11 @@ def _dp_body(rank, world, init_method):
                 for n in rec["launches"]:
                     check(n == want, f"dp {mode} launches per step {n}, "
                           f"the bucket layout predicts {want}")
+                # every K5 and K6 launch of the step took the vector body
+                for n, v in zip(rec["launches"], rec["vector_launches"]):
+                    check(all(v[k] == n[k] for k in v), f"dp {mode}: of "
+                          f"the launches {n}, {v} took the vector body")
+                rec["bound_ms_per_step"] = _plan_bound_ms(plans[mode])
             if mode == "int8":
                 checks = _dp_sync_checks(state, leaves, cfg, batch, "dp",
                                          predicted_fused)
@@ -1821,8 +1974,8 @@ def _dp_body(rank, world, init_method):
                              "peer_memory": peers,
                              "final_loss_gap_int8_minus_fp32": gap,
                              "checks": checks,
-                             "buckets": _bucket_sizes(sizes,
-                                                      cc.bucket_bytes)},
+                             "buckets": sharding.bucket_sizes(
+                                 sizes, cc.bucket_bytes)},
                 "gpt_sync": sync_rec}
     finally:
         col.destroy_collective_group("dp")
@@ -1890,6 +2043,10 @@ def phase_dp_train():
             f"busy {prof['device_ms_per_step']:.2f} ms/step; "
             + ", ".join(f"{g} {ms:.3f}" for g, ms in prof["groups"].items())
             + " ms/step")
+        bound = dp["runs"][mode]["bound_ms_per_step"]
+        log(f"[dp-train]   K4-K7 summed bytes bounds of the step's "
+            f"launches: " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                     bound.items()) + " ms/step")
         for name, ms in prof["kernels"]:
             log(f"[dp-train]   {ms:8.3f} ms/step  {name}")
     log(f"[gpt-sync] mesh_allreduce mean of n={gs['n']} f32: fp32 "
@@ -2024,18 +2181,31 @@ def main(argv=None):
                       library_of="flash_bwd_dkv+flash_bwd_dq",
                       library_kernels=bwd["library_kernels"][:3],
                       shape=bwd["shape"])]
-    # K4-K6 at the dp path's shapes: a 4 MiB bucket, block 256 (K6 at the
-    # dp path's world)
-    for k, case in ((_kernels.QUANTIZE, kq["quantize"][0]),
-                    (_kernels.DEQUANTIZE, kq["dequantize"][0]),
-                    (_kernels.DEQUANTIZE_ACCUMULATE,
-                     next(c for c in kq["dequantize_accumulate"]
-                          if c["world"] == min(world, 8)))):
+    # K4 at a 1,048,576-element bucket, block 256 (its earlier reading);
+    # K5 and K6 at the dp step's largest chunk, 4,829,184 elements, timed
+    # with the L2 cold: K5 at the result block (phase 2), K6 at block 256
+    # and the dp step's world (the shard that world gives)
+    chunk = DP_CHUNK_BUCKETS[-1]
+    k5 = next(c for c in kq["cold"] if c["kernel"] == "dequantize"
+              and c["n"] == chunk[0])
+    k6 = next(c for c in kq["cold"] if c["kernel"] == "dequantize_accumulate"
+              and c["case"] == f"chunk {chunk[0]}"
+              and c["world"] == min(world, 8))
+    k4 = kq["quantize"][0]
+    entries.append(_kernel_entry(
+        _kernels.QUANTIZE, k4, by_path("quantize"), library_ms=None,
+        library_note=QUANT_LIBRARY_NOTE, device_ms=k4["device_ms"],
+        shape={"n": k4["n"], "block": k4["block"], "world": 1}))
+    for k, case in ((_kernels.DEQUANTIZE, k5),
+                    (_kernels.DEQUANTIZE_ACCUMULATE, k6)):
         entries.append(_kernel_entry(
             k, case, by_path(k.name), library_ms=None,
-            library_note=QUANT_LIBRARY_NOTE, device_ms=case["device_ms"],
+            library_note=QUANT_LIBRARY_NOTE, ms_by="device time by "
+            "torch.profiler, L2 flushed before each launch",
+            events_ms=case["events_ms"],
+            share_of_bound=case["share_of_bound"],
             shape={"n": case["n"], "block": case["block"],
-                   "world": case.get("world", 1)}))
+                   "world": case["world"]}))
     # K7 at the shape of the dp path's chunks on this machine: a one-rank
     # group on one card; its path is the dp step with the fused hop (auto
     # keeps every GPT-2-small chunk staged: the reference's VMEM cap)

@@ -38,12 +38,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 @dataclasses.dataclass
 class Kernel:
     """One kernel: its source, the TPU kernel it replaces, and the count
-    of launches its wrapper has made.  Kernels of one source share its
-    library."""
+    of launches its wrapper has made (for K5 and K6 also the count of
+    those that took the 16-wide vector body, ``vector_body``).  Kernels
+    of one source share its library."""
     name: str
     source: str
     replaces: str
     launches: int = 0
+    vector_launches: int = 0
 
     @property
     def source_path(self) -> Path:
@@ -90,9 +92,16 @@ def launch_counts() -> Dict[str, int]:
     return {k.name: k.launches for k in KERNELS}
 
 
+def vector_launch_counts() -> Dict[str, int]:
+    """Launches of K5 and K6 that took the vector body."""
+    return {k.name: k.vector_launches
+            for k in (DEQUANTIZE, DEQUANTIZE_ACCUMULATE)}
+
+
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+        k.vector_launches = 0
 
 
 def _nvcc() -> str:
@@ -178,6 +187,9 @@ def sass_opcode_counts(kernel: Kernel, opcode: str) -> Dict[str, int]:
 
 
 def _load(kernel: Kernel) -> ctypes.CDLL:
+    lib = _libs.get(kernel.source)     # built and bound: no lock per call
+    if lib is not None:
+        return lib
     with _lock:
         lib = _libs.get(kernel.source)
         if lib is None:
@@ -241,6 +253,17 @@ def _bind(source: str, lib: ctypes.CDLL) -> None:
                    "rtt_ipc_close", "rtt_can_access_peer", "rtt_host_word",
                    "rtt_host_free"):
             getattr(lib, fn).restype = i
+
+
+def _launch_on(device: torch.device, launch) -> int:
+    """``launch(stream)`` on PyTorch's current stream of ``device``, with
+    that device current for the CUDA runtime (the C side launches on the
+    runtime's current device); the switch is skipped when it already is
+    current.  Returns launch's result."""
+    if device.index == torch.cuda.current_device():
+        return launch(torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(device):
+        return launch(torch.cuda.current_stream().cuda_stream)
 
 
 def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
@@ -465,6 +488,15 @@ def quantize(x: torch.Tensor, block_size: int, *, stochastic: bool = False,
     return q, s
 
 
+def vector_body(block_size: int, q: torch.Tensor, out: torch.Tensor) -> bool:
+    """Whether K5/K6 take their 16-wide vector body (csrc/quantize.cu's
+    ``vector_body``, the same rule): runs of 16 outputs lie inside one
+    block, and q and out are 16-byte aligned.  Otherwise the launch runs
+    the per-element body, with the same bits."""
+    return (block_size % 16 == 0 and q.data_ptr() % 16 == 0
+            and out.data_ptr() % 16 == 0)
+
+
 def _check_codes(what: str, q: torch.Tensor, scales: torch.Tensor) -> None:
     _check_cuda(what, ("q", q), ("scales", scales))
     if q.dtype != torch.int8 or scales.dtype != torch.float32:
@@ -494,13 +526,12 @@ def dequantize(q: torch.Tensor, scales: torch.Tensor, n: int,
     if n == 0:
         return out
     lib = _load(DEQUANTIZE)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.rtt_dequantize(q.data_ptr(), scales.data_ptr(),
-                                 out.data_ptr(), _QUANT_DTYPES[dtype], n,
-                                 block_size, stream)
+    err = _launch_on(q.device, lambda stream: lib.rtt_dequantize(
+        q.data_ptr(), scales.data_ptr(), out.data_ptr(), _QUANT_DTYPES[dtype],
+        n, block_size, stream))
     _check(lib, err, "dequantize")
     DEQUANTIZE.launches += 1
+    DEQUANTIZE.vector_launches += vector_body(block_size, q, out)
     return out
 
 
@@ -526,13 +557,12 @@ def dequantize_accumulate(q: torch.Tensor, scales: torch.Tensor, world: int,
     if m == 0:
         return out
     lib = _load(DEQUANTIZE_ACCUMULATE)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.rtt_dequantize_accumulate(
-            q.data_ptr(), scales.data_ptr(), out.data_ptr(), world, m,
-            block_size, float(post_scale), stream)
+    err = _launch_on(q.device, lambda stream: lib.rtt_dequantize_accumulate(
+        q.data_ptr(), scales.data_ptr(), out.data_ptr(), world, m,
+        block_size, float(post_scale), stream))
     _check(lib, err, "dequantize_accumulate")
     DEQUANTIZE_ACCUMULATE.launches += 1
+    DEQUANTIZE_ACCUMULATE.vector_launches += vector_body(block_size, q, out)
     return out
 
 

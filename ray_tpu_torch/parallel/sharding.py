@@ -7,13 +7,19 @@ helpers of that module come with the meshes slice (ROADMAP A.6).
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import torch
 
 from ray_tpu_torch.collective import collective
-from ray_tpu_torch.collective.compression import resolve_compression
-from ray_tpu_torch.ops.quantize import quantization_error
+from ray_tpu_torch.collective.compression import (CompressionConfig,
+                                                  auto_pipeline_chunks,
+                                                  chunk_layout,
+                                                  resolve_compression,
+                                                  result_block_size)
+from ray_tpu_torch.collective.nccl_group import _resolve_rs_impl
+from ray_tpu_torch.ops.quantize import padded_len, quantization_error
 
 
 def _flatten(tree) -> Tuple[List[torch.Tensor], Callable[[List], Any]]:
@@ -43,6 +49,86 @@ def _flatten(tree) -> Tuple[List[torch.Tensor], Callable[[List], Any]]:
         return type(tree)(out)
 
     return leaves, rebuild
+
+
+def bucket_sizes(sizes: Sequence[int], cap: int) -> List[int]:
+    """The f32 elements of each bucket ``GradientSynchronizer`` issues for
+    float leaves of ``sizes`` elements, pushed in order: a bucket goes
+    once the f32 bytes pending reach ``cap`` (``push``), the rest at
+    ``finish``."""
+    out, cur = [], 0
+    for n in sizes:
+        cur += n
+        if 4 * cur >= cap:
+            out.append(cur)
+            cur = 0
+    if cur:
+        out.append(cur)
+    return out
+
+
+SYNC_KERNELS = ("quantize", "dequantize", "dequantize_accumulate",
+                "fused_reduce_scatter")
+
+
+class KernelLaunch(NamedTuple):
+    """One quantize-kernel launch of a sync: the kernel (its name in
+    ``ops._kernels``), the elements it takes (K6 and K7: of each of
+    ``world`` peers), and its block."""
+    kernel: str
+    n: int
+    block: int
+    world: int = 1
+
+
+def sync_plan(sizes: Sequence[int], cc: CompressionConfig, world: int,
+              peers: bool = True,
+              fused: Optional[bool] = None) -> List[KernelLaunch]:
+    """Every K4-K7 launch of one ``GradientSynchronizer`` sync of float
+    leaves of ``sizes`` elements on a CUDA group of ``world`` ranks,
+    bucket by bucket.  Per compressed bucket, phase 1 runs once per
+    pipeline chunk (``chunk_layout`` at auto chunks): K7 where the
+    reference's rule picks the fused hop (``_resolve_rs_impl``: world > 1,
+    a block multiple of 128, deterministic rounding, the chunk under the
+    8 MiB VMEM cap, ``peers`` — the group has peer memory), else K4 and
+    K6; phase 2 requantizes at the result block and dequantizes once per
+    chunk (or once, when chunks cannot pipeline it); error feedback
+    quantizes and dequantizes the bucket once more.  ``fused=True`` plans
+    a run that forces the fused hop on every chunk."""
+    plan: List[KernelLaunch] = []
+    block, rblock = cc.block_size, result_block_size(cc.block_size)
+    for n in bucket_sizes(sizes, cc.bucket_bytes):
+        if n < cc.min_size:
+            continue
+        sub = padded_len(n, world * block) // world
+        chunks = [nb * block for nb in chunk_layout(
+            sub // block,
+            cc.pipeline_chunks or auto_pipeline_chunks(n, 4, "gpu"))]
+        fused_here = (_resolve_rs_impl("auto", world, block, cc.stochastic,
+                                       max(chunks), peers) == "fused"
+                      if fused is None else fused)
+        for c in chunks:
+            plan += ([KernelLaunch("fused_reduce_scatter", c, block, world)]
+                     if fused_here else
+                     [KernelLaunch("quantize", world * c, block),
+                      KernelLaunch("dequantize_accumulate", c, block, world)])
+        for c in (chunks if len(chunks) > 1 and block % rblock == 0
+                  else [sub]):
+            plan += [KernelLaunch("quantize", c, rblock),
+                     KernelLaunch("dequantize", world * padded_len(c, rblock),
+                                  rblock)]
+        if cc.error_feedback:
+            plan += [KernelLaunch("quantize", n, block),
+                     KernelLaunch("dequantize", n, block)]
+    return plan
+
+
+def sync_launch_counts(plan: Sequence[KernelLaunch]) -> Dict[str, int]:
+    """Launches of each of K4-K7 in a ``sync_plan``."""
+    counts = dict.fromkeys(SYNC_KERNELS, 0)
+    for launch in plan:
+        counts[launch.kernel] += 1
+    return counts
 
 
 class GradientSynchronizer:

@@ -465,3 +465,80 @@ def test_nano_gpt_dp_step_matches_full_batch(ranks):
                                        atol=1e-5 * np.abs(want).max())
     for a, b in zip(res[0]["gpt"], res[1]["gpt"]):
         _same(a, b)
+
+
+# --- the dp step's sync plan: the shapes the quantize kernels are timed at --
+
+GPT2_SMALL_BUCKETS = [38_633_472, 7_087_104, 7_077_888, 7_077_888,
+                      7_077_888, 28_320_768, 28_311_552, 852_480]
+
+
+@pytest.mark.parametrize("fused,launches", [
+    (None, {"quantize": 106, "dequantize": 57, "dequantize_accumulate": 49,
+            "fused_reduce_scatter": 0}),
+    (True, {"quantize": 57, "dequantize": 57, "dequantize_accumulate": 0,
+            "fused_reduce_scatter": 49})])
+def test_gpt2_small_sync_plan_at_world_1(fused, launches):
+    """GPT-2-small's gradient under GradientSynchronizer("int8") at world
+    1 splits into 8 buckets and 49 chunks of 852,480-4,829,184 elements
+    that sum to the whole gradient; K4/K5/K6/K7 launch 106/57/49/0 times
+    a step under the reference's fused-hop rule (57/57/0/49 with the
+    fused hop forced).  PERF.md times K5 and K6 at these chunks."""
+    import math
+
+    from ray_tpu_torch.collective.compression import parse_compression
+    from ray_tpu_torch.models import gpt, training
+    from ray_tpu_torch.parallel import sharding
+
+    cfg = gpt.GPTConfig.gpt2_small()
+    sizes = [math.prod(shape) for _, shape in
+             training.param_leaves(gpt.param_shapes(cfg))]
+    cc = parse_compression("int8")
+    assert sharding.bucket_sizes(sizes, cc.bucket_bytes) == GPT2_SMALL_BUCKETS
+    plan = sharding.sync_plan(sizes, cc, 1, fused=fused)
+    assert sharding.sync_launch_counts(plan) == launches
+    hop = "fused_reduce_scatter" if fused else "dequantize_accumulate"
+    chunks = sorted(launch.n for launch in plan if launch.kernel == hop)
+    assert len(chunks) == 49
+    assert sum(chunks) == gpt.num_params(cfg) == 124_439_040
+    assert chunks[0] == 852_480 and chunks[-1] == 4_829_184
+    assert sum(1_179_648 <= c <= 1_181_184 for c in chunks) == 24
+    assert sum(3_538_944 <= c <= 3_540_224 for c in chunks) == 16
+    assert chunks.count(4_829_184) == 8
+    # phase 2 dequantizes each chunk at the result block; error feedback
+    # each bucket at the block
+    k5 = sorted((launch.n, launch.block) for launch in plan
+                if launch.kernel == "dequantize")
+    assert k5 == sorted([(c, 32) for c in chunks]
+                        + [(n, 256) for n in GPT2_SMALL_BUCKETS])
+
+
+def test_bucket_sizes_is_the_synchronizers_rule():
+    """``sharding.bucket_sizes`` gives the buckets GradientSynchronizer
+    issues, for leaves pushed in order under a small cap."""
+    from unittest import mock
+
+    from ray_tpu_torch.collective import collective
+    from ray_tpu_torch.parallel import GradientSynchronizer, sharding
+
+    sizes = [300, 2048, 100, 5000, 7, 1500, 1500, 9]
+    issued = []
+
+    class Done:
+        def __init__(self, x):
+            self.x = x
+
+        def result(self):
+            return self.x
+
+    def record(x, group_name, op, compression):
+        issued.append(x.numel())
+        return Done(x)
+
+    grads = [torch.ones(n) for n in sizes]
+    sync = GradientSynchronizer(compression="int8:min=0", bucket_bytes=8192)
+    with mock.patch.object(collective, "allreduce_async", record):
+        out = sync(grads)
+    assert [t.shape for t in out] == [g.shape for g in grads]
+    assert issued == sharding.bucket_sizes(sizes, 8192) == [2348, 5100,
+                                                             3007, 9]

@@ -19,7 +19,10 @@ raises; ptxas reports no spill for the bf16 D = 64 instances, and their
 SASS holds HMMA (tensor-core) instructions while no bf16 instance of the
 f32 CUDA-core kernels is built.  The
 quantize kernels K4-K6 are held to their plain versions bitwise: int8
-values, scales and f32 sums all equal, and so is K7, the fused
+values, scales and f32 sums all equal, K5 and K6 also at the edges of
+their 16-wide vector body (ragged tails, blocks 16 to 4096, and the
+inputs it does not take: a block of 24, q one byte into its buffer,
+which run the per-element body in the same launch), and so is K7, the fused
 reduce-scatter, in its one-card loopback launch (every rank of a group in
 one cooperative launch) against its plain version and the staged K4 ->
 K6 path.
@@ -402,16 +405,38 @@ def test_quantize_kernel_nan_and_inf_blocks(gpu):
     assert q[300].item() == 0 and q[600].item() == 0
 
 
+def _at_offset(q, offset):
+    """q as a contiguous view ``offset`` bytes into a larger buffer (not
+    16-byte aligned for offset 1: the kernels' per-element body)."""
+    if not offset:
+        return q
+    buf = torch.empty(q.numel() + offset, dtype=q.dtype, device=q.device)
+    buf[offset:] = q
+    return buf[offset:]
+
+
+# (shape, block, q's storage offset): the vector body at blocks 16 to 4096
+# with n not a multiple of 16 (the per-element tail under a 512-output
+# tile), and what it does not take (a block of 24, a q one byte into its
+# buffer)
+DEQUANT_CASES = [((1 << 20,), 256, 0), ((10, 100), 256, 0), ((5000,), 32, 0),
+                 ((1_000_003,), 32, 0), ((77,), 16, 0), ((40_000,), 16, 0),
+                 ((70_001,), 4096, 0), ((5000,), 24, 0), ((1 << 20,), 256, 1)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,block", [((1 << 20,), 256), ((10, 100), 256),
-                                         ((5000,), 32)])
-def test_dequantize_kernel_matches_plain(gpu, dtype, shape, block):
+@pytest.mark.parametrize("shape,block,offset", DEQUANT_CASES)
+def test_dequantize_kernel_matches_plain(gpu, dtype, shape, block, offset):
     q, s = qz.quantize_blockwise(_quant_input(gpu, torch.float32, shape),
                                  block, impl="plain")
+    q = _at_offset(q, offset)
     before = _kernels.DEQUANTIZE.launches
+    vector = _kernels.DEQUANTIZE.vector_launches
     out = qz.dequantize_blockwise(q, s, shape, dtype, block)
     assert _kernels.DEQUANTIZE.launches == before + 1
+    assert _kernels.DEQUANTIZE.vector_launches == vector + (
+        block % 16 == 0 and not offset)
     want = qz.dequantize_blockwise(q, s, shape, dtype, block, impl="plain")
     assert out.dtype == dtype and out.shape == torch.Size(shape)
     assert torch.equal(out, want)
@@ -420,19 +445,33 @@ def test_dequantize_kernel_matches_plain(gpu, dtype, shape, block):
         _quant_input(gpu, dtype, shape), block, impl="plain"))
 
 
+# (m, block, q's storage offset): the dp step's smallest chunk size, an m
+# that is not a whole number of 512-output tiles (the per-element tail),
+# blocks 16 to 4096, a block of 24 and a q one byte into its buffer
+ACCUM_CASES = [(8192, 256, 0), (1_179_648, 256, 0), (8448, 256, 0),
+               (10_240, 16, 0), (8192, 32, 0), (16_384, 4096, 0),
+               (12_288, 24, 0), (8192, 256, 1)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("world", [1, 2, 3, 4, 8, 16])
 @pytest.mark.parametrize("mean", [False, True])
-def test_dequantize_accumulate_kernel_matches_plain(gpu, world, mean):
-    x = _quant_input(gpu, torch.float32, (world, 8192))
-    q, s = qz.quantize_blockwise(x, 256, impl="plain")
+@pytest.mark.parametrize("m,block,offset", ACCUM_CASES)
+def test_dequantize_accumulate_kernel_matches_plain(gpu, world, mean, m,
+                                                    block, offset):
+    x = _quant_input(gpu, torch.float32, (world, m))
+    q, s = qz.quantize_blockwise(x, block, impl="plain")
+    q = _at_offset(q, offset)
     scale = qz.reciprocal(world) if mean else None
     before = _kernels.DEQUANTIZE_ACCUMULATE.launches
-    out = qz.dequantize_accumulate(q, s, world, 256, scale=scale)
+    vector = _kernels.DEQUANTIZE_ACCUMULATE.vector_launches
+    out = qz.dequantize_accumulate(q, s, world, block, scale=scale)
     assert _kernels.DEQUANTIZE_ACCUMULATE.launches == before + 1
-    want = qz.dequantize_accumulate(q, s, world, 256, impl="plain",
+    assert _kernels.DEQUANTIZE_ACCUMULATE.vector_launches == vector + (
+        block % 16 == 0 and not offset)
+    want = qz.dequantize_accumulate(q, s, world, block, impl="plain",
                                     scale=scale)
-    assert out.shape == (8192,)
+    assert out.shape == (m,)
     assert torch.equal(out, want), (out != want).sum()
 
 

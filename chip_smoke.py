@@ -12,7 +12,10 @@ Phases, each of which must pass (any failure exits non-zero):
                 K3 run on the tensor cores (HMMA in the SASS of every
                 instance, by cuobjdump) and do not spill at D = 64; K5
                 and K6 load 16 bytes at a time (LDG.E.128 in every
-                instance) and do not spill.
+                instance) and do not spill; every vector instance of K4
+                (blocks 16-512, f32 and bf16, both roundings) loads 16
+                bytes at a time, K7's tile instances do in both stages
+                and store 16 bytes at a time (STG.E.128); neither spills.
   3. kernels  — each kernel against its plain PyTorch version on the card
                 at the main paths' shapes and a few edge shapes, with
                 times: kernel, plain version, one library call (a yardstick
@@ -45,13 +48,16 @@ Phases, each of which must pass (any failure exits non-zero):
                 flattened GPT-2-small gradient, a bf16 input, a ragged
                 length and NaN/inf blocks; times (CUDA events, and each
                 kernel's device time by torch.profiler) against the bytes
-                bound.  Then K5 and K6 at the dp step's own shapes (its
-                chunks of 1.18M, 3.54M and 4.83M elements, K6 at worlds
-                1/2/4/8 over the shard each world gives, K5 on phase 2's
-                chunks and on the 38.6M error-feedback bucket) with the
-                L2 flushed before every timed launch, each launch in the
-                16-wide vector body; a reading faster than the bytes
-                bound fails.  The wrappers' host us per call.
+                bound.  Then K4, K5 and K6 at the dp step's own shapes
+                (its chunks of 1.18M, 3.54M and 4.83M elements: K4 at
+                block 256 and 32, K6 at worlds 1/2/4/8 over the shard each
+                world gives, K5 on phase 2's chunks; K4 and K5 on the
+                38.6M error-feedback bucket; K4 on the [4, m] column slice
+                phase 1 reads at world 4), held against
+                ``sharding.sync_plan``, with the L2 flushed before every
+                timed launch, each launch in its vector body; a reading
+                faster than the bytes bound fails.  The wrappers' host us
+                per call.
   9. kernels-fused — K7 (the fused int8 reduce-scatter over CUDA peer
                 memory) against its plain version and the staged K4 -> K6
                 hop, bitwise, sum and mean: a real one-rank NCCL group
@@ -59,15 +65,20 @@ Phases, each of which must pass (any failure exits non-zero):
                 ragged length, NaN/inf blocks) and every rank of worlds
                 2/4/8 in one cooperative launch on the card; 100 calls
                 back to back; a peer that never arrives fails in its
-                bound.  Times against the bytes bound.
+                bound.  Times against the bytes bound, and K7 at the dp
+                step's largest chunk with the L2 flushed before every
+                timed launch (the one-rank group, and loopback at world
+                4).
  10. dp-train — data-parallel training over an NCCL group of one rank per
                 card (world 1 runs in-process): the train recipe of phase
                 7 with the grads synced by GradientSynchronizer("int8",
                 error feedback on) between backward and AdamW; K4/K5/K6/K7
                 launches per step equal to the bucket layout's count under
-                the reference's fused-hop rule, every K5/K6 launch in
-                the vector body, K4-K7 device ms per step beside the
-                summed bounds of its launches; the same 11 steps with the
+                the reference's fused-hop rule, every K4/K5/K6 launch in
+                its vector body, K4-K7 device ms per step beside the
+                summed bounds of its launches (K4 also by block: phase 1
+                and error feedback at 256, phase 2 at 32); the same 11
+                steps with the
                 fused hop forced on every chunk (K7), with an fp32 sync
                 and with no sync; synced grads through the kernels ==
                 through the plain versions == with the fused hop ==
@@ -275,7 +286,66 @@ def phase_build():
         f"per instance {json.dumps(regs)}; no spill")
     return {"seconds": wall, "per_kernel": secs, "ptxas": ptxas,
             "hmma": hmma, "bf16_instances": bf16,
-            "ldg128": ldg128, "stream_registers": regs}
+            "ldg128": ldg128, "stream_registers": regs,
+            "tiles": _tile_sass()}
+
+
+def _tile_sass():
+    """K4's vector instances (blocks 16..512, f32 and bf16, both
+    roundings) load x 16 bytes at a time (LDG.E.128); K7's tile instances
+    (1, 2, 4, 8 peers' loads at a time) do too, in both stages (at least
+    4 + peers of them: the quantize tile's four, one per peer in the
+    accumulate tile), and store 16 bytes at a time (STG.E.128: codes to
+    the peers, the sums); no instance of either spills."""
+    import re
+
+    from ray_tpu_torch.ops import _kernels
+
+    ldg, stg = r"LDG\.E[.\w]*\.128", r"STG\.E[.\w]*\.128"
+    k4 = re.compile(r"\dquantize_kernelI(f|13__nv_bfloat16)Lb([01])ELi(\d+)E")
+    k7 = re.compile(r"fused_rs_kernelILi(\d+)ELb([01])E")
+    out = {}
+    for k, pat, n_inst in ((_kernels.QUANTIZE, k4, 28),
+                           (_kernels.FUSED_REDUCE_SCATTER, k7, 5)):
+        loads = {n: c for n, c in _kernels.sass_opcode_counts(k, ldg).items()
+                 if pat.search(n)}
+        stores = {n: c for n, c in _kernels.sass_opcode_counts(k, stg).items()
+                  if pat.search(n)}
+        entries = {n: e for n, e in _kernels.ptxas_entries(k).items()
+                   if pat.search(n)}
+        check(len(entries) == n_inst and len(loads) == n_inst,
+              f"{k.name}: {len(entries)} instances in the ptxas report, "
+              f"{len(loads)} in the SASS, expected {n_inst}")
+        check(all(e["spill_bytes"] == 0 for e in entries.values()),
+              f"{k.name} spills: {entries}")
+        rows = {}
+        for name, e in entries.items():
+            m = pat.search(name)
+            if k is _kernels.QUANTIZE:
+                label = (f"{'f32' if m.group(1) == 'f' else 'bf16'}/"
+                         f"{'stoch' if m.group(2) == '1' else 'det'}/"
+                         f"B{m.group(3)}")
+                vector = m.group(3) != "0"
+                want = 1
+            else:
+                vector = m.group(2) == "1"
+                label = f"w{m.group(1)}/{'tile' if vector else 'elem'}"
+                want = 4 + int(m.group(1))
+            rows[label] = {"registers": e["registers"],
+                           "ldg128": loads[name],
+                           "stg128": stores.get(name, 0)}
+            if vector:
+                check(loads[name] >= want,
+                      f"{k.name} {label}: {loads[name]} 128-bit global "
+                      f"loads in its SASS, expected at least {want}")
+            if vector and k is _kernels.FUSED_REDUCE_SCATTER:
+                check(stores.get(name, 0) > 0,
+                      f"{k.name} {label}: no 128-bit global store")
+        out[k.name] = rows
+        log(f"[build] {k.name} instances (registers, LDG.E.128, STG.E.128): "
+            + ", ".join(f"{l} {r['registers']}/{r['ldg128']}/{r['stg128']}"
+                        for l, r in sorted(rows.items())) + "; no spill")
+    return out
 
 
 def _attn_work(b, h, sq, sk, d, causal, q_offset, esize):
@@ -1080,8 +1150,9 @@ def _k6_bytes(world, n, block):
 
 # the dp step's chunks at world 1 (``parallel.sharding.sync_plan`` of
 # GPT-2-small's gradient under GradientSynchronizer("int8")), each with a
-# bucket that gives it: K6 (block 256) and phase 2's K5 (result block 32)
-# run once per chunk; the largest bucket is error feedback's K5 (block 256)
+# bucket that gives it: K4 and K6 (block 256, phase 1) and phase 2's K4 and
+# K5 (result block 32) run once per chunk; error feedback's K4 and K5
+# (block 256) once per bucket, the largest of which is DP_EF_BUCKET
 DP_CHUNK_BUCKETS = ((1_179_648, 7_077_888), (3_538_944, 28_311_552),
                     (4_829_184, 38_633_472))
 DP_EF_BUCKET = 38_633_472
@@ -1094,7 +1165,10 @@ def _cold_cases():
     """(kernel, case, n, block, world) of the cold-L2 timings: K6 on each
     dp chunk at world 1 and, in one process, at worlds 2/4/8 over the
     shard that world gives (q [world, m]); K5 on the phase-2 chunks and
-    the error-feedback bucket; both at the 1,048,576-element case."""
+    the error-feedback bucket; K4 at block 256 (phase 1) and 32 (phase 2)
+    on each chunk, at 256 on the error-feedback bucket, and, world 4, on
+    the [4, m] column slice phase 1 reads in place from the largest
+    chunk's bucket (n = 4 m); all three at the 1,048,576-element case."""
     cases = [("dequantize_accumulate", f"chunk {c}", _dp_chunk_sub(b, w),
               256, w) for c, b in DP_CHUNK_BUCKETS for w in (1, 2, 4, 8)]
     cases += [("dequantize", f"phase-2 chunk {c}", c, 32, 1)
@@ -1102,46 +1176,83 @@ def _cold_cases():
     cases += [("dequantize", "error-feedback bucket", DP_EF_BUCKET, 256, 1),
               ("dequantize", "small", SMALL_N, 256, 1),
               ("dequantize_accumulate", "small", SMALL_N, 256, 1)]
+    cases += [("quantize", f"{phase} chunk {c}", c, block, 1)
+              for c, _ in DP_CHUNK_BUCKETS
+              for phase, block in (("phase-1", 256), ("phase-2", 32))]
+    cases += [("quantize", "error-feedback bucket", DP_EF_BUCKET, 256, 1),
+              ("quantize", "phase-1 chunk, world-4 column slice",
+               4 * _dp_chunk_sub(DP_CHUNK_BUCKETS[-1][1], 4), 256, 4),
+              ("quantize", "small", SMALL_N, 256, 1)]
     return cases
 
 
-def quantize_cold_times(reps=COLD_REPS):
-    """K5 and K6 at the dp step's shapes (``_cold_cases``), each == its
-    plain version bitwise, timed with the L2 cold, as the sync finds it
-    (each chunk's codes arrive fresh from NCCL): before every launch a
-    128 MiB scratch buffer is written, outside the kernel, which leaves
-    the inputs in HBM and the L2 full of dirty lines; the kernel's own
-    device ms by torch.profiler over ``reps`` launches.  A reading faster
-    than the bytes bound fails (the L2 was not cold).  Uses only the
-    wrappers' public calls, so a copy of this script beside an earlier
-    tree of the package times that tree's kernels the same way."""
+def _cold_call(kernel, n, block, world, seed):
+    """(kernel's call with impl, its name in the profiler, bytes bound,
+    the comparison of its result with the plain version's) for a cold
+    case; K4 at world 4 reads a [4, n / 4] column slice of the [4, sub]
+    bucket in place, as phase 1 does."""
     import torch
 
     from ray_tpu_torch.ops import quantize as qz
 
+    if kernel == "quantize":
+        if world == 1:
+            x = _quant_input(n, torch.float32, seed)
+        else:
+            sub = qz.padded_len(DP_CHUNK_BUCKETS[-1][1],
+                                world * block) // world
+            x = _quant_input(world * sub, torch.float32, seed).view(
+                world, sub)[:, :n // world]
+
+        def call(impl="auto"):
+            return qz.quantize_blockwise(x, block, reciprocal_scale=True,
+                                         impl=impl)
+        return (call, "quantize_kernel", _k4_bytes(n, block, 4),
+                lambda got, want: _codes_equal(f"K4 cold n={n} block={block}",
+                                               got, want))
+    x = _quant_input(world * n, torch.float32, seed)
+    q, s = qz.quantize_blockwise(x.view(world, n), block,
+                                 reciprocal_scale=True)
+    del x
+    if kernel == "dequantize":
+        def call(impl="auto"):
+            return qz.dequantize_blockwise(q, s, (n,), torch.float32, block,
+                                           impl=impl)
+        fn, nbytes = "dequantize_kernel", _k5_bytes(n, block)
+    else:
+        def call(impl="auto"):
+            return qz.dequantize_accumulate(q, s, world, block, impl=impl)
+        fn, nbytes = "dequant_accum_kernel", _k6_bytes(world, n, block)
+
+    def same(got, want):
+        check(torch.equal(got, want), f"{kernel} n={n} world {world}: "
+              f"differs from the plain version in "
+              f"{(got != want).sum().item()} elements")
+        return (got - want).abs().max().item()
+    return call, fn, nbytes, same
+
+
+def quantize_cold_times(reps=COLD_REPS, kernels=None):
+    """K4, K5 and K6 at the dp step's shapes (``_cold_cases``; ``kernels``
+    names a subset), each == its plain version bitwise, timed with the L2
+    cold, as the sync finds it (each chunk's codes arrive fresh from NCCL,
+    each gradient bucket from the backward): before every launch a 128 MiB
+    scratch buffer is written, outside the kernel, which leaves the inputs
+    in HBM and the L2 full of dirty lines; the kernel's own device ms by
+    torch.profiler over ``reps`` launches.  A reading faster than the
+    bytes bound fails (the L2 was not cold).  Uses only the wrappers'
+    public calls, so a copy of this script beside an earlier tree of the
+    package times that tree's kernels the same way."""
+    import torch
+
     scratch = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
     out = []
     for i, (kernel, case, n, block, world) in enumerate(_cold_cases()):
-        x = _quant_input(world * n, torch.float32, SEED + 60 + i)
-        q, s = qz.quantize_blockwise(x.view(world, n), block,
-                                     reciprocal_scale=True)
-        del x
-        if kernel == "dequantize":
-            def call(impl="auto"):
-                return qz.dequantize_blockwise(q, s, (n,), torch.float32,
-                                               block, impl=impl)
-            fn, nbytes = "dequantize_kernel", _k5_bytes(n, block)
-        else:
-            def call(impl="auto"):
-                return qz.dequantize_accumulate(q, s, world, block,
-                                                impl=impl)
-            fn, nbytes = "dequant_accum_kernel", _k6_bytes(world, n, block)
-        got, want = call(), call("plain")
-        check(torch.equal(got, want), f"{kernel} {case} world {world}: "
-              f"differs from the plain version in "
-              f"{(got != want).sum().item()} elements")
-        err = (got - want).abs().max().item()
-        del got, want
+        if kernels is not None and kernel not in kernels:
+            continue
+        call, fn, nbytes, same = _cold_call(kernel, n, block, world,
+                                            SEED + 60 + i)
+        err = same(call(), call("plain"))
 
         def cold():
             scratch.fill_(1.0)
@@ -1165,7 +1276,8 @@ def quantize_cold_times(reps=COLD_REPS):
             f"bound {bound:.4f} ms ({rec['share_of_bound']:.0%}); "
             f"{rec['events_ms']:.4f} ms by events back to back, plain "
             f"{rec['plain_ms']:.3f} ms")
-        del q, s
+        del call, same
+        torch.cuda.empty_cache()
     del scratch
     torch.cuda.empty_cache()
     return out
@@ -1358,7 +1470,8 @@ def phase_kernels_quantize():
 
 def _checked_cold_times():
     """``quantize_cold_times`` at shapes that are the dp step's (held
-    against ``sync_plan``), every launch in the vector body."""
+    against ``sync_plan`` at world 1, and at world 4 for K4's column
+    slice), every launch in the vector body."""
     from ray_tpu_torch.collective.compression import parse_compression
     from ray_tpu_torch.models import gpt, training
     from ray_tpu_torch.ops import _kernels
@@ -1366,17 +1479,21 @@ def _checked_cold_times():
 
     sizes = [math.prod(shape) for _, shape in training.param_leaves(
         gpt.param_shapes(gpt.GPTConfig.gpt2_small()))]
-    plan = sharding.sync_plan(sizes, parse_compression("int8"), 1)
-    k5 = {(l.n, l.block) for l in plan if l.kernel == "dequantize"}
-    k6 = {l.n for l in plan if l.kernel == "dequantize_accumulate"}
-    check(all(c in k6 and (c, 32) in k5 for c, _ in DP_CHUNK_BUCKETS)
-          and (DP_EF_BUCKET, 256) in k5,
-          f"the timed shapes are not the dp step's: K5 {sorted(k5)}, K6 "
-          f"{sorted(k6)}")
+    plans = {w: sharding.sync_plan(sizes, parse_compression("int8"), w)
+             for w in (1, 4)}
+    launches = {(w, l.kernel, l.n, l.block) for w, plan in plans.items()
+                for l in plan}
+    # K6 at worlds 2/4/8 takes the shard that world gives the same chunk
+    timed = {(world, kernel, n, block)
+             for kernel, case, n, block, world in _cold_cases()
+             if case != "small" and (kernel != "dequantize_accumulate"
+                                     or world == 1)}
+    check(timed <= launches, f"the timed shapes {sorted(timed - launches)} "
+          f"are not the dp step's")
     _kernels.reset_launch_counts()
     cold = quantize_cold_times()
     launched = {k: _kernels.launch_counts()[k]
-                for k in ("dequantize", "dequantize_accumulate")}
+                for k in ("quantize", "dequantize", "dequantize_accumulate")}
     check(_kernels.vector_launch_counts() == launched,
           f"of the launches {launched}, "
           f"{_kernels.vector_launch_counts()} took the vector body")
@@ -1469,6 +1586,210 @@ def _dp_chunk_sub(n, world):
     sub = padded_len(n, world * FUSED_BLOCK) // world
     return max(chunk_layout(sub // FUSED_BLOCK,
                             auto_pipeline_chunks(n, 4, "gpu"))) * FUSED_BLOCK
+
+
+def fused_cold_times(reps=COLD_REPS):
+    """K7 at the dp step's largest chunk with the L2 cold, as
+    ``quantize_cold_times`` times K4-K6: in a real one-rank NCCL group
+    (sub 4,829,184) and in loopback at world 4 (every rank in one
+    cooperative launch, sub the chunk's world-4 shard), each == its plain
+    version bitwise; the kernel's device ms by torch.profiler over
+    ``reps`` launches, each after a 128 MiB scratch write.  The bytes
+    bound counts the codes' read-back from HBM, which may come from L2, so
+    a reading above it is logged, not failed.  Public calls only, so a
+    copy of this script times an earlier tree's K7 the same way."""
+    import torch
+
+    from ray_tpu_torch.collective import collective as col
+    from ray_tpu_torch.collective.peer_memory import PeerBuffers
+    from ray_tpu_torch.ops import quantize as qz
+
+    bucket = DP_CHUNK_BUCKETS[-1][1]
+    scratch = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    out = []
+
+    def timed(world, label, lead, fused, plain):
+        sub = _dp_chunk_sub(bucket, world)
+        x = _fused_input(lead, sub, SEED + 95 + world)
+        got, want = fused(x), plain(x)
+        torch.cuda.synchronize()
+        check(_same_bits(got, want), f"K7 cold world {world} {label}: "
+              f"differs from the plain version in "
+              f"{(got != want).sum().item()} elements")
+        del got, want
+
+        def cold():
+            scratch.fill_(1.0)
+            fused(x)
+
+        dev = _kernel_device_ms(cold, "fused_rs_kernel", n=reps)
+        ranks = lead[0] if len(lead) == 2 else 1
+        nbytes = ranks * _k7_bytes(world, sub)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        rec = {"kernel": "fused_reduce_scatter", "case": label,
+               "world": world, "sub": sub, "block": FUSED_BLOCK,
+               "ranks_per_launch": ranks, "max_abs_err": 0.0,
+               "device_ms": dev, "ms": dev, "bound_ms": bound,
+               "bound_by": "bytes", "bytes": nbytes,
+               "share_of_bound": bound / dev,
+               "events_ms": cuda_time_ms(lambda: fused(x)),
+               "plain_ms": cuda_time_ms(lambda: plain(x), iters=2,
+                                        warmup=1)}
+        out.append(rec)
+        log(f"[kernels-fused] cold L2 K7 world {world} {label} sub={sub}: "
+            f"== plain; {dev:.4f} ms device, bound {bound:.4f} ms "
+            f"({rec['share_of_bound']:.0%}"
+            + ("; above the bound: codes read back from L2" if bound > dev
+               else "") + f"); {rec['events_ms']:.4f} ms by events back "
+            f"to back, plain {rec['plain_ms']:.3f} ms")
+        del x
+
+    gh = col.init_collective_group(1, 0, backend="nccl",
+                                   group_name="fused-cold")
+    try:
+        pg = gh.pg
+        timed(1, "dp-chunk, one-rank group", (1,),
+              lambda x: qz.fused_reduce_scatter(x, pg, FUSED_BLOCK),
+              lambda x: qz.fused_reduce_scatter_plain(x, pg, FUSED_BLOCK))
+        gh.peers.check()
+    finally:
+        col.destroy_collective_group("fused-cold")
+    peers = PeerBuffers.loopback(4)
+    try:
+        timed(4, "dp-chunk shard, loopback", (4, 4),
+              lambda x: qz.fused_reduce_scatter_loopback(x, peers,
+                                                         FUSED_BLOCK),
+              lambda x: qz.fused_reduce_scatter_loopback_plain(
+                  x, FUSED_BLOCK))
+        peers.check()
+    finally:
+        peers.close()
+    del scratch
+    torch.cuda.empty_cache()
+    return out
+
+
+def compare_cold_interleaved(other, reps=COLD_REPS):
+    """K4 and K7 of this tree against the same kernels built from another
+    tree's sources (``other``: the root of an unpacked earlier commit with
+    the same C interfaces), with the L2 cold, at the shapes of
+    ``_cold_cases`` (K4) and ``fused_cold_times`` (K7).  The two builds
+    take turns launch by launch inside one torch.profiler session, so that
+    the card's clock drift over a process's first minutes falls on both
+    alike; each result == the plain version bitwise.  The other tree's
+    quantize.cu and fused_rs.cu are built with this tree's nvcc flags into
+    ``_build/``.  Returns {case: {"other": ms, "this": ms, "bound_ms"}}."""
+    import ctypes
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.collective import collective as col
+    from ray_tpu_torch.collective.peer_memory import PeerBuffers
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.ops import quantize as qz
+
+    kernels = (_kernels.QUANTIZE, _kernels.FUSED_REDUCE_SCATTER)
+    builds = {"this": {k.source: _kernels._load(k) for k in kernels},
+              "other": {}}
+    procs = {}
+    for k in kernels:
+        so = _kernels.BUILD_DIR / f"other-{Path(k.source).stem}.so"
+        procs[k.source] = (so, subprocess.Popen(
+            [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-o", str(so),
+             str(Path(other) / "ray_tpu_torch" / "csrc" / k.source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for source, (so, proc) in procs.items():
+        text, _ = proc.communicate()
+        check(proc.returncode == 0, f"nvcc failed for {other}'s {source}: "
+              f"{text[-2000:]}")
+        lib = ctypes.CDLL(str(so))
+        lib.rtt_error_string.argtypes = [ctypes.c_int]
+        lib.rtt_error_string.restype = ctypes.c_char_p
+        _kernels._bind(source, lib)
+        builds["other"][source] = lib
+    names = ("other", "this")
+
+    def use(name):
+        _kernels._libs.update(builds[name])
+
+    scratch = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    out = {}
+
+    def turns(label, calls, kernel, nbytes):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                for name in names:
+                    use(name)
+                    scratch.fill_(1.0)
+                    calls[name]()
+            torch.cuda.synchronize()
+        evs = sorted((e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA
+                      and re.search(rf"\b{kernel}\b", e.name)),
+                     key=lambda e: e.time_range.start)
+        check(len(evs) == len(names) * reps, f"{label}: {len(evs)} "
+              f"launches of {kernel} in the profile, expected "
+              f"{len(names) * reps}")
+        rec = {"bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+        for i, name in enumerate(names):
+            rec[name] = sum(e.time_range.elapsed_us()
+                            for e in evs[i::len(names)]) / reps / 1e3
+        out[label] = rec
+        log(f"[compare] cold L2 {label}: bound {rec['bound_ms']:.4f} ms; "
+            + ", ".join(f"{n} {rec[n]:.4f} ms ({rec['bound_ms'] / rec[n]:.0%})"
+                        for n in names))
+
+    try:
+        for i, (kernel, case, n, block, world) in enumerate(_cold_cases()):
+            if kernel != "quantize":
+                continue
+            call, fn, nbytes, same = _cold_call(kernel, n, block, world,
+                                                SEED + 60 + i)
+            for name in names:
+                use(name)
+                same(call(), call("plain"))
+            turns(f"K4 {case} n={n} block={block}",
+                  dict.fromkeys(names, call), fn, nbytes)
+            del call, same
+        bucket = DP_CHUNK_BUCKETS[-1][1]
+        gh = col.init_collective_group(1, 0, backend="nccl",
+                                       group_name="compare")
+        try:
+            for world, label, lead in ((1, "one-rank group", (1,)),
+                                       (4, "loopback", (4, 4))):
+                sub = _dp_chunk_sub(bucket, world)
+                x = _fused_input(lead, sub, SEED + 95 + world)
+                want = (qz.fused_reduce_scatter_plain(x, gh.pg, FUSED_BLOCK)
+                        if world == 1 else
+                        qz.fused_reduce_scatter_loopback_plain(x, FUSED_BLOCK))
+                peers, calls = {}, {}
+                for name in names:
+                    use(name)
+                    peers[name] = (PeerBuffers.for_group(gh.pg, x.device)
+                                   if world == 1 else PeerBuffers.loopback(4))
+                    calls[name] = functools.partial(
+                        _kernels.fused_reduce_scatter, x, peers[name],
+                        FUSED_BLOCK)
+                    check(_same_bits(calls[name](), want), f"K7 {label} of "
+                          f"the {name} build differs from the plain version")
+                ranks = lead[0] if world > 1 else 1
+                turns(f"K7 world {world} {label} sub={sub}", calls,
+                      "fused_rs_kernel", ranks * _k7_bytes(world, sub))
+                for name in names:
+                    use(name)
+                    peers[name].check()
+                    peers[name].close()
+                del x, want
+        finally:
+            col.destroy_collective_group("compare")
+    finally:
+        use("this")
+    del scratch
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_kernels_fused():
@@ -1611,6 +1932,7 @@ def phase_kernels_fused():
                       "error": raised}
     log(f"[kernels-fused] missing peer: the launch gave up and raised after "
         f"{waited:.2f} s (bound 0.25 s): {raised}")
+    out["cold"] = fused_cold_times()
     log(f"[kernels-fused] library: none ({FUSED_LIBRARY_NOTE})")
     return out
 
@@ -1634,8 +1956,11 @@ def _plan_bound_ms(plan):
                                                           l.block)}
     out = dict.fromkeys(QUANT_KERNELS, 0.0)
     for launch in plan:
-        out[launch.kernel] += (nbytes[launch.kernel](launch)
-                               / HBM_BYTES_PER_S * 1e3)
+        ms = nbytes[launch.kernel](launch) / HBM_BYTES_PER_S * 1e3
+        out[launch.kernel] += ms
+        if launch.kernel == "quantize":
+            key = f"quantize block {launch.block}"
+            out[key] = out.get(key, 0.0) + ms
     return out
 
 
@@ -1659,12 +1984,20 @@ _DP_PROFILE_GROUPS = (("K7 fused_reduce_scatter", ("fused_rs_kernel",)),
                       ("memcpy", ("memcpy",)))
 
 
+# K4's instance names carry the block of its vector body (0: the
+# per-element body alone), so the profile splits K4 by the sync's phases
+_K4_BLOCK = r"\bquantize_kernel<[^,]+, (?:true|false), (\d+)>"
+
+
 def _dp_profile(step, n=2):
     """Device ms per step of K4-K7, the NCCL kernels and the device copies
-    over n int8 steps (torch.profiler), and of all device work."""
+    over n int8 steps (torch.profiler), of all device work, and of K4 by
+    the block of its launches."""
+    import re
+
     groups = {g: 0.0 for g, _ in _DP_PROFILE_GROUPS}
     groups["all"] = 0.0
-    names = {}
+    names, k4_blocks = {}, {}
     for name, ms in _device_ms_by_kernel(step, n).items():
         groups["all"] += ms
         low = name.lower()
@@ -1673,7 +2006,12 @@ def _dp_profile(step, n=2):
                 groups[g] += ms
                 names[name[:100]] = names.get(name[:100], 0.0) + ms
                 break
+        m = re.search(_K4_BLOCK, name)
+        if m:
+            k4_blocks[int(m.group(1))] = k4_blocks.get(int(m.group(1)),
+                                                       0.0) + ms
     return {"device_ms_per_step": groups.pop("all"), "groups": groups,
+            "k4_by_block": k4_blocks,
             "kernels": sorted(([k, v] for k, v in names.items()),
                               key=lambda kv: -kv[1])[:10]}
 
@@ -1945,7 +2283,8 @@ def _dp_body(rank, world, init_method):
                 for n in rec["launches"]:
                     check(n == want, f"dp {mode} launches per step {n}, "
                           f"the bucket layout predicts {want}")
-                # every K5 and K6 launch of the step took the vector body
+                # every K4, K5 and K6 launch of the step took the vector
+                # body
                 for n, v in zip(rec["launches"], rec["vector_launches"]):
                     check(all(v[k] == n[k] for k in v), f"dp {mode}: of "
                           f"the launches {n}, {v} took the vector body")
@@ -2047,6 +2386,9 @@ def phase_dp_train():
         log(f"[dp-train]   K4-K7 summed bytes bounds of the step's "
             f"launches: " + ", ".join(f"{k} {v:.4f}" for k, v in
                                      bound.items()) + " ms/step")
+        log(f"[dp-train]   K4 by block (device ms/step): "
+            + ", ".join(f"{b} {ms:.3f}" for b, ms in
+                        sorted(prof["k4_by_block"].items())))
         for name, ms in prof["kernels"]:
             log(f"[dp-train]   {ms:8.3f} ms/step  {name}")
     log(f"[gpt-sync] mesh_allreduce mean of n={gs['n']} f32: fp32 "
@@ -2181,22 +2523,18 @@ def main(argv=None):
                       library_of="flash_bwd_dkv+flash_bwd_dq",
                       library_kernels=bwd["library_kernels"][:3],
                       shape=bwd["shape"])]
-    # K4 at a 1,048,576-element bucket, block 256 (its earlier reading);
-    # K5 and K6 at the dp step's largest chunk, 4,829,184 elements, timed
-    # with the L2 cold: K5 at the result block (phase 2), K6 at block 256
-    # and the dp step's world (the shard that world gives)
+    # K4, K5 and K6 at the dp step's largest chunk, 4,829,184 elements,
+    # timed with the L2 cold: K4 and K5 at the result block (phase 2), K6
+    # at block 256 and the dp step's world (the shard that world gives)
     chunk = DP_CHUNK_BUCKETS[-1]
+    k4 = next(c for c in kq["cold"] if c["kernel"] == "quantize"
+              and c["n"] == chunk[0] and c["block"] == 32)
     k5 = next(c for c in kq["cold"] if c["kernel"] == "dequantize"
               and c["n"] == chunk[0])
     k6 = next(c for c in kq["cold"] if c["kernel"] == "dequantize_accumulate"
               and c["case"] == f"chunk {chunk[0]}"
               and c["world"] == min(world, 8))
-    k4 = kq["quantize"][0]
-    entries.append(_kernel_entry(
-        _kernels.QUANTIZE, k4, by_path("quantize"), library_ms=None,
-        library_note=QUANT_LIBRARY_NOTE, device_ms=k4["device_ms"],
-        shape={"n": k4["n"], "block": k4["block"], "world": 1}))
-    for k, case in ((_kernels.DEQUANTIZE, k5),
+    for k, case in ((_kernels.QUANTIZE, k4), (_kernels.DEQUANTIZE, k5),
                     (_kernels.DEQUANTIZE_ACCUMULATE, k6)):
         entries.append(_kernel_entry(
             k, case, by_path(k.name), library_ms=None,
@@ -2206,18 +2544,22 @@ def main(argv=None):
             share_of_bound=case["share_of_bound"],
             shape={"n": case["n"], "block": case["block"],
                    "world": case["world"]}))
-    # K7 at the shape of the dp path's chunks on this machine: a one-rank
-    # group on one card; its path is the dp step with the fused hop (auto
-    # keeps every GPT-2-small chunk staged: the reference's VMEM cap)
-    k7 = next(c for c in report["kernels_fused"]["cases"]
-              if c["world"] == 1 and c["case"] == "dp-chunk")
+    # K7 at the dp path's largest chunk, a one-rank group on one card,
+    # timed with the L2 cold; its path is the dp step with the fused hop
+    # (auto keeps every GPT-2-small chunk staged: the reference's VMEM cap)
+    k7 = next(c for c in report["kernels_fused"]["cold"] if c["world"] == 1)
+    k7_warm = next(c for c in report["kernels_fused"]["cases"]
+                   if c["world"] == 1 and c["case"] == "dp-chunk")
     k7_launches = by_path(_kernels.FUSED_REDUCE_SCATTER.name)
     check(k7_launches["dp_train_step_fused_hop"] > 0
           and k7_launches["gpt_sync_fused"] > 0,
           f"K7 was not launched on its paths: {k7_launches}")
     k7_entry = _kernel_entry(
         _kernels.FUSED_REDUCE_SCATTER, k7, k7_launches, library_ms=None,
-        library_note=FUSED_LIBRARY_NOTE, staged_ms=k7["staged_ms"],
+        library_note=FUSED_LIBRARY_NOTE, staged_ms=k7_warm["staged_ms"],
+        ms_by="device time by torch.profiler, L2 flushed before each "
+        "launch", events_ms=k7["events_ms"],
+        share_of_bound=k7["share_of_bound"],
         shape={"world": 1, "sub": k7["sub"], "block": FUSED_BLOCK})
     k7_entry["launches"] = k7_launches["dp_train_step_fused_hop"]
     entries.append(k7_entry)

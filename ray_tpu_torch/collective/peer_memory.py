@@ -178,7 +178,8 @@ class PeerBuffers:
             self._allocate(max(need, 2 * self.data_bytes))
         self.epoch = (self.epoch + 1) & 0xFFFFFFFF
         cap = self._grid_cap // nranks if self.loopback else self._grid_cap
-        grid = max(1, min(nblk, cap, self._max_ctas))
+        grid = max(1, min(_kernels.fused_rs_units(sub, block), cap,
+                          self._max_ctas))
         return self.epoch, self._data_off + scales_rel, grid
 
     def check_error(self) -> None:

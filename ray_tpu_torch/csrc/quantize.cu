@@ -12,10 +12,8 @@
 //   conversion); deq = float(q) * scale; the accumulate takes
 //   the peers in order 0..world-1 as fused multiply-adds onto an f32 zero,
 //   acc = fma(q, s, acc) (as XLA compiles the reference's (q * s).sum(0)),
-//   then multiplies by an optional f32 factor (the mean's 1/world).  Every
-//   step is an explicit IEEE operation (__fdiv_rn, __frcp_rn, __fmul_rn,
-//   __fadd_rn, __fmaf_rn, rintf), so nvcc can neither contract a product
-//   and a sum the reference rounds separately nor split one it fuses.
+//   then multiplies by an optional f32 factor (the mean's 1/world).  The
+//   arithmetic is in csrc/quant_tile.cuh, shared with K7 (csrc/fused_rs.cu).
 //
 // Two rules for the scale, both the reference's: an IEEE division by 127
 // (its eager calls and its numpy codec), or the product with f32(1/127)
@@ -25,16 +23,37 @@
 // reciprocal).  The two differ in the last bit of some scales.
 //
 // What bounds them on this card: all three move bytes and do a few
-// operations per byte, so device memory (3.35 TB/s) bounds them.  K4 reads
-// each input byte from device memory once (its block a second time, from
-// L1/L2, to scale it); consecutive lanes touch consecutive addresses.
+// operations per byte, so device memory (3.35 TB/s) bounds them.  At the
+// dp step's chunks (0.85-4.8M elements, 5-25 MB a launch) the HBM bound is
+// 1.3-7.5 us, so the launch ramp and the instructions per byte count too.
+//
+// K4 (4 or 2 bytes in, 1 out per element, 4 out per block).  The first
+// version ran one warp per block, one element per lane per step, read each
+// block twice, divided the block index by the blocks per row (64-bit) for
+// every block and capped its grid at 132 x 16 CTAs: one 4-byte load per
+// lane in flight, then a dependent chain.  At the sync's result block of
+// 32 that is one 128-byte chain per warp.  The design:
+//   - a warp takes a quantize tile (quant_tile.cuh): 512 f32 or 1024 bf16
+//     consecutive elements, four 16-byte loads per lane (each instruction
+//     32 x 16 contiguous bytes) issued before any arithmetic and held in
+//     registers: each input byte is read from device memory once;
+//   - the block absmax is a segmented xor-shuffle inside the lanes of its
+//     block (B <= 128 f32) or a fold of whole slices, then the warp; the
+//     tile body is a template on B (16 ... 512), so the shuffles unroll
+//     and the profiler names each block size's launches;
+//   - codes leave as one 4-byte (f32) or 8-byte (bf16) store per lane and
+//     slice, 128 or 256 contiguous bytes an instruction; the tile's scales
+//     as one coalesced store per 32 blocks;
+//   - the block index is a shift; a row-strided chunk finds its row once
+//     per tile (rows a multiple of the tile) or once per 16-byte vector
+//     (a vector never crosses a row: every row is whole blocks);
+//   - the grid is one wave of resident CTAs (occupancy API), grid-stride
+//     beyond: a wave holds 2 KB of loads in flight per warp.
 //
 // K5 and K6 stream: 1 byte of code per peer in, 4 (or 2) bytes out, no
-// reuse.  At the dp step's chunks (0.85-4.8M elements, 4-25 MB a launch)
-// the HBM bound is 1.3-7.5 us, so beside the bytes the launch ramp and
-// the instructions per byte count: the first version loaded one byte per
-// thread per peer, divided i / block for every element and reloaded the
-// scale for every element and peer.  The design:
+// reuse.  The first version loaded one byte per thread per peer, divided
+// i / block for every element and reloaded the scale for every element
+// and peer.  The design:
 //   - a warp takes a tile of 512 consecutive outputs (TILE); lane l loads
 //     codes [16 l, 16 l + 16) of it, per peer one 16-byte load (LDG.E.128;
 //     the warp's 512 bytes contiguous), and the scale of their block, so
@@ -53,22 +72,21 @@
 //   - the grid is one wave of resident CTAs at most (Little's law: 3.35
 //     TB/s x ~0.6 us is ~2 MB in flight; a wave holds 16 B x every lane
 //     x world of loads, and the stores behind them), grid-stride beyond.
-// Inputs the vector body cannot take (a block that is not a multiple of 16,
-// q or out not 16-byte aligned) run the first version's per-element body in
-// the same launch, as does the ragged tail under a tile (n % 512); both
-// give the same bits.  The wrappers count the launches that took the
-// vector body.
+// Inputs a vector body cannot take run the first version's per-element
+// body in the same launch, as does the ragged tail under a tile; both give
+// the same bits.  K4: a block that is not a power of two from 16 to 512,
+// x or a row start not 16-byte aligned, q not 16-byte aligned.  K5/K6: a
+// block that is not a multiple of 16, q or out not 16-byte aligned.  The
+// wrappers count the launches that took the vector body.
 
 // Layouts:
 //   K4: x is [rows, cols] float32 or bfloat16 with a row stride (a column
 //       slice of a contiguous tensor); when rows > 1 every row is a whole
 //       number of blocks, when rows == 1 the last block is padded with
-//       zeros that are never read from memory.  One warp per block (any
-//       block size 1..4096), eight warps per CTA, grid-stride over blocks;
-//       the absmax is a warp-shuffle reduction that keeps NaN (fmaxf would
-//       drop it).  Writes q int8 [nblocks * block] and scales f32 [nblocks].
-//       Stochastic bits: mix32(mix32(i) ^ key) for flat element index i,
-//       u = (bits >> 8) * 2^-24, the same hash as the plain version.
+//       zeros that are never read from memory.  Writes q int8 [nblocks *
+//       block] and scales f32 [nblocks].  Stochastic bits: mix32(mix32(i)
+//       ^ key) for flat element index i, u = (bits >> 8) * 2^-24, the same
+//       hash as the plain version.
 //   K5: q int8 [>= n], scales f32 [ceil(n / block)] -> out [n] float32 or
 //       bfloat16 (the f32 product rounded once to the output type).
 //   K6: q int8 [world, m], scales f32 [world, m / block] -> out f32 [m]; the
@@ -79,18 +97,14 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "quant_tile.cuh"
+
 namespace {
+
+using namespace qtile;
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int MAX_CTAS = 132 * 16;  // grid-stride beyond this
-constexpr unsigned FULL = 0xffffffffu;
-constexpr float RECIP_127 = 1.0f / 127.0f;  // IEEE-rounded, as XLA folds it
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) {
@@ -101,31 +115,63 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);  // round to nearest even, as torch's .to()
 }
 
-// the plain version's _mix32, on uint32
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x21f0aaadu;
-  x ^= x >> 15;
-  x *= 0x735a2d97u;
-  x ^= x >> 15;
-  return x;
+// Where element e (0 <= e < rows * cols, the packed order of q) of a K4
+// input lies: row e / cols at row_stride per row.  row_mode 0: one row
+// (x is flat); 1: rows a whole number of tiles (the row taken from the
+// tile's first element); 2: rows of whole blocks (the row taken per
+// element run, which never crosses one).
+__device__ __forceinline__ long long row_offset(int e, int i0, int cols,
+                                                long long row_stride,
+                                                int row_mode) {
+  if (row_mode == 0) return e;
+  const int r = (row_mode == 1 ? i0 : e) / cols;
+  return (long long)r * row_stride + (e - r * cols);
 }
 
-// max that keeps NaN, as torch.amax / jnp.max do
-__device__ __forceinline__ float nan_max(float m, float a) {
-  return (a > m || a != a) ? a : m;
-}
-
-template <typename T, bool STOCHASTIC>
+// K4.  B: the block of the vector body (a power of two, 16..512), or 0 for
+// the per-element body alone.  Work items of a warp: quantize tiles
+// 0..tiles-1, then blocks tail_block..nblocks-1 one at a time (the ragged
+// tail, or every block when B == 0).
+template <typename T, bool STOCHASTIC, int B>
 __global__ void __launch_bounds__(THREADS)
 quantize_kernel(const T* __restrict__ x, long long cols, long long row_stride,
                 long long blocks_per_row, int block, long long nblocks,
                 int reciprocal_scale, uint32_t key, int8_t* __restrict__ q,
-                float* __restrict__ scales) {
+                float* __restrict__ scales, int tiles, int row_mode) {
+  constexpr int V = 16 / sizeof(T), S = 32 * V, QT = 4 * S;
   const int lane = threadIdx.x & 31;
-  const long long nwarps = (long long)gridDim.x * WARPS;
-  for (long long b = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
-       b < nblocks; b += nwarps) {
+  const int gw = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  const int nwarps = gridDim.x * WARPS;
+  if (B != 0) {
+    // tiles gw, gw + nwarps, ...
+    for (int t = gw; t < tiles; t += nwarps) {
+      const int i0 = t * QT;
+      float v[4][V];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int e = i0 + S * k + V * lane;
+        load16(x + row_offset(e, i0, (int)cols, row_stride, row_mode), v[k]);
+      }
+      float s[4];
+      uint32_t w[4][V / 4];
+      quantize_tile<V, STOCHASTIC>(v, B, reciprocal_scale,
+                                   (uint32_t)(i0 + V * lane), key, s, w);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        int8_t* dst = q + i0 + S * k + V * lane;
+        if constexpr (V == 4)
+          *reinterpret_cast<uint32_t*>(dst) = w[k][0];
+        else
+          *reinterpret_cast<uint2*>(dst) = make_uint2(w[k][0], w[k][1]);
+      }
+      store_tile_scales<V>(scales + i0 / (B ? B : 1), s, B, lane);
+    }
+  }
+  // the first version's body, a warp per block from tail_block (the
+  // ragged tail, or every block when B == 0): one element per lane per
+  // step, the block read twice (the second pass from L1/L2)
+  const long long tail_block = B ? (long long)tiles * (QT / (B ? B : 1)) : 0;
+  for (long long b = tail_block + gw; b < nblocks; b += nwarps) {
     const long long r = b / blocks_per_row;
     const long long col0 = (b - r * blocks_per_row) * block;
     const T* src = x + r * row_stride + col0;
@@ -138,34 +184,28 @@ quantize_kernel(const T* __restrict__ x, long long cols, long long row_stride,
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       m = nan_max(m, __shfl_xor_sync(FULL, m, off));
-    const float scale =
-        m > 0.f ? (reciprocal_scale ? __fmul_rn(m, RECIP_127)
-                                    : __fdiv_rn(m, 127.f))
-                : 1.f;
+    const float scale = scale_of(m, reciprocal_scale);
     const float inv = __frcp_rn(scale);
     const long long base = b * block;
     for (int j = lane; j < block; j += 32) {
       const float v = j < valid ? to_f32(src[j]) : 0.f;
-      const float y = __fmul_rn(v, inv);
-      float rq;
-      if (STOCHASTIC) {
-        const uint32_t bits = mix32(mix32((uint32_t)(base + j)) ^ key);
-        const float u = __fmul_rn((float)(bits >> 8), 5.9604644775390625e-8f);
-        rq = floorf(__fadd_rn(y, u));
-      } else {
-        rq = rintf(y);  // half to even, as torch.round / jnp.round
-      }
-      // NaN (a NaN element, or an inf one times 1/inf) -> 0, as XLA
-      // converts float to int8; fmaxf alone would make it -127
-      rq = (rq != rq) ? 0.f : fminf(fmaxf(rq, -127.f), 127.f);
-      q[base + j] = (int8_t)(int)rq;
+      q[base + j] = (int8_t)code_of<STOCHASTIC>(v, inv, (uint32_t)(base + j),
+                                                key);
     }
     if (lane == 0) scales[b] = scale;
   }
 }
 
-constexpr int RUN = 16;          // codes per lane per peer: one 16-byte load
-constexpr int TILE = 32 * RUN;   // outputs per warp per step of K5 and K6
+// Whether K4 takes its vector body: a power-of-two block from 16 to 512
+// and 16-byte aligned accesses of x, of every row start and of q
+// (ops/_kernels.py's quantize_vector_body states the same rule).
+bool quantize_vector_body(const void* x, long long rows, long long row_stride,
+                          int esize, int block, const void* q) {
+  return block >= 16 && block <= 512 && block_shift(block) >= 0 &&
+         reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+         (rows == 1 || (row_stride * esize) % 16 == 0) &&
+         reinterpret_cast<uintptr_t>(q) % 16 == 0;
+}
 
 // Whether K5/K6 take the vector body: a lane's 16 codes lie inside one
 // block, and 16-byte accesses of q and out are aligned (ops/_kernels.py's
@@ -173,63 +213,6 @@ constexpr int TILE = 32 * RUN;   // outputs per warp per step of K5 and K6
 bool vector_body(const void* q, const void* out, int block) {
   return block % RUN == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
          reinterpret_cast<uintptr_t>(out) % 16 == 0;
-}
-
-// log2(block) for a power of two, else -1 (the kernels then divide)
-int block_shift(int block) {
-  return (block & (block - 1)) ? -1 : __builtin_ctz((unsigned)block);
-}
-
-__device__ __forceinline__ int block_of(int i, int block, int shift) {
-  return shift >= 0 ? i >> shift : i / block;
-}
-
-// code j (0..3) of a 4-byte word, as float (exact)
-__device__ __forceinline__ float code_at(uint32_t w, int j) {
-  return (float)(int8_t)((w >> (8 * j)) & 0xffu);
-}
-
-// A warp's tile: lane l loads codes [16 l, 16 l + 16) of the tile (one
-// 16-byte load, the warp's 512 bytes contiguous) and the scale of their
-// block.  The stores want lane l to hold outputs [4 (32 k + l), +4) for
-// k = 0..3, so that each store instruction writes 32 lanes x 16
-// contiguous bytes (lane-strided stores fill half sectors and ran at half
-// the rate): the codes cross lanes through 512 bytes of shared memory,
-// the scales by shuffle (word 32 k + l is in lane 8 k + l / 4's run).
-struct TileWords {
-  uint32_t w[4];
-  float s[4];
-};
-
-__device__ __forceinline__ TileWords transpose(uint32_t* stage, int lane,
-                                               int4 c, float s) {
-  TileWords t;
-  reinterpret_cast<int4*>(stage)[lane] = c;
-  __syncwarp();
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    t.w[k] = stage[32 * k + lane];
-    t.s[k] = __shfl_sync(FULL, s, 8 * k + (lane >> 2));
-  }
-  __syncwarp();  // every lane has read before the stage is written again
-  return t;
-}
-
-// four outputs at out[i..i+3] (16 bytes of f32, 8 of bf16 each rounded
-// once to nearest even)
-__device__ __forceinline__ void store4(float* out, float a, float b, float c,
-                                       float d) {
-  *reinterpret_cast<float4*>(out) = make_float4(a, b, c, d);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* out, float a, float b,
-                                       float c, float d) {
-  const __nv_bfloat162 lo =
-      __halves2bfloat162(__float2bfloat16_rn(a), __float2bfloat16_rn(b));
-  const __nv_bfloat162 hi =
-      __halves2bfloat162(__float2bfloat16_rn(c), __float2bfloat16_rn(d));
-  *reinterpret_cast<uint2*>(out) =
-      make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
-                 *reinterpret_cast<const uint32_t*>(&hi));
 }
 
 template <typename OUT>
@@ -279,47 +262,10 @@ dequant_accum_kernel(const int8_t* __restrict__ q,
   if (vec) {
     const int tiles = m / TILE;
     for (int w = blockIdx.x * WARPS + warp; w < tiles;
-         w += gridDim.x * WARPS) {
-      const int i0 = w * TILE;
-      const int b = block_of(i0 + RUN * lane, block, shift);
-      // every peer's loads first: up to MAXW x 16 B in flight per lane
-      int4 c[MAXW];
-      float s[MAXW];
-#pragma unroll
-      for (int p = 0; p < MAXW; ++p) {
-        c[p] = make_int4(0, 0, 0, 0);
-        s[p] = 0.f;
-        if (p < world) {
-          c[p] = reinterpret_cast<const int4*>(q + (long long)p * m)
-              [w * 32 + lane];
-          s[p] = scales[(long long)p * nblk + b];
-        }
-      }
-      // then the chain fma(q[p], s[p], acc) per output, peers in order
-      float acc[4][4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[k][j] = 0.f;
-#pragma unroll
-      for (int p = 0; p < MAXW; ++p) {
-        if (p < world) {  // uniform over the warp
-          const TileWords t = transpose(stage[warp], lane, c[p], s[p]);
-#pragma unroll
-          for (int k = 0; k < 4; ++k)
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              acc[k][j] = __fmaf_rn(code_at(t.w[k], j), t.s[k], acc[k][j]);
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < 4; ++k)  // post_scale 1.0 for a sum: exact
-        store4(out + i0 + 4 * (32 * k + lane),
-               __fmul_rn(acc[k][0], post_scale),
-               __fmul_rn(acc[k][1], post_scale),
-               __fmul_rn(acc[k][2], post_scale),
-               __fmul_rn(acc[k][3], post_scale));
-    }
+         w += gridDim.x * WARPS)
+      accum_tile<MAXW, false, false>(q, m, scales, nblk, world, w * TILE,
+                                     block,
+                              shift, post_scale, stage[warp], lane, out);
     tail = tiles * TILE;
   }
   for (int i = tail + blockIdx.x * THREADS + threadIdx.x; i < m;
@@ -344,12 +290,17 @@ int wave_ctas(K kernel) {
   return sms * (per_sm > 0 ? per_sm : 1);
 }
 
+// CTAs for `warps` warp-sized work items, at most one wave
+int warp_ctas(long long warps, int wave) {
+  const long long c = (warps + WARPS - 1) / WARPS;
+  return (int)(c < 1 ? 1 : (c > wave ? wave : c));
+}
+
 // a warp per tile of the vector body (its tail, under a tile, takes any
 // thread) or a thread per element, at most one wave of CTAs
 int stream_ctas(int n, int vec, int wave) {
-  const long long c = vec ? (n / TILE + WARPS - 1) / WARPS
-                          : ((long long)n + THREADS - 1) / THREADS;
-  return (int)(c < 1 ? 1 : (c > wave ? wave : c));
+  return vec ? warp_ctas(n / TILE, wave)
+             : warp_ctas(((long long)n + 31) / 32, wave);
 }
 
 template <typename OUT>
@@ -377,31 +328,58 @@ cudaError_t launch_dequant_accum(const void* q, const void* s, void* out,
   return cudaGetLastError();
 }
 
-int ctas_for(long long work, int per_cta) {
-  const long long c = (work + per_cta - 1) / per_cta;
-  return (int)(c < 1 ? 1 : (c > MAX_CTAS ? MAX_CTAS : c));
+struct QuantizeArgs {
+  const void* x;
+  long long rows, cols, row_stride;
+  int block;
+  long long nblocks;
+  int reciprocal_scale;
+  uint32_t key;
+  void* q;
+  void* s;
+};
+
+template <typename T, bool STOCHASTIC, int B>
+cudaError_t launch_quantize(const QuantizeArgs& a, cudaStream_t st) {
+  constexpr int QT = 4 * 32 * (16 / sizeof(T));  // elements of a tile
+  static const int wave = wave_ctas(quantize_kernel<T, STOCHASTIC, B>);
+  // rows == 1: one row of `cols` valid elements, padded to nblocks blocks
+  const long long bpr = a.rows == 1 ? a.nblocks : a.cols / a.block;
+  const long long valid = a.rows * a.cols;
+  const int tiles = B ? (int)(valid / QT) : 0;
+  const int row_mode = a.rows == 1 ? 0 : (a.cols % QT == 0 ? 1 : 2);
+  const long long tail_blocks =
+      a.nblocks - (B ? (long long)tiles * (QT / (B ? B : 1)) : 0);
+  const long long work = tiles > tail_blocks ? tiles : tail_blocks;
+  quantize_kernel<T, STOCHASTIC, B>
+      <<<warp_ctas(work, wave), THREADS, 0, st>>>(
+          static_cast<const T*>(a.x), a.cols, a.row_stride, bpr, a.block,
+          a.nblocks, a.reciprocal_scale, a.key, static_cast<int8_t*>(a.q),
+          static_cast<float*>(a.s), tiles, row_mode);
+  return cudaGetLastError();
+}
+
+template <typename T, bool STOCHASTIC>
+cudaError_t quantize_by_block(const QuantizeArgs& a, bool vec,
+                              cudaStream_t st) {
+  switch (vec ? a.block : 0) {
+    case 16: return launch_quantize<T, STOCHASTIC, 16>(a, st);
+    case 32: return launch_quantize<T, STOCHASTIC, 32>(a, st);
+    case 64: return launch_quantize<T, STOCHASTIC, 64>(a, st);
+    case 128: return launch_quantize<T, STOCHASTIC, 128>(a, st);
+    case 256: return launch_quantize<T, STOCHASTIC, 256>(a, st);
+    case 512: return launch_quantize<T, STOCHASTIC, 512>(a, st);
+    default: return launch_quantize<T, STOCHASTIC, 0>(a, st);
+  }
 }
 
 template <typename T>
-cudaError_t launch_quantize(const void* x, long long rows, long long cols,
-                            long long row_stride, int block,
-                            long long nblocks, int reciprocal_scale,
-                            int stochastic, uint32_t key, void* q, void* s,
-                            cudaStream_t st) {
-  // rows == 1: one row of `cols` valid elements, padded to nblocks blocks
-  const long long bpr = rows == 1 ? nblocks : cols / block;
-  const int grid = ctas_for(nblocks, WARPS);
-  if (stochastic)
-    quantize_kernel<T, true><<<grid, THREADS, 0, st>>>(
-        static_cast<const T*>(x), cols, row_stride, bpr, block, nblocks,
-        reciprocal_scale, key, static_cast<int8_t*>(q),
-        static_cast<float*>(s));
-  else
-    quantize_kernel<T, false><<<grid, THREADS, 0, st>>>(
-        static_cast<const T*>(x), cols, row_stride, bpr, block, nblocks,
-        reciprocal_scale, key, static_cast<int8_t*>(q),
-        static_cast<float*>(s));
-  return cudaGetLastError();
+cudaError_t quantize_typed(const QuantizeArgs& a, int stochastic,
+                           cudaStream_t st) {
+  const bool vec = quantize_vector_body(a.x, a.rows, a.row_stride,
+                                        (int)sizeof(T), a.block, a.q);
+  return stochastic ? quantize_by_block<T, true>(a, vec, st)
+                    : quantize_by_block<T, false>(a, vec, st);
 }
 
 }  // namespace
@@ -417,16 +395,17 @@ int rtt_quantize(const void* x, int dtype, long long rows, long long cols,
                  int reciprocal_scale, int stochastic, unsigned int key,
                  void* q, void* s, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (block < 1 || block > 4096 || rows < 1 || (rows > 1 && cols % block))
+  if (block < 1 || block > 4096 || rows < 1 || (rows > 1 && cols % block) ||
+      nblocks < 1 || nblocks * block > 0x7fffffffLL ||
+      rows * cols > nblocks * block)
     return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return (int)launch_quantize<float>(x, rows, cols, row_stride, block,
-                                       nblocks, reciprocal_scale, stochastic,
-                                       key, q, s, st);
-  if (dtype == 1)
-    return (int)launch_quantize<__nv_bfloat16>(
-        x, rows, cols, row_stride, block, nblocks, reciprocal_scale,
-        stochastic, key, q, s, st);
+  const QuantizeArgs a{x,     rows,
+                       cols,  row_stride,
+                       block, nblocks,
+                       reciprocal_scale, key,
+                       q,     s};
+  if (dtype == 0) return (int)quantize_typed<float>(a, stochastic, st);
+  if (dtype == 1) return (int)quantize_typed<__nv_bfloat16>(a, stochastic, st);
   return (int)cudaErrorInvalidValue;
 }
 

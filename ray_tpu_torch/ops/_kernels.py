@@ -38,9 +38,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 @dataclasses.dataclass
 class Kernel:
     """One kernel: its source, the TPU kernel it replaces, and the count
-    of launches its wrapper has made (for K5 and K6 also the count of
-    those that took the 16-wide vector body, ``vector_body``).  Kernels
-    of one source share its library."""
+    of launches its wrapper has made (for K4, K5 and K6 also the count of
+    those that took the vector body: ``quantize_vector_body``,
+    ``vector_body``).  Kernels of one source share its library."""
     name: str
     source: str
     replaces: str
@@ -53,7 +53,7 @@ class Kernel:
 
     def lib_path(self) -> Path:
         h = hashlib.sha256(self.source_path.read_bytes())
-        for header in sorted(CSRC.glob("*.cuh")):   # tc.cuh and the like
+        for header in sorted(CSRC.glob("*.cuh")):   # tc.cuh, quant_tile.cuh
             h.update(header.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"{self.source_path.stem}-{h.hexdigest()[:16]}.so"
@@ -93,9 +93,9 @@ def launch_counts() -> Dict[str, int]:
 
 
 def vector_launch_counts() -> Dict[str, int]:
-    """Launches of K5 and K6 that took the vector body."""
+    """Launches of K4, K5 and K6 that took the vector body."""
     return {k.name: k.vector_launches
-            for k in (DEQUANTIZE, DEQUANTIZE_ACCUMULATE)}
+            for k in (QUANTIZE, DEQUANTIZE, DEQUANTIZE_ACCUMULATE)}
 
 
 def reset_launch_counts() -> None:
@@ -444,6 +444,22 @@ def row_strided(x: torch.Tensor, block_size: int) -> bool:
             and x.shape[1] % block_size == 0)
 
 
+QUANTIZE_VECTOR_BLOCKS = (16, 32, 64, 128, 256, 512)
+
+
+def quantize_vector_body(x: torch.Tensor, block_size: int) -> bool:
+    """Whether K4 takes its vector body, the warp tile (csrc/quantize.cu's
+    ``quantize_vector_body``, the same rule): a power-of-two block from 16
+    to 512, x 16-byte aligned and, read row by row (``row_strided``),
+    every row start too (q, which the wrapper allocates, always is).
+    Otherwise the launch runs the per-element body, with the same bits;
+    either way the ragged tail under a tile runs it."""
+    if block_size not in QUANTIZE_VECTOR_BLOCKS or x.data_ptr() % 16:
+        return False
+    return (not row_strided(x, block_size)
+            or x.stride(0) * x.element_size() % 16 == 0)
+
+
 def quantize(x: torch.Tensor, block_size: int, *, stochastic: bool = False,
              key: int = 0, reciprocal_scale: bool = False
              ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -485,6 +501,7 @@ def quantize(x: torch.Tensor, block_size: int, *, stochastic: bool = False,
                                q.data_ptr(), s.data_ptr(), stream)
     _check(lib, err, "quantize")
     QUANTIZE.launches += 1
+    QUANTIZE.vector_launches += quantize_vector_body(x, block_size)
     return q, s
 
 
@@ -581,6 +598,20 @@ def fused_rs_layout() -> Tuple[int, int, int]:
     _peer("rtt_fused_rs_layout", ctypes.byref(off), ctypes.byref(w),
           ctypes.byref(c))
     return off.value, w.value, c.value
+
+
+FUSED_RS_TILE = 512
+
+
+def fused_rs_units(sub: int, block_size: int) -> int:
+    """The units of each row that K7's CTAs own, b, b + grid, ...
+    (csrc/fused_rs.cu's ``tiles_of``, the same rule): the whole
+    512-element tiles when the block is a power of two from 16 to 512 (the
+    warp-tile body), then one unit per remaining block.  It depends on sub
+    and block alone, so every rank of a group agrees on it."""
+    tiles = (sub // FUSED_RS_TILE if block_size in QUANTIZE_VECTOR_BLOCKS
+             else 0)
+    return tiles + (sub - tiles * FUSED_RS_TILE) // block_size
 
 
 def fused_rs_residency() -> Tuple[int, int]:

@@ -513,6 +513,34 @@ def test_gpt2_small_sync_plan_at_world_1(fused, launches):
                         + [(n, 256) for n in GPT2_SMALL_BUCKETS])
 
 
+@pytest.mark.parametrize("world", [1, 4])
+def test_gpt2_small_sync_plan_k4_takes_the_vector_body(world):
+    """Every K4 launch of the dp step's sync has a block K4's vector body
+    takes: 49 at the result block 32 (phase 2), 57 at 256 (phase 1 and
+    error feedback); and phase 1's column slice of [world, sub] at a
+    block offset starts every row 16-byte aligned."""
+    import collections
+    import math
+
+    from ray_tpu_torch.collective.compression import parse_compression
+    from ray_tpu_torch.models import gpt, training
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.parallel import sharding
+
+    cfg = gpt.GPTConfig.gpt2_small()
+    sizes = [math.prod(shape) for _, shape in
+             training.param_leaves(gpt.param_shapes(cfg))]
+    plan = sharding.sync_plan(sizes, parse_compression("int8"), world)
+    blocks = collections.Counter(launch.block for launch in plan
+                                 if launch.kernel == "quantize")
+    assert blocks == {32: 49, 256: 57}
+    assert set(blocks) <= set(_kernels.QUANTIZE_VECTOR_BLOCKS)
+    x2d = torch.zeros(world, 3 * 2048)
+    for off, csz in ((0, 2048), (2048, 1024), (3072, 3072)):
+        assert _kernels.quantize_vector_body(x2d[:, off:off + csz], 256)
+        assert _kernels.quantize_vector_body(torch.zeros(csz), 32)
+
+
 def test_bucket_sizes_is_the_synchronizers_rule():
     """``sharding.bucket_sizes`` gives the buckets GradientSynchronizer
     issues, for leaves pushed in order under a small cap."""

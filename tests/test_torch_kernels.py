@@ -22,10 +22,15 @@ quantize kernels K4-K6 are held to their plain versions bitwise: int8
 values, scales and f32 sums all equal, K5 and K6 also at the edges of
 their 16-wide vector body (ragged tails, blocks 16 to 4096, and the
 inputs it does not take: a block of 24, q one byte into its buffer,
-which run the per-element body in the same launch), and so is K7, the fused
+which run the per-element body in the same launch), K4 at every block
+its warp tile takes (16 to 512) and at blocks it does not (48, 100,
+4096), f32 and bf16, both scale rules, deterministic and stochastic, x at
+an unaligned offset, row-strided chunks whose tiles cross rows, and a NaN
+and an inf block side by side in one tile; and so is K7, the fused
 reduce-scatter, in its one-card loopback launch (every rank of a group in
 one cooperative launch) against its plain version and the staged K4 ->
-K6 path.
+K6 path, at blocks 256/128/32/100 with sub a whole number of tiles or
+not (the per-element tail).
 """
 
 import concurrent.futures
@@ -343,6 +348,12 @@ QUANT_CASES = [
     (torch.float32, (7,), 1),
     (torch.bfloat16, (5000,), 256),
     (torch.bfloat16, (3, 1000), 16),
+] + [
+    # K4's warp tile (512 f32 or 1024 bf16 elements) at every block it
+    # takes, the per-element body at blocks it does not (48, 100, 4096);
+    # 70,001 elements are not a whole number of tiles (the tail)
+    (dtype, (70_001,), block) for dtype in (torch.float32, torch.bfloat16)
+    for block in (16, 32, 64, 128, 256, 512, 48, 100, 4096)
 ]
 
 
@@ -365,8 +376,11 @@ def test_quantize_kernel_matches_plain(gpu, dtype, shape, block, stochastic,
     kw = dict(stochastic=stochastic, seed=11,
               reciprocal_scale=rule == "reciprocal")
     before = _kernels.QUANTIZE.launches
+    vector = _kernels.QUANTIZE.vector_launches
     q, s = qz.quantize_blockwise(x, block, **kw)
     assert _kernels.QUANTIZE.launches == before + 1
+    assert _kernels.QUANTIZE.vector_launches == vector + (
+        block in _kernels.QUANTIZE_VECTOR_BLOCKS)
     pq, ps = qz.quantize_blockwise(x, block, impl="plain", **kw)
     torch.cuda.synchronize()
     assert q.dtype == torch.int8 and s.dtype == torch.float32
@@ -375,18 +389,62 @@ def test_quantize_kernel_matches_plain(gpu, dtype, shape, block, stochastic,
 
 
 @pytest.mark.cuda
-def test_quantize_kernel_reads_a_row_strided_chunk(gpu):
-    """The collectives quantize a column slice [world, csz] of [world,
-    sub] in place: the same codes as the contiguous copy."""
-    x = _quant_input(gpu, torch.float32, (4, 3 * 512))
-    chunk = x[:, 512:1024]
-    assert not chunk.is_contiguous()
-    before = _kernels.QUANTIZE.launches
-    q, s = qz.quantize_blockwise(chunk, 256, reciprocal_scale=True)
-    assert _kernels.QUANTIZE.launches == before + 1
-    pq, ps = qz.quantize_blockwise(chunk.contiguous(), 256, impl="plain",
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_kernel_at_an_unaligned_offset(gpu, dtype):
+    """x 4 (f32) or 2 (bf16) bytes into its buffer: the per-element body,
+    the same bits."""
+    buf = _quant_input(gpu, dtype, (1 << 16) + 1)
+    x = buf[1:]
+    assert x.data_ptr() % 16
+    vector = _kernels.QUANTIZE.vector_launches
+    q, s = qz.quantize_blockwise(x, 256, reciprocal_scale=True)
+    assert _kernels.QUANTIZE.vector_launches == vector
+    pq, ps = qz.quantize_blockwise(x, 256, impl="plain",
                                    reciprocal_scale=True)
     assert torch.equal(q, pq) and torch.equal(s, ps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lo,hi,block", [(512, 1024, 256), (256, 1024, 256),
+                                         (32, 1312, 32)])
+def test_quantize_kernel_reads_a_row_strided_chunk(gpu, dtype, lo, hi,
+                                                   block):
+    """The collectives quantize a column slice [world, csz] of [world,
+    sub] in place: the same codes as the contiguous copy, with rows of
+    whole tiles (512 f32) or not (a tile crossing rows)."""
+    x = _quant_input(gpu, dtype, (4, 3 * 512))
+    chunk = x[:, lo:hi]
+    assert not chunk.is_contiguous()
+    before = _kernels.QUANTIZE.launches
+    vector = _kernels.QUANTIZE.vector_launches
+    q, s = qz.quantize_blockwise(chunk, block, reciprocal_scale=True)
+    assert _kernels.QUANTIZE.launches == before + 1
+    assert _kernels.QUANTIZE.vector_launches == vector + (
+        chunk.data_ptr() % 16 == 0)
+    pq, ps = qz.quantize_blockwise(chunk.contiguous(), block, impl="plain",
+                                   reciprocal_scale=True)
+    assert torch.equal(q, pq) and torch.equal(s, ps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stochastic", [False, True])
+def test_quantize_kernel_keeps_nan_and_inf_in_their_blocks(gpu, stochastic):
+    """A NaN in one block of 32 and an inf in its neighbour, inside one
+    warp tile: the segmented absmax keeps each in its own block (the
+    NaN block takes scale 1.0, the inf block inf, the blocks around them
+    their own scales)."""
+    x = _quant_input(gpu, torch.float32, (4096,))
+    x[1024 + 5] = float("nan")
+    x[1024 + 32 + 7] = float("inf")
+    q, s = qz.quantize_blockwise(x, 32, stochastic=stochastic, seed=3,
+                                 reciprocal_scale=True)
+    pq, ps = qz.quantize_blockwise(x, 32, impl="plain", stochastic=stochastic,
+                                   seed=3, reciprocal_scale=True)
+    assert torch.equal(s, ps) and torch.equal(q, pq)
+    assert s[32].item() == 1.0 and s[33].item() == float("inf")
+    assert torch.isfinite(s[31]) and torch.isfinite(s[34])
+    assert s[31].item() != 1.0 and s[34].item() != 1.0
 
 
 @pytest.mark.cuda
@@ -527,7 +585,8 @@ def _staged_loopback(xs, block, scale):
 @pytest.mark.parametrize("world", [1, 2, 4, 8])
 @pytest.mark.parametrize("mean", [False, True])
 @pytest.mark.parametrize("block,sub", [(256, 3 * 2048), (128, 640),
-                                       (100, 1000)])
+                                       (100, 1000), (32, 4096), (32, 800),
+                                       (128, 1536), (256, 1280)])
 def test_fused_rs_loopback_matches_plain(gpu, world, mean, block, sub):
     from ray_tpu_torch.collective.peer_memory import PeerBuffers
 

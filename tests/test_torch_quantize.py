@@ -182,6 +182,63 @@ def test_stochastic_seed_reproducible():
     assert all(0 <= w < 2 ** 32 for w in want)
 
 
+def _view(shape, dtype, offset, strides):
+    """A view into a fresh buffer (the allocator aligns it to 64 bytes)
+    ``offset`` elements in, with ``strides`` (None: contiguous)."""
+    strides = strides or torch.empty(shape).stride()
+    n = offset + sum((d - 1) * st for d, st in zip(shape, strides)) + 1
+    buf = torch.zeros(n, dtype=dtype)
+    assert buf.data_ptr() % 16 == 0
+    return buf.as_strided(shape, strides, offset)
+
+
+# (shape, dtype, storage offset, strides, block, takes the vector body)
+VECTOR_RULE_CASES = [
+    ((1000,), torch.float32, 0, None, 256, True),
+    ((1000,), torch.float32, 0, None, 16, True),
+    ((1000,), torch.float32, 0, None, 512, True),
+    ((1000,), torch.float32, 0, None, 48, False),     # not a power of two
+    ((1000,), torch.float32, 0, None, 8, False),      # under 16
+    ((5000,), torch.float32, 0, None, 1024, False),   # over 512
+    ((1000,), torch.float32, 1, None, 256, False),    # 4 bytes in
+    ((1000,), torch.float32, 4, None, 256, True),     # 16 bytes in
+    ((1000,), torch.bfloat16, 1, None, 32, False),    # 2 bytes in
+    ((1000,), torch.bfloat16, 8, None, 32, True),     # 16 bytes in
+    ((10, 100), torch.float32, 0, None, 256, True),   # read flat
+    # column slices [4, 512] of [4, 1536] and [4, 1538]: rows read in place
+    ((4, 512), torch.float32, 512, (1536, 1), 256, True),
+    ((4, 512), torch.float32, 512, (1538, 1), 256, False),
+    ((4, 512), torch.bfloat16, 512, (1540, 1), 256, False),
+    ((4, 512), torch.bfloat16, 512, (1544, 1), 256, True),
+    ((4, 512), torch.float32, 2, (1536, 1), 256, False),
+]
+
+
+@pytest.mark.parametrize("shape,dtype,offset,strides,block,vector",
+                         VECTOR_RULE_CASES)
+def test_quantize_vector_body_rule(shape, dtype, offset, strides, block,
+                                   vector):
+    """``_kernels.quantize_vector_body``: the rule K4's launch follows
+    (csrc/quantize.cu), on shapes, strides and offsets."""
+    x = _view(shape, dtype, offset, strides)
+    assert _kernels.quantize_vector_body(x, block) is vector
+
+
+def test_fused_rs_units_rule():
+    """K7's ownership units: the whole 512-element tiles, then one unit
+    per remaining block, where the tiles apply; else every block a unit.
+    sub and block alone decide them."""
+    assert _kernels.fused_rs_units(4096, 256) == 8
+    assert _kernels.fused_rs_units(4096, 32) == 8
+    assert _kernels.fused_rs_units(3_540_224, 256) == 6914 + 1
+    assert _kernels.fused_rs_units(800, 32) == 1 + 9      # 288 = 9 blocks
+    assert _kernels.fused_rs_units(640, 128) == 1 + 1
+    assert _kernels.fused_rs_units(256, 256) == 1         # no whole tile
+    assert _kernels.fused_rs_units(1000, 100) == 10       # not a power of 2
+    assert _kernels.fused_rs_units(4096, 1024) == 4       # over a tile
+    assert _kernels.fused_rs_units(4096, 8) == 512        # under 16
+
+
 def test_impls_and_cpu_dispatch():
     t = torch.from_numpy(_x((1000,)))
     for impl in ("pallas", "pallas_interpret", "fused", "xla"):

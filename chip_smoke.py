@@ -88,8 +88,27 @@ Phases, each of which must pass (any failure exits non-zero):
                 gradient, fp32 against int8 (auto chunks) against int8
                 with impl="fused": times, error, chunked == chunks=1 and
                 fused == staged bitwise, K7's device ms.
+ 12. runtime  — the port's task/actor runtime (runs last):
+                ray_tpu_torch.init(num_cpus=4) offers as many GPUs as torch
+                sees; spawn to first task of a fresh CPU and GPU worker; a
+                num_gpus=1 actor runs GPT-2-small (seed 0) on its card:
+                the [8, 1024] bf16 forward with its own K1 count (12) and
+                3 train steps at [16, 513] with its own K1/K2/K3 counts
+                (24/12/12 per step), held against the same run in this
+                process, bitwise, tokens/s and device busy of both; the
+                498 MB CUDA parameter dict put by the driver lands on the
+                actor's card (staged once by the owner) and as CPU
+                tensors in a CPU-only task that sees no card, and the
+                actor's dict comes back on this card, GB/s each way; a
+                second num_gpus=1 task waits while the actor holds the
+                card and runs after kill; tasks/s and round trip of a
+                trivial task; the kv collective between two CPU actors
+                (== plain sum, int8 == the codec, broadcast, no keys
+                left); no runtime process outlives shutdown or holds the
+                card.
 
-    python3 chip_smoke.py --phases dp-train,gpt-sync
+    python3 chip_smoke.py --phases dp-train
+    python3 chip_smoke.py --phases runtime
 
 runs the device and build phases and the named ones only (a development
 aid; with no arguments every phase runs).
@@ -2408,6 +2427,563 @@ def phase_dp_train():
 
 
 
+# -- phase: runtime ----------------------------------------------------------
+#
+# The port's task/actor runtime (ray_tpu_torch.init/remote/get/put/...) on
+# the card: a GPU actor runs GPT-2-small on the hand-written kernels in its
+# own worker process, CUDA tensors cross the object plane both ways, a
+# second GPU request waits for the first, the kv collective backend runs
+# between CPU actors, and nothing of the runtime holds the card after
+# kill/shutdown.
+
+RUNTIME_FWD_SHAPE = (8, 1024)
+RUNTIME_TRAIN_SHAPE = (16, 513)
+RUNTIME_TRAIN_STEPS = 3
+RUNTIME_TASKS = 2000
+RUNTIME_RTT_CALLS = 200
+# The actor's forward logits and train losses are held bitwise against
+# the same computation in the driver's process: the same code and kernels
+# on the same card.  The H100 gave bitwise logits and losses from the
+# first run of this phase on, so no tolerance is allowed.
+
+
+def _proc_age_s() -> float:
+    """Seconds since this process started (Linux /proc)."""
+    with open("/proc/self/stat") as f:
+        start_ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/stat") as f:
+        btime = next(int(ln.split()[1]) for ln in f if ln.startswith("btime"))
+    return time.time() - (btime + start_ticks / os.sysconf("SC_CLK_TCK"))
+
+
+def _runtime_forward(params, cfg, time_it=True):
+    """One seeded bf16 forward of GPT-2-small at [8, 1024] with the
+    kernels' launch counts, the logits' checksums and last position, and
+    (``time_it``) ms per forward by CUDA events."""
+    import torch
+
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.ops import _kernels
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    tokens = torch.randint(0, cfg.vocab_size, RUNTIME_FWD_SHAPE, generator=g,
+                           device="cuda")
+    with torch.no_grad():
+        _kernels.reset_launch_counts()
+        logits = gpt.apply(params, tokens, cfg)
+        torch.cuda.synchronize()
+        launches = _kernels.launch_counts()
+        out = {"launches": launches,
+               "finite": bool(torch.isfinite(logits).all().item()),
+               "shape": list(logits.shape),
+               "sum": logits.float().sum().item(),
+               # exact integer sum of the bf16 bit patterns
+               "bits_sum": logits.view(torch.int16).sum(
+                   dtype=torch.int64).item(),
+               "last": logits[:, -1].contiguous()}
+        del logits
+        if time_it:
+            # the forward's host issue takes about as long as its device
+            # work, so the wall time swings with the host: 20 forwards
+            out["ms"] = cuda_time_ms(lambda: gpt.apply(params, tokens, cfg),
+                                     iters=20, warmup=2)
+            out["tokens_per_s"] = (RUNTIME_FWD_SHAPE[0] * RUNTIME_FWD_SHAPE[1]
+                                   / (out["ms"] / 1e3))
+            # device busy per forward: whether a gap to the wall time is
+            # the host's
+            out["device_ms"] = _profile(
+                lambda: gpt.apply(params, tokens, cfg))["device_ms_per_step"]
+    return out
+
+
+def _runtime_train(cfg, steps):
+    """``steps`` seeded steps of make_train_step at [16, 513] (the train
+    phase's recipe): losses and per-step kernel launches."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import training
+    from ray_tpu_torch.ops import _kernels
+
+    tokens = torch.from_numpy(np.random.RandomState(SEED).randint(
+        0, cfg.vocab_size, RUNTIME_TRAIN_SHAPE)).cuda()
+    init_state, step = training.make_train_step(cfg)
+    state = init_state(seed=SEED)
+    losses, launches = [], []
+    for _ in range(steps):
+        _kernels.reset_launch_counts()
+        state, m = step(state, {"tokens": tokens})
+        torch.cuda.synchronize()
+        launches.append(_kernels.launch_counts())
+        losses.append(m["loss"].item())
+    del state
+    torch.cuda.empty_cache()
+    return {"losses": losses, "launches": launches}
+
+
+def _tensor_devices(tree):
+    import torch
+
+    leaves = tree.values() if isinstance(tree, dict) else tree
+    out = set()
+    for v in leaves:
+        if isinstance(v, torch.Tensor):
+            out.add(v.device.type)
+        else:
+            out |= _tensor_devices(v)
+    return out
+
+
+def _trees_equal(a, b):
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.shape == b.shape
+                and a.dtype == b.dtype and torch.equal(a, b.to(a.device)))
+    return (a.keys() == b.keys()
+            and all(_trees_equal(a[k], b[k]) for k in a))
+
+
+def _tree_nbytes(tree):
+    leaves = tree.values() if isinstance(tree, dict) else tree
+    return sum(v.numel() * v.element_size() if hasattr(v, "numel")
+               else _tree_nbytes(v) for v in leaves)
+
+
+class _SpawnProbe:
+    """A worker's first call: its pid, its age, what it sees."""
+
+    def ready(self):
+        out = {"pid": os.getpid(), "age_s": _proc_age_s(),
+               "cuda_visible": os.environ.get("CUDA_VISIBLE_DEVICES")}
+        if os.environ.get("RAY_TPU_TORCH_WORKER_GPU") == "1":
+            import torch
+
+            out["cuda"] = torch.cuda.is_available()
+        return out
+
+
+class _GPTActor:
+    """GPT-2-small (seed-0 weights) on the card of a GPU worker."""
+
+    def __init__(self):
+        import torch
+
+        from ray_tpu_torch.models import gpt
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.cfg = gpt.GPTConfig.gpt2_small()
+        self.params = gpt.init(self.cfg, seed=SEED)
+
+    def ready(self):
+        import torch
+
+        return {"pid": os.getpid(), "age_s": _proc_age_s(),
+                "device": torch.cuda.get_device_name(0),
+                "cuda_visible": os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+    def forward(self):
+        return _runtime_forward(self.params, self.cfg)
+
+    def train(self, steps):
+        return _runtime_train(self.cfg, steps)
+
+    def fetch_forward(self, refs):
+        """Get the driver's CUDA parameter dict (a ref inside a list, so
+        the fetch is timed here) and run the forward on it."""
+        import torch
+
+        import ray_tpu_torch as rt
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = rt.get(refs[0], timeout=300)
+        torch.cuda.synchronize()
+        get_s = time.perf_counter() - t0
+        fwd = _runtime_forward(params, self.cfg, time_it=False)
+        return {"get_s": get_s, "devices": sorted(_tensor_devices(params)),
+                "same_as_own": _trees_equal(params, self.params),
+                "sum": fwd["sum"], "bits_sum": fwd["bits_sum"],
+                "launches": fwd["launches"]}
+
+    def give_params(self):
+        import ray_tpu_torch as rt
+
+        return [rt.put(self.params)]
+
+
+def _cpu_fetch(refs):
+    """A CPU-only task's view of the CUDA parameter dict."""
+    import torch
+
+    import ray_tpu_torch as rt
+
+    t0 = time.perf_counter()
+    params = rt.get(refs[0], timeout=300)
+    return {"get_s": time.perf_counter() - t0,
+            "cuda_available": torch.cuda.is_available(),
+            "cuda_visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "devices": sorted(_tensor_devices(params)),
+            "embed_sum": params["embed"].double().sum().item()}
+
+
+def _gpu_task():
+    import torch
+
+    return {"pid": os.getpid(), "cuda": torch.cuda.is_available(),
+            "device": torch.cuda.get_device_name(0)}
+
+
+def _noop():
+    return None
+
+
+class _KVMember:
+    def run(self, rank, xs):
+        import torch
+
+        from ray_tpu_torch.collective import collective as col
+
+        col.init_collective_group(2, rank, backend="kv", group_name="smoke")
+        x = torch.from_numpy(xs[rank])
+        out = {"sum": col.allreduce(x, "smoke").numpy(),
+               "int8": col.allreduce(x, "smoke",
+                                     compression="int8").numpy(),
+               "bcast": col.broadcast(x if rank == 0 else None, 0,
+                                      "smoke").numpy()}
+        col.destroy_collective_group("smoke", timeout=60)
+        return out
+
+
+def _runtime_procs():
+    """pid -> command line of every live process of the port's runtime."""
+    out = {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+            with open(f"/proc/{d}/stat") as f:
+                state = f.read().rsplit(")", 1)[1].split()[0]
+        except OSError:
+            continue
+        if "ray_tpu_torch._private" in cmd and state != "Z":
+            out[int(d)] = cmd
+    return out
+
+
+def _holds_card(pid):
+    """True when ``pid`` has a card's device node open (/dev/nvidia<N>)."""
+    import re
+
+    try:
+        fds = os.listdir(f"/proc/{pid}/fd")
+    except OSError:
+        return False
+    for fd in fds:
+        try:
+            target = os.readlink(f"/proc/{pid}/fd/{fd}")
+        except OSError:
+            continue
+        if re.fullmatch(r"/dev/nvidia\d+", target):
+            return True
+    return False
+
+
+def _gpu_used_mib():
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=memory.used",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    return float(smi.stdout.split()[0]) if smi.returncode == 0 else None
+
+
+def _wait_for(cond, timeout, what):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        check(time.monotonic() < deadline, what)
+        time.sleep(0.1)
+
+
+def phase_runtime():
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import accelerators, native_store
+    from ray_tpu_torch.collective import compression as comp
+    from ray_tpu_torch.models import gpt
+
+    t_phase = time.perf_counter()
+    rec = {}
+    cfg = gpt.GPTConfig.gpt2_small()
+    # the driver's own run of what the actor will run, in this process
+    params = gpt.init(cfg, seed=SEED)
+    local_fwd = _runtime_forward(params, cfg)
+    local_train = _runtime_train(cfg, RUNTIME_TRAIN_STEPS)
+    check(local_fwd["launches"]["flash_fwd"] == cfg.n_layers,
+          f"in-process forward launched {local_fwd['launches']}")
+
+    # 1. start and detect: no num_gpus; the raylet counts the cards.  No
+    # warm pool (worker_prestart 0), so the spawn probes below time a
+    # fresh CPU worker as well as a fresh GPU one
+    before = set(_runtime_procs())
+    t0 = time.perf_counter()
+    info = rt.init(num_cpus=4, _system_config={"worker_prestart": 0})
+    rec["init_s"] = time.perf_counter() - t0
+    try:
+        res = rt.cluster_resources()
+        rec["cluster_resources"] = res
+        # the card nodes this host shows, and those the raylet counts
+        rec["device_nodes"] = accelerators.gpu_device_paths()
+        rec["counted_cards"] = accelerators.card_nodes(
+            [p for p in rec["device_nodes"] if accelerators._openable(p)])
+        check(res.get("GPU") == torch.cuda.device_count(),
+              f"cluster offers GPU {res.get('GPU')}, torch sees "
+              f"{torch.cuda.device_count()} cards")
+        store = type(rt._require().store).__name__
+        rec["store"] = store
+        rec["native_store"] = isinstance(rt._require().store,
+                                         native_store.NativeShmObjectStore)
+        log(f"[runtime] init {rec['init_s']:.2f} s at "
+            f"{info['control_address']}: resources {res}; object store "
+            f"{store}")
+
+        # spawn to first task: a fresh CPU worker, then a fresh GPU worker
+        # (which imports torch to check it sees a card before it runs)
+        probe = rt.remote(_SpawnProbe)
+        spawn = {}
+        for kind, opts in (("cpu", {}), ("gpu", {"num_gpus": 1})):
+            t0 = time.perf_counter()
+            a = probe.options(**opts).remote()
+            r = rt.get(a.ready.remote(), timeout=300)
+            spawn[kind] = {"driver_s": time.perf_counter() - t0,
+                           "worker_age_s": r["age_s"],
+                           "cuda_visible": r["cuda_visible"],
+                           "cuda": r.get("cuda")}
+            rt.kill(a)
+        check(spawn["cpu"]["cuda_visible"] == "",
+              f"a CPU worker sees cards: {spawn['cpu']}")
+        check(spawn["gpu"]["cuda"] is True,
+              f"a GPU worker sees no card: {spawn['gpu']}")
+        rec["spawn_to_first_task"] = spawn
+        log(f"[runtime] spawn to first task: CPU worker "
+            f"{spawn['cpu']['driver_s']:.2f} s (process age at the call "
+            f"{spawn['cpu']['worker_age_s']:.2f} s), GPU worker "
+            f"{spawn['gpu']['driver_s']:.2f} s (age "
+            f"{spawn['gpu']['worker_age_s']:.2f} s, torch imported)")
+
+        # 2. the GPU actor's forward, against the driver's
+        gpt_actor = rt.remote(num_gpus=1)(_GPTActor)
+        t0 = time.perf_counter()
+        actor = gpt_actor.remote()
+        ainfo = rt.get(actor.ready.remote(), timeout=300)
+        rec["actor_create_s"] = time.perf_counter() - t0
+        check(ainfo["pid"] != os.getpid() and ainfo["cuda_visible"] != "",
+              f"GPU actor {ainfo}")
+        fwd = rt.get(actor.forward.remote(), timeout=300)
+        check(fwd["launches"]["flash_fwd"] == cfg.n_layers,
+              f"the actor's forward launched {fwd['launches']}, expected "
+              f"flash_fwd {cfg.n_layers}: the kernel did not run in the "
+              f"worker")
+        check(fwd["finite"] and fwd["shape"] == local_fwd["shape"],
+              f"actor logits {fwd['shape']} finite {fwd['finite']}")
+        check(fwd["last"].is_cuda, "the actor's logits did not land on "
+              "the driver's card")
+        fwd_diff = (fwd["last"].float() - local_fwd["last"].float()).abs()
+        check(fwd["bits_sum"] == local_fwd["bits_sum"]
+              and torch.equal(fwd["last"], local_fwd["last"]),
+              f"actor vs in-process logits not bitwise: bit sums "
+              f"{fwd['bits_sum']} vs {local_fwd['bits_sum']}, last "
+              f"position max {fwd_diff.max().item()}")
+        rec["forward"] = {
+            "actor_launches": fwd["launches"], "bitwise": True,
+            "sum": [fwd["sum"], local_fwd["sum"]],
+            "actor_ms": fwd["ms"], "actor_tokens_per_s": fwd["tokens_per_s"],
+            "actor_device_ms": fwd["device_ms"],
+            "driver_ms": local_fwd["ms"],
+            "driver_tokens_per_s": local_fwd["tokens_per_s"],
+            "driver_device_ms": local_fwd["device_ms"]}
+        log(f"[runtime] GPU actor (pid {ainfo['pid']}, up in "
+            f"{rec['actor_create_s']:.2f} s): forward [8,1024] flash_fwd "
+            f"launches {fwd['launches']['flash_fwd']}; logits == "
+            f"in-process bitwise; {fwd['ms']:.2f} ms = "
+            f"{fwd['tokens_per_s']:.0f} tokens/s in the actor (device "
+            f"busy {fwd['device_ms']:.2f} ms), {local_fwd['ms']:.2f} ms = "
+            f"{local_fwd['tokens_per_s']:.0f} in-process (device busy "
+            f"{local_fwd['device_ms']:.2f} ms)")
+
+        # 3. the GPU actor's training, against the driver's
+        train = rt.get(actor.train.remote(RUNTIME_TRAIN_STEPS), timeout=600)
+        want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dkv": cfg.n_layers,
+                "flash_bwd_dq": cfg.n_layers}
+        for i, launches in enumerate(train["launches"]):
+            got = {k: launches[k] for k in want}
+            check(got == want, f"actor train step {i} launched {got}, "
+                  f"expected {want}")
+        check(all(math.isfinite(x) for x in train["losses"])
+              and train["losses"] == local_train["losses"],
+              f"actor losses {train['losses']} vs in-process "
+              f"{local_train['losses']}: not bitwise")
+        rec["train"] = {"actor_losses": train["losses"],
+                        "driver_losses": local_train["losses"],
+                        "bitwise": True,
+                        "launches_per_step": train["launches"][-1]}
+        log(f"[runtime] actor training {RUNTIME_TRAIN_STEPS} steps "
+            f"[16,513]: losses {train['losses']} (bitwise the in-process "
+            f"run's); launches per step "
+            f"{ {k: train['launches'][-1][k] for k in want} }")
+
+        # 4. the object plane: the CUDA parameter dict both ways
+        nbytes = _tree_nbytes(params)
+        check(nbytes == gpt.num_params(cfg) * 4,
+              f"param dict {nbytes} bytes")
+        pref = rt.put(params)
+        entry = rt._require().objects[pref.id]
+        check(entry.has_value and entry.shm_node is None,
+              "put staged the CUDA dict at once; it should stay on the "
+              "device until a borrower fetches it")
+        got = rt.get(actor.fetch_forward.remote([pref]), timeout=300)
+        check(got["devices"] == ["cuda"] and got["same_as_own"],
+              f"the actor's copy of the dict: {got['devices']}, equal to "
+              f"its seeded params {got['same_as_own']}")
+        check(got["bits_sum"] == fwd["bits_sum"],
+              "forward on the received dict differs from the actor's own")
+        check(entry.shm_node is not None, "the owner never staged the dict")
+        cpu = rt.get(rt.remote(_cpu_fetch).remote([pref]), timeout=300)
+        check(cpu["devices"] == ["cpu"] and not cpu["cuda_available"]
+              and cpu["cuda_visible"] == "",
+              f"a CPU-only task got {cpu}")
+        check(abs(cpu["embed_sum"] - params["embed"].double().sum().item())
+              <= 1e-6, "the CPU task's embed differs")
+        refs = rt.get(actor.give_params.remote(), timeout=300)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        back = rt.get(refs[0], timeout=300)
+        torch.cuda.synchronize()
+        back_s = time.perf_counter() - t0
+        check(_tensor_devices(back) == {"cuda"} and _trees_equal(back,
+                                                                 params),
+              "the actor's dict did not come back equal, on the card")
+        del back, refs
+        # the owner's share of a fetch: staging the dict to host arrays
+        # (D2H into pageable memory; pickle's buffers are zero-copy)
+        from ray_tpu_torch._private import serialization
+
+        t0 = time.perf_counter()
+        meta, bufs = serialization.dumps_oob(params)
+        stage_s = time.perf_counter() - t0
+        del meta, bufs
+        gb = nbytes / 1e9
+        rec["object_plane"] = {
+            "bytes": nbytes, "values": nbytes // 4,
+            "driver_to_gpu_actor_s": got["get_s"],
+            "driver_to_gpu_actor_gb_per_s": gb / got["get_s"],
+            "driver_to_cpu_task_s": cpu["get_s"],
+            "driver_to_cpu_task_gb_per_s": gb / cpu["get_s"],
+            "gpu_actor_to_driver_s": back_s,
+            "gpu_actor_to_driver_gb_per_s": gb / back_s,
+            "d2h_stage_s": stage_s}
+        op = rec["object_plane"]
+        log(f"[runtime] object plane, {nbytes / 1e6:.1f} MB CUDA param "
+            f"dict: driver -> GPU actor {got['get_s']:.3f} s = "
+            f"{op['driver_to_gpu_actor_gb_per_s']:.3f} GB/s (staged once "
+            f"by the owner); -> CPU task {cpu['get_s']:.3f} s = "
+            f"{op['driver_to_cpu_task_gb_per_s']:.3f} GB/s (CPU tensors, no "
+            f"card); GPU actor -> driver {back_s:.3f} s = "
+            f"{op['gpu_actor_to_driver_gb_per_s']:.3f} GB/s (CUDA tensors); "
+            f"the D2H staging alone {stage_s:.3f} s")
+
+        # 5. scheduling: a second GPU request waits for the actor's card
+        pend = rt.remote(num_gpus=1)(_gpu_task).remote()
+        ready, _ = rt.wait([pend], num_returns=1, timeout=3.0)
+        check(not ready, "a second num_gpus=1 task ran while the actor "
+              "held the one card")
+        apid = ainfo["pid"]
+        check(_holds_card(apid) or not os.path.isdir(f"/proc/{apid}"),
+              "the GPU actor's process does not hold the card")
+        used_with_actor = _gpu_used_mib()
+        rt.kill(actor)
+        _wait_for(lambda: not _holds_card(apid)
+                  and apid not in _runtime_procs(), 60,
+                  f"the killed actor's process {apid} still holds the card")
+        gt = rt.get(pend, timeout=300)
+        check(gt["cuda"] and gt["pid"] != apid,
+              f"the pending GPU task after kill: {gt}")
+        rec["scheduling"] = {"pending_while_held": True,
+                             "ran_after_kill_in_pid": gt["pid"],
+                             "gpu_used_mib_with_actor": used_with_actor,
+                             "gpu_used_mib_after_kill": _gpu_used_mib()}
+        log(f"[runtime] a second num_gpus=1 task waited while the actor "
+            f"held the card and ran after kill (pid {gt['pid']}); the "
+            f"actor's process {apid} let go of the card")
+
+        # tasks/s and round trip of a trivial task (bench.py's bench_tasks)
+        noop = rt.remote(_noop)
+        for _ in range(3):
+            rt.get([noop.remote() for _ in range(200)], timeout=300)
+        t0 = time.perf_counter()
+        rt.get([noop.remote() for _ in range(RUNTIME_TASKS)], timeout=300)
+        tasks_per_s = RUNTIME_TASKS / (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        for _ in range(RUNTIME_RTT_CALLS):
+            rt.get(noop.remote(), timeout=60)
+        rtt_us = (time.perf_counter() - t0) / RUNTIME_RTT_CALLS * 1e6
+        rec["tasks"] = {"tasks_per_s": tasks_per_s, "round_trip_us": rtt_us,
+                        "n": RUNTIME_TASKS}
+        log(f"[runtime] trivial tasks: {tasks_per_s:.0f} tasks/s over "
+            f"{RUNTIME_TASKS}; round trip {rtt_us:.0f} us")
+
+        # 6. the kv collective between two CPU actors
+        rng = np.random.default_rng(SEED)
+        xs = [rng.standard_normal(65_536).astype(np.float32)
+              for _ in range(2)]
+        member = rt.remote(_KVMember)
+        ms = [member.remote() for _ in range(2)]
+        outs = rt.get([m.run.remote(r, xs) for r, m in enumerate(ms)],
+                      timeout=300)
+        cc = comp.parse_compression("int8")
+        q = (comp.decompress_array(comp.compress_array(xs[0], cc))
+             .astype(np.float32)
+             + comp.decompress_array(comp.compress_array(xs[1], cc))
+             .astype(np.float32))
+        q = comp.decompress_array(comp.compress_array(
+            q, dataclasses.replace(cc, block_size=comp.result_block_size(
+                cc.block_size))))
+        for o in outs:
+            check(np.array_equal(o["sum"], xs[0] + xs[1]),
+                  "kv allreduce != the plain sum")
+            check(np.array_equal(o["int8"], q),
+                  "kv int8 allreduce != the codec's")
+            check(np.array_equal(o["bcast"], xs[0]), "kv broadcast")
+        left = rt._require().control.call(
+            "kv_keys", {"ns": "collective", "prefix": "smoke/"})
+        check(not left, f"destroy_collective_group left keys {left}")
+        for m in ms:
+            rt.kill(m)
+        rec["kv"] = {"n": 65_536, "sum": "== plain", "int8": "== codec",
+                     "broadcast": "== root", "keys_left": 0}
+        log("[runtime] kv collective between two CPU actors: allreduce "
+            "== plain sum, int8 == the codec's, broadcast == root's; "
+            "destroy(timeout=60) left no keys")
+    finally:
+        rt.shutdown()
+    mine = lambda: {p: c for p, c in _runtime_procs().items()  # noqa: E731
+                    if p not in before}
+    _wait_for(lambda: not mine(), 60,
+              f"runtime processes outlived shutdown: {mine()}")
+    check(not any(_holds_card(p) for p in _runtime_procs()
+                  if p not in before),
+          "a runtime process holds the card after shutdown")
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"[runtime] shutdown left no runtime process; phase "
+        f"{rec['seconds']:.1f} s")
+    del params
+    torch.cuda.empty_cache()
+    return rec
+
+
 def _kernel_entry(k, case, launches_by_path, **extra):
     entry = {"name": k.name, "route": "cuda",
              "source": f"ray_tpu_torch/csrc/{k.source}",
@@ -2423,7 +2999,7 @@ def _kernel_entry(k, case, launches_by_path, **extra):
 
 
 PHASES = ("kernels", "forward", "serve", "parity", "train",
-          "kernels-quantize", "kernels-fused", "dp-train")
+          "kernels-quantize", "kernels-fused", "dp-train", "runtime")
 
 
 def main(argv=None):
@@ -2477,6 +3053,11 @@ def main(argv=None):
         report["kernels_fused"] = phase_kernels_fused()
     if "dp-train" in phases:
         report["dp_train"], report["gpt_sync"] = phase_dp_train()
+    if "runtime" in phases:
+        # last: its worker processes come and go on the card, and no
+        # kernel timing follows them
+        torch.cuda.empty_cache()
+        report["runtime"] = phase_runtime()
 
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps(report, indent=1))
@@ -2497,7 +3078,12 @@ def main(argv=None):
                 "train_step": train_launches[name],
                 "dp_train_step": dp_launches[name],
                 "dp_train_step_fused_hop": dp_fused_launches[name],
-                "gpt_sync_fused": gs_fused_launches[name]}
+                "gpt_sync_fused": gs_fused_launches[name],
+                # K1-K3 inside a GPU worker of the port's runtime
+                "runtime_actor_forward":
+                    report["runtime"]["forward"]["actor_launches"][name],
+                "runtime_actor_train_step":
+                    report["runtime"]["train"]["launches_per_step"][name]}
 
     k1 = report["kernels"][0]
     bwd = report["kernels_bwd"][0]

@@ -15,20 +15,27 @@ Backends:
     ``collective/nccl_group.py``'s.
   * "gloo" — CPU tensors over the same code path (the CPU tests run the
     quantized collectives this way).
-  * "kv" — the reference's control-plane mailbox backend.  It needs the
-    task/actor runtime's KV store, which is not ported yet (ROADMAP A.4):
-    asking for it raises.
+  * "kv" — the reference's control-plane mailbox backend (the Gloo
+    analog for small control-plane syncs, not bandwidth): CPU tensors
+    move through the port's runtime's control-plane KV with the
+    reference's epoch-numbered protocol — every op bumps the member's op
+    counter, keys are f"{group}/{op_idx}/{op}/{rank}", rank 0 reduces and
+    republishes.  Members are tasks or actors of ``ray_tpu_torch``'s
+    runtime (or its driver).  The int8-compressed allreduce runs the
+    numpy codec of ``collective/compression.py``, bitwise the reference's.
 
-Rendezvous is a ``torch.distributed`` store, not the control-plane KV:
-``init_method`` is "file:///shared/path" or "tcp://localhost:PORT" (any
-free port), as ``torch.distributed.init_process_group`` takes it.  A
-group of one member needs none: it gets a FileStore in a fresh temporary
-directory, removed when the group is destroyed.
+Rendezvous of "nccl"/"gloo" is a ``torch.distributed`` store, not the
+control-plane KV: ``init_method`` is "file:///shared/path" or
+"tcp://localhost:PORT" (any free port), as
+``torch.distributed.init_process_group`` takes it.  A group of one member
+needs none: it gets a FileStore in a fresh temporary directory, removed
+when the group is destroyed.
 
-The first group a process initializes becomes ``torch.distributed``'s
-default group; a later one over the same members is a subgroup of it.
-Tensors stay on the group's device: every call returns new tensors there
-(the reference returns numpy arrays), and the flight-recorder hooks
+The first store group a process initializes becomes
+``torch.distributed``'s default group; a later one over the same members
+is a subgroup of it.  Tensors stay on the group's device: every call
+returns new tensors there (the reference returns numpy arrays; the kv
+backend returns CPU tensors), and the flight-recorder hooks
 (``_record_op``) wait for the tracing slice (ROADMAP A.5).
 """
 
@@ -36,18 +43,26 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import pickle
 import shutil
 import tempfile
+import time
 from typing import Callable, Dict, List, Optional, Union
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
+from ray_tpu_torch._private.protocol import Backoff
 from ray_tpu_torch.collective import nccl_group, peer_memory
 from ray_tpu_torch.collective.compression import (CompressionConfig,
-                                                  resolve_compression)
+                                                  compress_array,
+                                                  decompress_array,
+                                                  resolve_compression,
+                                                  result_block_size)
+from ray_tpu_torch.util import tracing
 
-BACKENDS = ("nccl", "gloo")
+BACKENDS = ("nccl", "gloo", "kv")
 # how long a member waits for the others, at rendezvous and in each op
 # (the reference's rendezvous deadline)
 _TIMEOUT = datetime.timedelta(seconds=120)
@@ -67,15 +82,216 @@ class GroupHandle:
     world_size: int
     rank: int
     backend: str
-    pg: dist.ProcessGroup
+    pg: Optional[dist.ProcessGroup]
     device: torch.device
     owns_default: bool
     store_dir: Optional[str] = None
     op_idx: int = 0
     peers: Optional[peer_memory.PeerBuffers] = None
 
+    def _key(self, op: str, rank: int) -> str:
+        return f"{self.name}/{self.op_idx}/{op}/{rank}"
+
 
 _groups: Dict[str, GroupHandle] = {}
+
+# -- the kv backend's mailbox (reference: collective.py:68-94) -------------
+
+_NS = "collective"
+# how long a kv member waits for the others (the reference's deadline)
+_KV_TIMEOUT_S = 120.0
+
+
+def _kv():
+    from ray_tpu_torch._private.core import current_core
+
+    return current_core().control
+
+
+def _kv_put(key: str, val: bytes):
+    _kv().call("kv_put", {"ns": _NS, "key": key, "val": val})
+
+
+def _kv_get(key: str, timeout: float = _KV_TIMEOUT_S) -> bytes:
+    deadline = time.monotonic() + timeout
+    # jittered backoff: groups of pollers de-synchronize instead of
+    # hammering the control plane in lockstep
+    bo = Backoff(base=0.002, cap=0.05)
+    while True:
+        v = _kv().call("kv_get", {"ns": _NS, "key": key})
+        if v is not None:
+            return v
+        remaining = deadline - time.monotonic()
+        if remaining <= 0:
+            raise TimeoutError(f"collective rendezvous timed out on {key}")
+        bo.sleep(max_s=remaining)
+
+
+def _kv_del(key: str):
+    _kv().call("kv_del", {"ns": _NS, "key": key})
+
+
+def _kv_exists(key: str) -> bool:
+    return bool(_kv().call("kv_exists", {"ns": _NS, "key": key}))
+
+
+def _init_kv_group(world_size: int, rank: int,
+                   group_name: str) -> GroupHandle:
+    """Post this member's init marker and poll until every member's is
+    there (reference: collective.py:113)."""
+    with tracing.span("collective.init", group=group_name,
+                      world_size=world_size, rank=rank, backend="kv"):
+        g = GroupHandle(group_name, world_size, rank, "kv", None,
+                        torch.device("cpu"), False)
+        _kv_put(f"{group_name}/init/{rank}", b"1")
+        deadline = time.monotonic() + _KV_TIMEOUT_S
+        bo = Backoff(base=0.005, cap=0.1)
+        while True:
+            n = sum(1 for r in range(world_size)
+                    if _kv_exists(f"{group_name}/init/{r}"))
+            if n == world_size:
+                return g
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                raise TimeoutError(
+                    f"collective group {group_name} init: only "
+                    f"{n}/{world_size} arrived")
+            bo.sleep(max_s=remaining)
+
+
+class CollectiveTeardownTimeout(RuntimeError):
+    """destroy_collective_group(timeout=...) of a kv group expired before
+    every member posted its fin marker; the message names the absent
+    ranks."""
+
+
+def _destroy_kv_group(g: GroupHandle, timeout: Optional[float]) -> None:
+    """Post this member's fin marker; the LAST member to arrive sweeps the
+    group's KV prefix (reference: collective.py:153).  An early leaver
+    returns without sweeping (it must not delete a result key a slower
+    rank is still polling); with ``timeout`` it waits that long for every
+    fin marker and raises :class:`CollectiveTeardownTimeout` naming the
+    ranks that never posted one."""
+    with tracing.span("collective.destroy", group=g.name,
+                      world_size=g.world_size, rank=g.rank):
+        _kv_put(f"{g.name}/fin/{g.rank}", b"1")
+
+        def _missing() -> List[int]:
+            return [r for r in range(g.world_size)
+                    if not _kv_exists(f"{g.name}/fin/{r}")]
+
+        missing = _missing()
+        if missing and timeout is not None:
+            deadline = time.monotonic() + timeout
+            bo = Backoff(base=0.005, cap=0.1)
+            while missing:
+                if g.rank in missing:
+                    # our own marker is gone: the last member saw every
+                    # fin marker and swept (the reference waits on here
+                    # and raises although every member arrived)
+                    return
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    raise CollectiveTeardownTimeout(
+                        f"destroy_collective_group({g.name!r}): timed out "
+                        f"after {timeout}s waiting for fin markers from "
+                        f"ranks {missing} of world {g.world_size} — those "
+                        f"members likely died mid-run or never called "
+                        f"destroy; their KV debris will be swept by the "
+                        f"next same-named group's destroy")
+                bo.sleep(max_s=remaining)
+                missing = _missing()
+        if missing:
+            return
+        try:
+            residual = _kv().call("kv_keys",
+                                  {"ns": _NS, "prefix": f"{g.name}/"}) or []
+        except Exception:
+            residual = []
+        for k in set(residual) | {f"{g.name}/init/{g.rank}"}:
+            _kv_del(k)
+
+
+def _to_numpy(x: torch.Tensor) -> np.ndarray:
+    """A kv member's payload (a CPU tensor) as the numpy array the
+    reference's protocol moves."""
+    try:
+        return x.detach().contiguous().numpy()
+    except TypeError as e:
+        raise TypeError(f"the kv backend moves numpy-typed CPU tensors; "
+                        f"{x.dtype} has no numpy dtype") from e
+
+
+def _from_numpy(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _kv_reduce(op: str, arrays: List[np.ndarray], world: int) -> np.ndarray:
+    acc = arrays[0].copy()
+    for other in arrays[1:]:
+        if op in ("sum", "mean"):
+            acc = acc + other
+        elif op == "max":
+            acc = np.maximum(acc, other)
+        else:
+            acc = np.minimum(acc, other)
+    if op == "mean":
+        acc = acc / world
+    return acc
+
+
+def _rng_for(g: GroupHandle, cc: CompressionConfig, rank: int):
+    if not cc.stochastic:
+        return None
+    return np.random.default_rng((g.op_idx * (g.world_size + 1)) + rank + 1)
+
+
+def _kv_issue(g: GroupHandle, x: np.ndarray, op: str,
+              cc: Optional[CompressionConfig]) -> Callable[[], torch.Tensor]:
+    """Publish this rank's (possibly quantized) contribution now and
+    return the reduce/fetch half (reference: collective.py:366-462).
+    Keys are pinned to the epoch captured here: an async op finishes
+    after later ops have bumped ``g.op_idx``.  Rank 0 reduces; with
+    compression it dequantizes every contribution, sums in f32 and
+    republishes a requantized result at the finer result block, so every
+    rank lands on the same quantized value."""
+    idx = g.op_idx
+    tag = "qar" if cc is not None else "ar"
+
+    def key(rank: int) -> str:
+        return f"{g.name}/{idx}/{tag}/{rank}"
+
+    if cc is not None:
+        payload = compress_array(x, cc, _rng_for(g, cc, g.rank))
+        _kv_put(key(g.rank), pickle.dumps(payload, protocol=5))
+    else:
+        _kv_put(key(g.rank), pickle.dumps(x, protocol=5))
+
+    def finish() -> torch.Tensor:
+        if g.rank != 0:
+            got = pickle.loads(_kv_get(key(-1)))
+            if cc is None:
+                return _from_numpy(got)
+            return _from_numpy(decompress_array(got).astype(x.dtype))
+        if cc is None:
+            parts = [x] + [pickle.loads(_kv_get(key(r)))
+                           for r in range(1, g.world_size)]
+            acc = _kv_reduce(op, parts, g.world_size)
+            _kv_put(key(-1), pickle.dumps(acc, protocol=5))
+            return _from_numpy(acc)
+        acc = np.zeros(x.shape, np.float32)
+        for r in range(g.world_size):
+            acc += decompress_array(
+                pickle.loads(_kv_get(key(r)))).astype(np.float32)
+        if op == "mean":
+            acc /= g.world_size
+        rcc = dataclasses.replace(cc, block_size=result_block_size(
+            cc.block_size))
+        result = compress_array(acc, rcc, _rng_for(g, cc, g.world_size))
+        _kv_put(key(-1), pickle.dumps(result, protocol=5))
+        return _from_numpy(decompress_array(result).astype(x.dtype))
+
+    return finish
 
 
 def init_collective_group(world_size: int, rank: int, backend: str = "nccl",
@@ -83,11 +299,6 @@ def init_collective_group(world_size: int, rank: int, backend: str = "nccl",
                           init_method: Optional[str] = None) -> GroupHandle:
     """Register this process as ``rank`` of ``group_name`` and rendezvous
     with the other members (reference: collective.py:120)."""
-    if backend == "kv":
-        raise NotImplementedError(
-            "the kv backend moves tensors through the control-plane KV of "
-            "the task/actor runtime, which is not ported yet (ROADMAP A.4); "
-            "use backend='nccl' (CUDA tensors) or 'gloo' (CPU tensors)")
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r} (known: {BACKENDS})")
     if group_name in _groups:
@@ -95,6 +306,9 @@ def init_collective_group(world_size: int, rank: int, backend: str = "nccl",
                          f"initialized in this process")
     if not 0 <= rank < world_size:
         raise ValueError(f"rank {rank} outside world size {world_size}")
+    if backend == "kv":
+        _groups[group_name] = _init_kv_group(world_size, rank, group_name)
+        return _groups[group_name]
     if backend == "nccl":
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -147,22 +361,31 @@ def get_group_handle(group_name: str = "default") -> GroupHandle:
     return _groups[group_name]
 
 
-def destroy_collective_group(group_name: str = "default") -> None:
-    """Leave the group and free its communicators.  Destroying the group
-    that initialized ``torch.distributed``'s default group destroys every
-    group of this process.  (The reference's ``timeout`` waits for the KV
-    mailbox's fin markers; a store rendezvous leaves nothing to sweep.)"""
+def destroy_collective_group(group_name: str = "default",
+                             timeout: Optional[float] = None) -> None:
+    """Leave the group.  A kv group sweeps its KV mailbox when the last
+    member leaves; ``timeout`` waits that long for the others and raises
+    :class:`CollectiveTeardownTimeout` naming the absent ranks.  A store
+    group frees its communicators (a store rendezvous leaves nothing to
+    sweep, so ``timeout`` is unused there); destroying the group that
+    initialized ``torch.distributed``'s default group destroys every
+    store group of this process."""
     g = _groups.pop(group_name, None)
     if g is None:
         return
-    doomed = list(_groups.values()) + [g] if g.owns_default else [g]
+    if g.backend == "kv":
+        _destroy_kv_group(g, timeout)
+        return
+    doomed = ([h for h in _groups.values() if h.backend != "kv"] + [g]
+              if g.owns_default else [g])
     for h in doomed:
         if h.peers is not None:
             peer_memory.unregister(h.pg)
             h.peers.close()
             h.peers = None
     if g.owns_default:
-        _groups.clear()
+        for h in doomed:
+            _groups.pop(h.name, None)
         dist.destroy_process_group()
     else:
         dist.destroy_process_group(g.pg)
@@ -185,6 +408,11 @@ def barrier(group_name: str = "default") -> None:
     """All members rendezvous (reference: collective.py:298)."""
     g = get_group_handle(group_name)
     g.op_idx += 1
+    if g.backend == "kv":
+        _kv_put(g._key("bar", g.rank), b"1")
+        for r in range(g.world_size):
+            _kv_get(g._key("bar", r))
+        return
     kw = {"device_ids": [g.device.index]} if g.backend == "nccl" else {}
     dist.barrier(group=g.pg, **kw)
 
@@ -259,6 +487,11 @@ def allreduce_async(tensor, group_name: str = "default", op: str = "sum",
     issued with ``async_op`` and awaited at ``result()``."""
     g = get_group_handle(group_name)
     g.op_idx += 1
+    if g.backend == "kv":
+        _check_op(op)
+        x = _on_group(g, tensor)
+        cc = _resolve_op_compression(x, op, compression)
+        return AllreduceHandle(_kv_issue(g, _to_numpy(x), op, cc))
     x = _on_group(g, tensor)
     _check_op(op)
     cc = _resolve_op_compression(x, op, compression)
@@ -278,6 +511,20 @@ def allgather(tensor, group_name: str = "default",
     travels as int8 blocks + scales (lossy)."""
     g = get_group_handle(group_name)
     g.op_idx += 1
+    if g.backend == "kv":
+        t = _on_group(g, tensor)
+        cc = (_resolve_op_compression(t, "sum", compression)
+              if compression is not None else None)
+        x = _to_numpy(t)
+        if cc is not None:
+            payload = compress_array(x, cc, _rng_for(g, cc, g.rank))
+            _kv_put(g._key("qag", g.rank), pickle.dumps(payload, protocol=5))
+            return [_from_numpy(decompress_array(pickle.loads(
+                _kv_get(g._key("qag", r)))).astype(x.dtype))
+                for r in range(g.world_size)]
+        _kv_put(g._key("ag", g.rank), pickle.dumps(x, protocol=5))
+        return [_from_numpy(pickle.loads(_kv_get(g._key("ag", r))))
+                for r in range(g.world_size)]
     x = _on_group(g, tensor)
     cc = (_resolve_op_compression(x, "sum", compression)
           if compression is not None else None)
@@ -302,9 +549,16 @@ def broadcast(tensor, src_rank: int = 0,
               group_name: str = "default") -> torch.Tensor:
     """Root's tensor to everyone (reference: collective.py:373).  Every
     rank passes a tensor of root's shape and dtype (non-root values are
-    ignored but size the receive), as the reference's xla backend asks."""
+    ignored but size the receive), as the reference's xla backend asks;
+    the kv backend reads only root's, so other ranks may pass None."""
     g = get_group_handle(group_name)
     g.op_idx += 1
+    if g.backend == "kv":
+        if g.rank == src_rank:
+            x = _to_numpy(_on_group(g, tensor))
+            _kv_put(g._key("bc", src_rank), pickle.dumps(x, protocol=5))
+            return _from_numpy(x.copy())
+        return _from_numpy(pickle.loads(_kv_get(g._key("bc", src_rank))))
     if tensor is None:
         raise TypeError(
             "broadcast is an SPMD op: every rank must pass a tensor of "
@@ -319,6 +573,10 @@ def send(tensor, dst_rank: int, group_name: str = "default") -> None:
     and shape, then the payload, so ``recv`` needs no buffer."""
     g = get_group_handle(group_name)
     g.op_idx += 1
+    if g.backend == "kv":
+        _kv_put(g._key(f"p2p-{g.rank}-{dst_rank}", g.rank),
+                pickle.dumps(_to_numpy(_on_group(g, tensor)), protocol=5))
+        return
     x = _on_group(g, tensor).contiguous()
     if x.dtype not in _DTYPES or x.dim() > _HEADER_LEN - 2:
         raise ValueError(f"send takes {_HEADER_LEN - 2} dims at most and "
@@ -336,6 +594,9 @@ def recv(src_rank: int, group_name: str = "default") -> torch.Tensor:
     must issue matching op sequences (same as NCCL send/recv pairing)."""
     g = get_group_handle(group_name)
     g.op_idx += 1
+    if g.backend == "kv":
+        return _from_numpy(pickle.loads(
+            _kv_get(g._key(f"p2p-{src_rank}-{g.rank}", src_rank))))
     src = nccl_group._global_rank(g.pg, src_rank)
     header = torch.empty(_HEADER_LEN, dtype=torch.int64, device=g.device)
     dist.recv(header, src, group=g.pg)

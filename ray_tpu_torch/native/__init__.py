@@ -1,0 +1,10 @@
+"""Native (C++) runtime components.
+
+Built lazily with g++ on first use; cached under
+``ray_tpu_torch/_build/native/``.  The sources are copies of
+``ray_tpu/native``'s scheduler and shm arena.  Each
+component degrades gracefully to a pure-Python fallback when the toolchain
+is unavailable (CI images always have g++).
+"""
+
+from .build import build_extension, load_library  # noqa: F401

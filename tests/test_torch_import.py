@@ -1,7 +1,9 @@
 """The PyTorch port stands alone: importing it loads neither JAX nor any
-module of the JAX package, its entry points refuse to fall back to the
-CPU silently (an NCCL collective group with no card raises), and its
-sources call no library attention and no torch.compile."""
+module of the JAX package, its runtime modules load no torch either, its
+entry points refuse to fall back to the CPU silently (an NCCL collective
+group with no card raises), the kv collective backend runs on the port's
+own runtime, and its sources call no library attention and no
+torch.compile."""
 
 import os
 import re
@@ -32,6 +34,7 @@ import ray_tpu_torch.collective.nccl_group
 import ray_tpu_torch.collective.peer_memory
 import ray_tpu_torch.parallel as parallel
 import ray_tpu_torch.parallel.sharding
+import torch
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "ray_tpu" or m.startswith("ray_tpu."))
@@ -53,12 +56,36 @@ for call in (lambda: gpt.apply(params, [[1, 2, 3]], cfg),
         raise AssertionError("ran without a device and without CUDA")
 import torch.distributed as dist
 assert not dist.is_initialized()
+ray_tpu_torch.init(num_cpus=1)
 try:
-    collective.init_collective_group(1, 0, backend="kv")
-except NotImplementedError as e:
-    assert "A.4" in str(e), e
-else:
-    raise AssertionError("the kv backend ran")
+    collective.init_collective_group(1, 0, backend="kv", group_name="p")
+    x = torch.arange(6, dtype=torch.float32)
+    assert torch.equal(collective.allreduce(x, "p"), x)
+    collective.destroy_collective_group("p", timeout=30)
+finally:
+    ray_tpu_torch.shutdown()
+assert not dist.is_initialized()
+print("ok")
+"""
+
+_RUNTIME_PROBE = r"""
+import sys
+import ray_tpu_torch
+import ray_tpu_torch._private.accelerators
+import ray_tpu_torch._private.api
+import ray_tpu_torch._private.bootstrap
+import ray_tpu_torch._private.control
+import ray_tpu_torch._private.core
+import ray_tpu_torch._private.node
+import ray_tpu_torch._private.serialization
+import ray_tpu_torch._private.worker_proc
+import ray_tpu_torch.native.sched
+import ray_tpu_torch.util.tracing
+import ray_tpu_torch.dag
+import ray_tpu_torch.elastic.preemption
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "ray_tpu", "torch"))
+assert not bad, bad
 print("ok")
 """
 
@@ -68,6 +95,15 @@ def test_import_loads_no_jax_and_no_cpu_fallback():
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
                PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=str(REPO),
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_runtime_modules_load_no_torch_and_no_jax():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", _RUNTIME_PROBE], cwd="/",
                          env=env, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr

@@ -32,16 +32,27 @@ Phases, each of which must pass (any failure exits non-zero):
   5. serve    — the paged continuous-batching engine answers 12 greedy
                 requests (prompts 8-200 tokens, shared prefixes so prefix
                 sharing and copy-on-write run): tokens/s, TTFT, stats.
-  6. parity   — f32 at the same width: engine greedy == generate greedy
+  6. serve-bench — bench.py's bench_serve and bench_serve_chaos in
+                process at GPT-2-small (bf16, max_seq 1024) on the
+                reference's Zipf trace of 48 requests (prompts 4-24,
+                generations 4-40, token ids below 200): static
+                micro-batching (serve.batch over generate_batch, one warm
+                pass) against the paged continuous engine: tokens/s, wall,
+                TTFT p50/p99, latency p99, the ratio; then three paged
+                engines, one stopped after 1 s and its stranded requests
+                replayed on a survivor: availability (>= 0.99) and TTFT
+                p99 under the kill.  No kernel launches on this path.
+                Rows in chip_smoke_out/serve_bench.json.
+  7. parity   — f32 at the same width: engine greedy == generate greedy
                 == argmax of apply's logits (through the kernel), and the
                 contiguous cache == the paged cache.
-  7. train    — GPT-2-small at full width, bf16 compute, remat "full",
+  8. train    — GPT-2-small at full width, bf16 compute, remat "full",
                 dense loss, AdamW: 1 warm-up and 10 timed steps of
                 make_train_step on tokens [16, 513]; losses finite and
                 falling, K1/K2/K3 launched 24/12/12 times per step; in f32
                 on [4, 513] the grads through the kernels == the grads
                 through the plain versions, and loss_chunk=128 == dense.
-  8. kernels-quantize — K4 (quantize, both scale rules, deterministic and
+  9. kernels-quantize — K4 (quantize, both scale rules, deterministic and
                 stochastic), K5 (dequantize) and K6 (dequantize-accumulate,
                 world 1/2/4/8) against their plain versions, bitwise, on a
                 1,048,576-element bucket, its requantize block, the whole
@@ -55,10 +66,11 @@ Phases, each of which must pass (any failure exits non-zero):
                 38.6M error-feedback bucket; K4 on the [4, m] column slice
                 phase 1 reads at world 4), held against
                 ``sharding.sync_plan``, with the L2 flushed before every
-                timed launch, each launch in its vector body; a reading
-                faster than the bytes bound fails.  The wrappers' host us
-                per call.
-  9. kernels-fused — K7 (the fused int8 reduce-scatter over CUDA peer
+                timed launch, each launch in its vector body, read as the
+                mean over the launch records torch.profiler kept; a
+                reading faster than the bytes bound fails.  The wrappers'
+                host us per call.
+ 10. kernels-fused — K7 (the fused int8 reduce-scatter over CUDA peer
                 memory) against its plain version and the staged K4 -> K6
                 hop, bitwise, sum and mean: a real one-rank NCCL group
                 (a 4 MiB bucket, the dp path's and gpt-sync's chunks, a
@@ -69,9 +81,9 @@ Phases, each of which must pass (any failure exits non-zero):
                 step's largest chunk with the L2 flushed before every
                 timed launch (the one-rank group, and loopback at world
                 4).
- 10. dp-train — data-parallel training over an NCCL group of one rank per
+ 11. dp-train — data-parallel training over an NCCL group of one rank per
                 card (world 1 runs in-process): the train recipe of phase
-                7 with the grads synced by GradientSynchronizer("int8",
+                8 with the grads synced by GradientSynchronizer("int8",
                 error feedback on) between backward and AdamW; K4/K5/K6/K7
                 launches per step equal to the bucket layout's count under
                 the reference's fused-hop rule, every K4/K5/K6 launch in
@@ -84,11 +96,11 @@ Phases, each of which must pass (any failure exits non-zero):
                 through the plain versions == with the fused hop ==
                 with RAY_TPU_FUSED_RS=0; int8 vs fp32 sync error below
                 1e-2.
- 11. gpt-sync — mesh_allreduce(op="mean") of the flattened GPT-2-small
+ 12. gpt-sync — mesh_allreduce(op="mean") of the flattened GPT-2-small
                 gradient, fp32 against int8 (auto chunks) against int8
                 with impl="fused": times, error, chunked == chunks=1 and
                 fused == staged bitwise, K7's device ms.
- 12. runtime  — the port's task/actor runtime (runs last):
+ 13. runtime  — the port's task/actor runtime (runs next to last):
                 ray_tpu_torch.init(num_cpus=4) offers as many GPUs as torch
                 sees; spawn to first task of a fresh CPU and GPU worker; a
                 num_gpus=1 actor runs GPT-2-small (seed 0) on its card:
@@ -106,9 +118,28 @@ Phases, each of which must pass (any failure exits non-zero):
                 (== plain sum, int8 == the codec, broadcast, no keys
                 left); no runtime process outlives shutdown or holds the
                 card.
+ 14. serve-app — Serve on the port's runtime (runs last):
+                build_llm_app("gpt2_small") on a GPU replica
+                (ray_actor_options={"num_gpus": 1}; paged, bf16, seed 0),
+                the controller, proxies and stream ingress on CPU workers;
+                phase serve's 12 prompts concurrently through the handle
+                == the in-process engine's completions, bitwise; a stream
+                through the handle and a request through the RPC ingress
+                (HTTP and its -stream route where aiohttp imports) ==
+                batched; a 1000-position prompt, whose prefill outlasts
+                the replica's stall window (serve_engine_stall_s 4 s
+                here), == the in-process engine with no replica
+                restarted; two f32 replicas at num_gpus=0.5 on the one
+                card, a sampled stream whose replica is killed after 3
+                tokens == the uninterrupted run; serve.shutdown() leaves
+                no worker holding the card within 30 s.  Times: serve.run
+                to RUNNING, handle latency and tokens/s against the
+                in-process engine, the RPC round trip, the resume's extra
+                latency, each beside the card's name and power limit.
 
     python3 chip_smoke.py --phases dp-train
     python3 chip_smoke.py --phases runtime
+    python3 chip_smoke.py --phases serve-bench,serve-app
 
 runs the device and build phases and the named ones only (a development
 aid; with no arguments every phase runs).
@@ -219,17 +250,23 @@ def phase_device():
           "ray_tpu_torch/ not found beside chip_smoke.py")
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 matmuls
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    smi = _smi_line()
     name = torch.cuda.get_device_name(0)
     log(f"[device] {name}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}")
-    log(f"[device] nvidia-smi: {smi.stdout.strip()}")
-    return {"name": name, "nvidia_smi": smi.stdout.strip(),
+    log(f"[device] nvidia-smi: {smi}")
+    return {"name": name, "nvidia_smi": smi,
             "count": torch.cuda.device_count()}
+
+
+def _smi_line():
+    """Each card's name and power limit, as nvidia-smi gives them (one
+    line per card): every serving number is printed beside them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    return smi.stdout.strip()
 
 
 def _ptxas_summary(kernel):
@@ -785,9 +822,14 @@ def phase_serve(params, cfg):
     eng = ContinuousEngine(gpt, cfg, params, cache="paged", max_slots=8,
                            page_size=16)
     try:
+        done_at = {}
         t0 = time.perf_counter()
-        seqs = [eng.submit(p, max_new_tokens=n)
-                for p, n in zip(prompts, max_new)]
+        seqs = []
+        for i, (p, n) in enumerate(zip(prompts, max_new)):
+            s = eng.submit(p, max_new_tokens=n)
+            s.result.add_done_callback(
+                lambda f, i=i: done_at.__setitem__(i, time.perf_counter()))
+            seqs.append(s)
         results = [eng.collect(s, timeout=600) for s in seqs]
         wall = time.perf_counter() - t0
         stats = eng.engine_stats()
@@ -821,6 +863,9 @@ def phase_serve(params, cfg):
            "ttft_p50_s": stats["ttft_p50_s"],
            "ttft_p99_s": stats["ttft_p99_s"],
            "flash_launches": launches["flash_fwd"],
+           # what phase serve-app holds its replica against
+           "completions": [r["completion"] for r in results],
+           "latencies_s": [done_at[i] - t0 for i in range(len(prompts))],
            "stats": {k: v for k, v in stats.items()
                      if k != "active_request_ids"}}
     # a smoke reading that shows the path runs, not a serving metric: the
@@ -834,6 +879,228 @@ def phase_serve(params, cfg):
         f"{stats['prefills']} prompts, decode {decode_s:.2f} s over "
         f"{stats['steps']} steps ({rec['decode_ms_per_step']:.2f} ms/step)")
     log(f"[serve] engine_stats {json.dumps(rec['stats'])}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# serve-bench: bench.py's bench_serve (:1556) and bench_serve_chaos (:1667)
+# on the card, in process, at GPT-2-small's full width and depth (bf16
+# compute, max_seq 1024, random weights from seed 0): static micro-batching
+# (_LLMServerImpl.generate_batch behind serve.batch) against the paged
+# continuous engine on the reference's Zipf trace, then three paged engines
+# with one stopped mid-run and its stranded requests replayed on a survivor.
+
+SERVE_BENCH_REQUESTS = 48       # bench_serve's BENCH_SERVE_REQUESTS default
+SERVE_CHAOS_REQUESTS = 36       # bench_serve_chaos's BENCH_CHAOS_REQUESTS
+SERVE_CHAOS_KILL_AFTER_S = 1.0
+SERVE_MAX_SEQ = 1024            # GPT-2-small's own
+SERVE_TRACE_VOCAB = 200         # token ids below 200, as the reference's
+SERVE_MIN_AVAILABILITY = 0.99   # bench.py _serve_only_main's gate
+SERVE_SPEEDUP_TARGET = 1.5      # the reference warns below this
+
+
+def _serve_trace(n_req: int, vocab: int):
+    """bench.py's ``_serve_trace`` (:1501), copied: a deterministic
+    Zipf-shaped trace, prompt and generation lengths both heavy-tailed and
+    unquantized, like real traffic."""
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    gen_lens = [int(g) for g in 3 + np.clip(rng.zipf(1.5, n_req), 1, 37)]
+    plens = 4 + np.clip(rng.zipf(1.4, n_req), 0, 20)
+    prompts = [rng.randint(1, vocab, int(p)).tolist() for p in plens]
+    return prompts, gen_lens
+
+
+def _pct(xs, p):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(p * len(xs)))] if xs else 0.0
+
+
+def _serve_row(wall, tokens, ttfts, lats):
+    return {"tokens_per_s": tokens / wall, "wall_s": wall, "tokens": tokens,
+            "ttft_p50_s": _pct(ttfts, 0.50), "ttft_p99_s": _pct(ttfts, 0.99),
+            "latency_p99_s": _pct(lats, 0.99)}
+
+
+def _bench_static(prompts, gen_lens):
+    import asyncio
+
+    from ray_tpu_torch.serve.llm import _server_class
+
+    # the class an LLMServer replica serves, with its default batching
+    srv = _server_class()(preset="gpt2_small", max_seq=SERVE_MAX_SEQ,
+                          engine="static")
+
+    async def drive():
+        async def one(i):
+            t0 = time.perf_counter()
+            r = await srv.generate_batch(
+                {"tokens": prompts[i], "max_new_tokens": gen_lens[i]})
+            dt = time.perf_counter() - t0
+            # no streaming on the batched path: the first token exists
+            # only when the whole generation returns
+            return dt, dt, len(r["completion"]), r["batch_size"]
+
+        return await asyncio.gather(*[one(i) for i in range(len(prompts))])
+
+    asyncio.run(drive())                    # one warm pass
+    t0 = time.perf_counter()
+    res = asyncio.run(drive())
+    wall = time.perf_counter() - t0
+    row = _serve_row(wall, sum(r[2] for r in res), [r[0] for r in res],
+                     [r[1] for r in res])
+    row["max_group"] = max(r[3] for r in res)
+    return row
+
+
+def _bench_continuous(prompts, gen_lens):
+    from ray_tpu_torch.serve.llm import _LLMServerImpl
+
+    n = len(prompts)
+    srv = _LLMServerImpl(preset="gpt2_small", max_seq=SERVE_MAX_SEQ,
+                         engine="paged",
+                         engine_kwargs={"queue_cap": 4 * n,
+                                        "shed_queue_depth": 4 * n})
+    eng = srv._get_engine()
+    try:
+        eng.collect(eng.submit(prompts[0], max_new_tokens=4), timeout=600)
+        steps0 = eng.engine_stats()["steps"]
+        ring0 = len(eng.phase_ring())
+        done_at = {}
+        t0 = time.perf_counter()
+        seqs = []
+        for i in range(n):
+            s = eng.submit(prompts[i], max_new_tokens=gen_lens[i])
+            s.result.add_done_callback(
+                lambda f, i=i: done_at.__setitem__(i, time.perf_counter()))
+            seqs.append((i, time.perf_counter(), s))
+        results = [(i, t_sub, eng.collect(s, timeout=600))
+                   for i, t_sub, s in seqs]
+        wall = max(done_at.values()) - t0
+        stats = eng.engine_stats()
+        ring = eng.phase_ring()[ring0:]
+    finally:
+        eng.stop()
+    row = _serve_row(
+        wall, sum(len(r["completion"]) for _, _, r in results),
+        [r["ttft_s"] for _, _, r in results if r["ttft_s"] is not None],
+        [done_at[i] - t_sub for i, t_sub, _ in results])
+    # where the engine's time went (host clock, per iteration): prefill
+    # token by token at B = 1, decode steps over the 8 slots
+    row["prefill_s"] = sum(r["prefill_s"] for r in ring)
+    row["decode_s"] = sum(r["decode_s"] for r in ring)
+    row["steps"] = stats["steps"] - steps0
+    row["engine"] = {k: stats[k] for k in
+                     ("cache", "steps", "prefills", "shared_pages",
+                      "cow_copies", "num_pages")}
+    return row
+
+
+def _bench_chaos():
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.serve import ContinuousEngine
+
+    cfg = gpt.GPTConfig.gpt2_small()
+    params = gpt.init(cfg, seed=SEED)
+    n = SERVE_CHAOS_REQUESTS
+    engines = [ContinuousEngine(gpt, cfg, params, cache="paged", max_slots=4,
+                                page_size=8, queue_cap=4 * n,
+                                shed_queue_depth=4 * n)
+               for _ in range(3)]
+    prompts, gen_lens = _serve_trace(n, SERVE_TRACE_VOCAB)
+    try:
+        for e in engines:
+            e.collect(e.submit(prompts[0], max_new_tokens=4), timeout=600)
+        t0 = time.perf_counter()
+        inflight = []
+        for i in range(n):
+            k = i % len(engines)
+            inflight.append((i, k, time.perf_counter(),
+                             engines[k].submit(prompts[i],
+                                               max_new_tokens=gen_lens[i])))
+        time.sleep(SERVE_CHAOS_KILL_AFTER_S)
+        engines[0].stop()                    # replica death mid-decode
+        completed, replays, ttfts = 0, 0, []
+        for i, k, ts, s in inflight:
+            try:
+                r = engines[k].collect(s, timeout=600)
+                completed += 1
+                if r.get("ttft_s") is not None:
+                    ttfts.append(r["ttft_s"])
+            except Exception:
+                replays += 1
+                k2 = 1 + (i % 2)             # survivors only
+                t_re = time.perf_counter()
+                try:
+                    r = engines[k2].collect(
+                        engines[k2].submit(prompts[i],
+                                           max_new_tokens=gen_lens[i]),
+                        timeout=600)
+                    completed += 1
+                    # charged from the ORIGINAL submit: the replay's
+                    # delay shows in the number
+                    ttfts.append((t_re - ts) + (r.get("ttft_s") or 0.0))
+                except Exception:
+                    pass                     # a real drop
+        wall = time.perf_counter() - t0
+    finally:
+        for e in engines[1:]:
+            e.stop()
+    return {"replicas": 3, "killed": 1, "n_requests": n,
+            "kill_after_s": SERVE_CHAOS_KILL_AFTER_S, "replayed": replays,
+            "completed": completed, "availability": completed / n,
+            "ttft_p99_under_kill_s": _pct(ttfts, 0.99), "wall_s": wall}
+
+
+def phase_serve_bench():
+    import torch
+
+    from ray_tpu_torch.ops import _kernels
+
+    smi = _smi_line()
+    n = SERVE_BENCH_REQUESTS
+    prompts, gen_lens = _serve_trace(n, SERVE_TRACE_VOCAB)
+    _kernels.reset_launch_counts()
+    static = _bench_static(prompts, gen_lens)
+    torch.cuda.empty_cache()
+    cont = _bench_continuous(prompts, gen_lens)
+    torch.cuda.empty_cache()
+    chaos = _bench_chaos()
+    launches = _kernels.launch_counts()
+    speedup = cont["tokens_per_s"] / static["tokens_per_s"]
+    rec = {"card": smi, "arch": "gpt2_small", "dtype": "bfloat16",
+           "max_seq": SERVE_MAX_SEQ, "n_requests": n,
+           "trace": "bench.py _serve_trace: zipf(1.5) gen lengths 4..40, "
+                    "zipf(1.4) prompt lengths 4..24, token ids < 200",
+           "static": static, "continuous": cont,
+           "speedup_tokens_per_s": speedup, "chaos": chaos,
+           "launches": launches}
+    for name, row in (("static", static), ("continuous", cont)):
+        log(f"[serve-bench] {name}: {row['tokens_per_s']:.1f} tokens/s "
+            f"({row['tokens']} tokens in {row['wall_s']:.3f} s); TTFT p50 "
+            f"{row['ttft_p50_s']:.4f} s p99 {row['ttft_p99_s']:.4f} s; "
+            f"latency p99 {row['latency_p99_s']:.4f} s ({smi})")
+    log(f"[serve-bench] continuous: prefill {cont['prefill_s']:.3f} s, "
+        f"decode {cont['decode_s']:.3f} s over {cont['steps']} steps "
+        f"(host clock); static groups of at most {static['max_group']}")
+    log(f"[serve-bench] continuous/static tokens/s {speedup:.2f}x"
+        + ("" if speedup >= SERVE_SPEEDUP_TARGET else
+           f" (below the reference's {SERVE_SPEEDUP_TARGET}x target)"))
+    log(f"[serve-bench] chaos: 3 paged engines, one stopped after "
+        f"{SERVE_CHAOS_KILL_AFTER_S:g} s: {chaos['completed']}/"
+        f"{chaos['n_requests']} completed ({chaos['replayed']} replayed), "
+        f"availability {chaos['availability']:.4f}, TTFT p99 under the "
+        f"kill {chaos['ttft_p99_under_kill_s']:.4f} s ({smi})")
+    check(all(v == 0 for v in launches.values()),
+          f"serve-bench launched kernels {launches}: the serving path "
+          f"reaches none")
+    check(chaos["availability"] >= SERVE_MIN_AVAILABILITY,
+          f"availability under replica kill {chaos['availability']} < "
+          f"{SERVE_MIN_AVAILABILITY}")
+    out = ROOT / "chip_smoke_out" / "serve_bench.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(rec, indent=1))
     return rec
 
 
@@ -936,9 +1203,10 @@ _PROFILE_GROUPS = (("flash_fwd", ("flash_fwd_",)),
                    ("matmul", ("gemm", "xmma", "nvjet", "cutlass")))
 
 
-def _device_ms_by_kernel(fn, n=1):
+def _device_ms_by_kernel(fn, n=1, records=None):
     """torch.profiler over n calls of fn: device ms per call of each
-    kernel and copy, by name."""
+    kernel and copy, by name (and, into ``records``, how many records of
+    each name the profile kept)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -956,6 +1224,8 @@ def _device_ms_by_kernel(fn, n=1):
                 and not getattr(e, "is_user_annotation", False)):
             per[e.name] = (per.get(e.name, 0.0)
                            + e.time_range.elapsed_us() / 1e3 / n)
+            if records is not None:
+                records[e.name] = records.get(e.name, 0) + 1
     return per
 
 
@@ -1142,17 +1412,31 @@ def _codes_equal(what, got, want):
                (s - ps).abs().max().item())
 
 
-def _kernel_device_ms(fn, kernel, n=20):
+def _kernel_reading(fn, kernel, counter, n=20):
     """Device ms per call of fn of the kernel named ``kernel``, by
-    torch.profiler over n calls after one warm-up: the kernel's own time,
-    beside the CUDA-event time of its wrapper's calls back to back (a
-    reading, not a check)."""
+    torch.profiler over n calls after one warm-up: the mean over the
+    launch records the profile kept times the launches per call that the
+    wrapper ``counter`` counted.  torch.profiler can lose a launch's
+    record on the card (it lost 2 of 20 after a long run of serving), and
+    a sum over n calls then reads fast; a profile that kept fewer than
+    half the launches fails."""
     import re
+
+    from ray_tpu_torch.ops import _kernels
 
     fn()
     own = re.compile(rf"\b{kernel}\b")
-    return sum(ms for name, ms in _device_ms_by_kernel(fn, n).items()
-               if own.search(name))
+    before = _kernels.launch_counts()[counter]
+    kept = {}
+    per = _device_ms_by_kernel(fn, n, kept)
+    launched = _kernels.launch_counts()[counter] - before
+    records = sum(c for name, c in kept.items() if own.search(name))
+    check(0 < launched and launched / 2 <= records <= launched,
+          f"{kernel}: the profile kept {records} records of {launched} "
+          f"launches")
+    total = n * sum(ms for name, ms in per.items() if own.search(name))
+    return {"ms": total / records * launched / n, "launches": launched,
+            "records": records}
 
 
 def _k4_bytes(n, block, esize):
@@ -1258,13 +1542,16 @@ def quantize_cold_times(reps=COLD_REPS, kernels=None):
     each gradient bucket from the backward): before every launch a 128 MiB
     scratch buffer is written, outside the kernel, which leaves the inputs
     in HBM and the L2 full of dirty lines; the kernel's own device ms by
-    torch.profiler over ``reps`` launches.  A reading faster than the
+    torch.profiler over ``reps`` launches (``_kernel_reading``: the mean
+    over the records the profile kept).  A reading faster than the
     bytes bound fails (the L2 was not cold).  Uses only the wrappers'
     public calls, so a copy of this script beside an earlier tree of the
     package times that tree's kernels the same way."""
     import torch
 
     scratch = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    log(f"[kernels-quantize] cold L2: clocks (sm, mem, max sm, max mem, "
+        f"power, temp, event reasons) {_clocks()}")
     out = []
     for i, (kernel, case, n, block, world) in enumerate(_cold_cases()):
         if kernels is not None and kernel not in kernels:
@@ -1277,13 +1564,16 @@ def quantize_cold_times(reps=COLD_REPS, kernels=None):
             scratch.fill_(1.0)
             call()
 
-        dev = _kernel_device_ms(cold, fn, n=reps)
+        reading = _kernel_reading(cold, fn, kernel, n=reps)
+        dev = reading["ms"]
         bound = nbytes / HBM_BYTES_PER_S * 1e3
         check(0 < dev and bound <= dev, f"{kernel} {case} world {world}: "
               f"{dev:.4f} ms reads {bound / dev:.0%} of its bound "
               f"{bound:.4f} ms: the L2 was not cold")
         rec = {"kernel": kernel, "case": case, "n": n, "block": block,
                "world": world, "max_abs_err": err, "device_ms": dev,
+               "launches": reading["launches"],
+               "records": reading["records"],
                "ms": dev, "bound_ms": bound, "bound_by": "bytes",
                "bytes": nbytes, "share_of_bound": bound / dev,
                "events_ms": cuda_time_ms(call),
@@ -1291,12 +1581,134 @@ def quantize_cold_times(reps=COLD_REPS, kernels=None):
                                         warmup=1)}
         out.append(rec)
         log(f"[kernels-quantize] cold L2 {kernel} {case} n={n} "
-            f"block={block} world={world}: == plain; {dev:.4f} ms device, "
-            f"bound {bound:.4f} ms ({rec['share_of_bound']:.0%}); "
+            f"block={block} world={world}: == plain; {dev:.4f} ms device "
+            f"({reading['records']} of {reading['launches']} launches "
+            f"recorded), bound {bound:.4f} ms ({rec['share_of_bound']:.0%}); "
             f"{rec['events_ms']:.4f} ms by events back to back, plain "
             f"{rec['plain_ms']:.3f} ms")
         del call, same
         torch.cuda.empty_cache()
+    log(f"[kernels-quantize] cold L2 done: clocks {_clocks()}")
+    del scratch
+    torch.cuda.empty_cache()
+    return out
+
+
+def _clocks():
+    """The card's clocks, power and event reasons now, as nvidia-smi reads
+    them (its text, or the error)."""
+    import subprocess
+
+    q = ("clocks.sm,clocks.mem,clocks.max.sm,clocks.max.mem,power.draw,"
+         "temperature.gpu,clocks_event_reasons.active")
+    try:
+        return subprocess.run(
+            ["nvidia-smi", f"--query-gpu={q}", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"nvidia-smi failed: {e}"
+
+
+# the cases where the order of phases moved a cold reading (K6, K5: four
+# fifths of their bytes are the f32 output) and K4 (one fifth)
+COLD_STUDY_CASES = (("dequantize_accumulate", "chunk 3538944", 1),
+                    ("dequantize_accumulate", "chunk 4829184", 1),
+                    ("dequantize", "phase-2 chunk 4829184", 1),
+                    ("quantize", "phase-1 chunk 4829184", 1))
+COLD_SPIN_CYCLES = 2_000_000    # ~1 ms at the H100's clocks
+
+
+def cold_l2_study(reps=COLD_REPS):
+    """Why a cold-L2 reading can beat its bytes bound.  For the
+    ``COLD_STUDY_CASES``, the kernel's device time under three orders of
+    launch after the 128 MiB scratch write: "host" (the write, then the
+    launch as soon as the host issues it), "idle" (the write, the host
+    waits for the card and 1 ms more, then the launch: the card idles in
+    between) and "queued" (a spin kernel first, so the write and the
+    launch wait in the queue and run back to back).  For each: the
+    launches the wrapper counted, the records the profile kept, the mean
+    per kept record, the records' sum over ``reps`` (the reading before
+    ``_kernel_reading``), and the card's idle gap between the write's end
+    and the kernel's start.  The clocks are read before and after."""
+    import re
+    import statistics
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.ops import _kernels
+
+    scratch = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+
+    def host(call):
+        scratch.fill_(1.0)
+        call()
+
+    def idle(call):
+        scratch.fill_(1.0)
+        torch.cuda.synchronize()
+        time.sleep(1e-3)
+        call()
+
+    def queued(call):
+        torch.cuda._sleep(COLD_SPIN_CYCLES)
+        scratch.fill_(1.0)
+        call()
+
+    orders = {"host": host, "idle": idle, "queued": queued}
+    out = {"clocks_before": _clocks(), "cases": []}
+    for i, (kernel, case, n, block, world) in enumerate(_cold_cases()):
+        if (kernel, case, world) not in COLD_STUDY_CASES:
+            continue
+        call, fn, nbytes, _ = _cold_call(kernel, n, block, world,
+                                         SEED + 60 + i)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        own = re.compile(rf"\b{fn}\b")
+        rec = {"kernel": kernel, "case": case, "n": n, "bound_ms": bound}
+        for name, order in orders.items():
+            order(call)
+            torch.cuda.synchronize()
+            before = _kernels.launch_counts()[kernel]
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    order(call)
+                torch.cuda.synchronize()
+            launched = _kernels.launch_counts()[kernel] - before
+            fill_end, fills, durs, gaps = None, 0, [], []
+            for e in sorted((e for e in prof.events()
+                             if e.device_type == DeviceType.CUDA),
+                            key=lambda e: e.time_range.start):
+                if "Fill" in e.name:
+                    fill_end, fills = e.time_range.end, fills + 1
+                elif own.search(e.name):
+                    durs.append(e.time_range.elapsed_us() / 1e3)
+                    if fill_end is not None:
+                        gaps.append(e.time_range.start - fill_end)
+            check(durs, f"cold study {kernel} {case} {name}: no record")
+            ms = sum(durs) / len(durs)
+            rec[name] = {"launches": launched, "records": len(durs),
+                         "fill_records": fills, "ms": ms,
+                         "share_of_bound": bound / ms,
+                         "sum_over_reps_ms": sum(durs) / reps,
+                         "ms_min": min(durs), "ms_max": max(durs),
+                         "gap_us_median": statistics.median(gaps or [0.0]),
+                         "gap_us_max": max(gaps or [0.0]),
+                         "clocks": _clocks()}
+        out["cases"].append(rec)
+        log(f"[cold-study] {kernel} {case}: bound {bound:.4f} ms; " + "; ".join(
+            f"{o} {r['records']}/{r['launches']} records ({r['fill_records']}"
+            f" fills), {r['ms']:.4f} ms ({r['share_of_bound']:.0%}; sum over"
+            f" {reps} {r['sum_over_reps_ms']:.4f}), {r['ms_min']:.4f}-"
+            f"{r['ms_max']:.4f}, gap median {r['gap_us_median']:.1f} us max "
+            f"{r['gap_us_max']:.1f}" for o, r in
+            ((o, rec[o]) for o in orders)))
+        del call
+        torch.cuda.empty_cache()
+    out["clocks_after"] = _clocks()
+    log(f"[cold-study] clocks (sm, mem, max sm, max mem, power, temp, "
+        f"event reasons) before: {out['clocks_before']}; after: "
+        f"{out['clocks_after']}")
     del scratch
     torch.cuda.empty_cache()
     return out
@@ -1396,9 +1808,9 @@ def phase_kernels_quantize():
                     x, block, impl="plain", **kw), iters=plain_iters,
                     warmup=1)}
         k4_bound = _k4_bytes(n, block, esize) / HBM_BYTES_PER_S * 1e3
-        k4_dev = _kernel_device_ms(
+        k4_dev = _kernel_reading(
             lambda: qz.quantize_blockwise(x, block, reciprocal_scale=True),
-            "quantize_kernel")
+            "quantize_kernel", "quantize")["ms"]
         rec4 = {"case": name, "n": n, "block": block, "dtype": dname,
                 "max_abs_err": max(errs.values()), "errors": errs,
                 "ms": k4["det"]["ms"], "plain_ms": k4["det"]["plain_ms"],
@@ -1411,7 +1823,8 @@ def phase_kernels_quantize():
         k5_call = lambda: qz.dequantize_blockwise(  # noqa: E731
             q, s, (n,), torch.float32, block)
         k5_ms = cuda_time_ms(k5_call)
-        k5_dev = _kernel_device_ms(k5_call, "dequantize_kernel")
+        k5_dev = _kernel_reading(k5_call, "dequantize_kernel",
+                                 "dequantize")["ms"]
         k5_plain = cuda_time_ms(lambda: qz.dequantize_blockwise(
             q, s, (n,), torch.float32, block, impl="plain"),
             iters=plain_iters, warmup=1)
@@ -1466,7 +1879,8 @@ def phase_kernels_quantize():
         k6_call = lambda: qz.dequantize_accumulate(  # noqa: E731
             q, s, world, 256)
         ms = cuda_time_ms(k6_call)
-        dev = _kernel_device_ms(k6_call, "dequant_accum_kernel")
+        dev = _kernel_reading(k6_call, "dequant_accum_kernel",
+                              "dequantize_accumulate")["ms"]
         plain_ms = cuda_time_ms(lambda: qz.dequantize_accumulate(
             q, s, world, 256, impl="plain"), iters=5, warmup=1)
         rec6 = {"case": f"world{world}", "world": world, "n": n,
@@ -1641,13 +2055,17 @@ def fused_cold_times(reps=COLD_REPS):
             scratch.fill_(1.0)
             fused(x)
 
-        dev = _kernel_device_ms(cold, "fused_rs_kernel", n=reps)
+        reading = _kernel_reading(cold, "fused_rs_kernel",
+                                  "fused_reduce_scatter", n=reps)
+        dev = reading["ms"]
         ranks = lead[0] if len(lead) == 2 else 1
         nbytes = ranks * _k7_bytes(world, sub)
         bound = nbytes / HBM_BYTES_PER_S * 1e3
         rec = {"kernel": "fused_reduce_scatter", "case": label,
                "world": world, "sub": sub, "block": FUSED_BLOCK,
                "ranks_per_launch": ranks, "max_abs_err": 0.0,
+               "launches": reading["launches"],
+               "records": reading["records"],
                "device_ms": dev, "ms": dev, "bound_ms": bound,
                "bound_by": "bytes", "bytes": nbytes,
                "share_of_bound": bound / dev,
@@ -2984,6 +3402,339 @@ def phase_runtime():
     return rec
 
 
+# ---------------------------------------------------------------------------
+# serve-app: the LLM deployment on GPU replicas of the port's runtime (runs
+# last, after runtime: its workers come and go on the card).  The controller,
+# the stream ingress and the RPC proxy run on CPU workers; the replica asks
+# for the card with ray_actor_options={"num_gpus": 1}.
+
+SERVE_APP_RESUME_PROMPT = [3, 14, 15, 92, 6, 5]
+# the reference's test_stream_kill_midway_resumes_bitwise: max_new,
+# temperature, seed, top_k; the replica is killed after this many tokens
+SERVE_APP_RESUME = (10, 0.7, 5, 8)
+SERVE_APP_KILL_AFTER = 3
+SERVE_APP_RELEASE_S = 30.0      # after serve.shutdown, no worker holds the card
+# a prompt near GPT-2-small's 1024 context (8.5-12 s on the card): its
+# prefill outlasts the replica's stall window, and must not fail a probe
+SERVE_APP_LONG = (1000, 8)      # prompt positions, new tokens
+SERVE_APP_STALL_S = 4.0         # the bf16 replica's serve_engine_stall_s
+
+
+def _long_request(cfg):
+    """The long-prompt request (greedy) and its completion by the driver's
+    in-process paged engine on the same weights (seed 0), on this card."""
+    import torch
+
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.serve import ContinuousEngine
+
+    plen, n_new = SERVE_APP_LONG
+    g = torch.Generator().manual_seed(SEED + 3)
+    prompt = torch.randint(0, cfg.vocab_size, (plen,), generator=g).tolist()
+    params = gpt.init(cfg, seed=SEED)
+    eng = ContinuousEngine(gpt, cfg, params, cache="paged", max_slots=8,
+                           page_size=16)
+    try:
+        t0 = time.perf_counter()
+        want = eng.collect(eng.submit(prompt, max_new_tokens=n_new),
+                           timeout=600)["completion"]
+        secs = time.perf_counter() - t0
+    finally:
+        eng.stop()
+    del eng, params
+    torch.cuda.empty_cache()
+    return {"tokens": prompt, "max_new_tokens": n_new}, want, secs
+
+
+def _first_diff(a, b):
+    """The first position where two token lists differ (None if equal)."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def _same_tokens(what, got, want):
+    d = _first_diff(got, want)
+    if d is not None:
+        raise SmokeFailure(f"{what}: first differs at position {d}: "
+                           f"{got[d:d + 4]} vs {want[d:d + 4]} (lengths "
+                           f"{len(got)}, {len(want)})")
+
+
+def _card_holders(before):
+    """pids of the port's runtime processes, started since ``before``,
+    that hold the card."""
+    return sorted(p for p in _runtime_procs()
+                  if p not in before and _holds_card(p))
+
+
+def _http_post(url, body):
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return r.read().decode()
+
+
+def phase_serve_app(serve_rec=None):
+    import importlib.util
+    import threading
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.serve._router import get_router
+    from ray_tpu_torch.serve.llm import LLMServer, build_llm_app
+
+    smi = _smi_line()
+    t_phase = time.perf_counter()
+    cfg = gpt.GPTConfig.gpt2_small()
+    prompts, max_new = _serve_prompts(cfg.vocab_size)
+    if serve_rec is None:
+        # the driver's in-process paged engine on the same prompts and
+        # weights (seed 0), on this card: what the replica is held against
+        params = gpt.init(cfg, seed=SEED)
+        serve_rec = phase_serve(params, cfg)
+        del params
+        torch.cuda.empty_cache()
+    want = serve_rec["completions"]
+    long_body, long_want, long_ref_s = _long_request(cfg)
+    rec = {"card": smi}
+    before = set(_runtime_procs())
+    rt.init(num_cpus=4)
+    try:
+        # 1. deploy GPT-2-small (bf16, random weights from seed 0) on a
+        # GPU replica, paged engine, with its -stream companion app
+        t0 = time.perf_counter()
+        h = build_llm_app(
+            "gpt2_small", name="llm", route_prefix="/llm",
+            deployment_options={"ray_actor_options": {"num_gpus": 1}},
+            max_seq=SERVE_MAX_SEQ, engine="paged",
+            engine_kwargs={"stall_s": SERVE_APP_STALL_S})
+        rec["running_s"] = time.perf_counter() - t0
+        st = serve.status()
+        check(str(st["llm"].status) == "RUNNING"
+              and str(st["llm-stream"].status) == "RUNNING",
+              f"apps not RUNNING: {st}")
+        holders = _card_holders(before)
+        check(len(holders) == 1, f"card holders after deploy {holders}: "
+              f"expected the one LLM replica (controller, proxies and the "
+              f"stream ingress run on CPU workers)")
+        log(f"[serve-app] serve.run to RUNNING (LLM replica on the card + "
+            f"stream ingress) {rec['running_s']:.2f} s; card held by the "
+            f"replica only ({smi})")
+
+        # 2. phase serve's 12 prompts concurrently through the handle
+        outs, lat, errs = [None] * len(prompts), [None] * len(prompts), []
+
+        def one(i):
+            try:
+                t = time.perf_counter()
+                outs[i] = h.remote({"tokens": prompts[i],
+                                    "max_new_tokens": max_new[i]}
+                                   ).result(timeout_s=600)
+                lat[i] = time.perf_counter() - t
+            except Exception as e:    # noqa: BLE001 - reported below
+                errs.append(e)
+
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(prompts))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        check(not errs, f"handle requests failed: {errs[:2]}")
+        for i, o in enumerate(outs):
+            _same_tokens(f"replica completion {i} vs the in-process "
+                         f"engine's", o["completion"], want[i])
+        tokens = sum(len(o["completion"]) for o in outs)
+        rec["handle"] = {"requests": len(prompts), "tokens": tokens,
+                         "wall_s": wall, "tokens_per_s": tokens / wall,
+                         "latency_p50_s": _pct(lat, 0.50),
+                         "latency_p99_s": _pct(lat, 0.99), "bitwise": True}
+        ip = serve_rec["latencies_s"]
+        rec["in_process"] = {"wall_s": serve_rec["wall_s"],
+                             "tokens_per_s": serve_rec["tokens_per_s"],
+                             "latency_p50_s": _pct(ip, 0.50),
+                             "latency_p99_s": _pct(ip, 0.99)}
+        log(f"[serve-app] {len(prompts)} greedy requests through the "
+            f"handle: completions == the in-process engine's, bitwise; "
+            f"{rec['handle']['tokens_per_s']:.1f} tokens/s, latency p50 "
+            f"{rec['handle']['latency_p50_s']:.3f} s p99 "
+            f"{rec['handle']['latency_p99_s']:.3f} s; in-process "
+            f"{rec['in_process']['tokens_per_s']:.1f} tokens/s, p50 "
+            f"{rec['in_process']['latency_p50_s']:.3f} s p99 "
+            f"{rec['in_process']['latency_p99_s']:.3f} s ({smi})")
+
+        # 3. a streamed request, 4. the RPC ingress (and HTTP where
+        # aiohttp imports): each == the same request's batched completion
+        i = 0
+        body = {"tokens": prompts[i], "max_new_tokens": max_new[i]}
+        gen = h.options(stream=True).stream_tokens.remote(prompts[i],
+                                                          max_new[i])
+        _same_tokens("handle stream vs batched", list(gen), want[i])
+        routes = ["handle", "handle-stream"]
+        t0 = time.perf_counter()
+        h.remote(body).result(timeout_s=600)
+        handle_s = time.perf_counter() - t0
+        cli = serve.RpcClient(serve.start_rpc_proxy())
+        try:
+            t0 = time.perf_counter()
+            out = cli.call("llm", body)
+            rpc_s = time.perf_counter() - t0
+        finally:
+            cli.close()
+        _same_tokens("RPC ingress vs batched", out["completion"], want[i])
+        routes.append("rpc")
+        if importlib.util.find_spec("aiohttp") is not None:
+            host, port = serve.start(proxy=True)
+            base = f"http://{host}:{port}"
+            got = json.loads(_http_post(f"{base}/llm", body))["completion"]
+            _same_tokens("HTTP vs batched", got, want[i])
+            lines = _http_post(f"{base}/llm-stream", body).splitlines()
+            _same_tokens("HTTP stream vs batched",
+                         [json.loads(ln)["token"] for ln in lines], want[i])
+            routes += ["http", "http-stream"]
+        rec["routes"] = routes
+        rec["same_request_s"] = {"handle": handle_s, "rpc": rpc_s,
+                                 "tokens": max_new[i]}
+        log(f"[serve-app] routes run: {', '.join(routes)} (HTTP "
+            f"{'ran' if 'http' in routes else 'skipped: aiohttp does not import'}"
+            f"); stream == RPC == batched; one request ({len(prompts[i])} "
+            f"prompt tokens, {max_new[i]} new) round trip: handle "
+            f"{handle_s:.3f} s, RPC ingress {rpc_s:.3f} s ({smi})")
+
+        # 4b. one prompt of 1000 positions: its admission outlasts the
+        # replica's stall window, yet every health probe passes (prefill
+        # chunks count as progress) and no replica is restarted
+        def replica_ids():
+            return sorted(r.replica_id for r in serve.status()["llm"]
+                          .deployments["LLMServer"].replicas)
+
+        ids0, holders0 = replica_ids(), _card_holders(before)
+        t0 = time.perf_counter()
+        got = h.remote(long_body).result(timeout_s=600)["completion"]
+        long_s = time.perf_counter() - t0
+        _same_tokens("the long-prompt completion vs the in-process "
+                     "engine's", got, long_want)
+        check(replica_ids() == ids0 and _card_holders(before) == holders0,
+              f"the long prompt restarted the replica: replicas {ids0} -> "
+              f"{replica_ids()}, card holders {holders0} -> "
+              f"{_card_holders(before)}")
+        stall_s = SERVE_APP_STALL_S
+        check(long_s > stall_s, f"the long prompt took {long_s:.2f} s, "
+              f"within the stall window {stall_s:g} s: nothing was shown")
+        rec["long_prompt"] = {"prompt_tokens": len(long_body["tokens"]),
+                              "new_tokens": long_body["max_new_tokens"],
+                              "latency_s": long_s,
+                              "in_process_s": long_ref_s,
+                              "engine_stall_s": stall_s,
+                              "restarts": 0, "bitwise": True}
+        log(f"[serve-app] long prompt ({len(long_body['tokens'])} positions, "
+            f"{long_body['max_new_tokens']} new): {long_s:.2f} s through "
+            f"the handle (in-process {long_ref_s:.2f} s), against the "
+            f"replica's stall window {stall_s:g} s; == the in-process "
+            f"engine's, bitwise; no replica restarted ({smi})")
+
+        # 5. resume: two f32 replicas at num_gpus 0.5 on the one card; a
+        # sampled stream whose replica is killed after 3 tokens continues
+        # on the survivor to the uninterrupted run's tokens
+        serve.delete("llm")
+        serve.delete("llm-stream")
+        _wait_for(lambda: not _card_holders(before), SERVE_APP_RELEASE_S,
+                  f"the deleted replica still holds the card: "
+                  f"{_card_holders(before)}")
+        t0 = time.perf_counter()
+        h32 = serve.run(
+            LLMServer(num_replicas=2,
+                      ray_actor_options={"num_gpus": 0.5}).bind(
+                preset="gpt2_small", cfg_kwargs={"dtype": torch.float32},
+                max_seq=SERVE_MAX_SEQ, engine="paged"),
+            name="llm32", route_prefix=None)
+        running2_s = time.perf_counter() - t0
+        holders = _card_holders(before)
+        dep = serve.status()["llm32"].deployments["LLMServer"]
+        check(len(holders) == 2 and len(dep.replicas) == 2,
+              f"two num_gpus=0.5 replicas: card holders {holders}, "
+              f"replicas {dep.replicas}")
+        n_new, temp, seed, top_k = SERVE_APP_RESUME
+        hs = h32.options(stream=True, resume="llm_tokens")
+        # warm both replicas' engines, so neither timed stream pays its
+        # arena's allocation
+        warm = [h32.remote({"tokens": SERVE_APP_RESUME_PROMPT,
+                            "max_new_tokens": 1}) for _ in range(8)]
+        for w in warm:
+            w.result(timeout_s=600)
+        t0 = time.perf_counter()
+        whole, whole_t = [], []
+        for tok in hs.stream_tokens.remote(SERVE_APP_RESUME_PROMPT, n_new,
+                                           temp, seed, top_k):
+            whole.append(tok)
+            whole_t.append(time.perf_counter() - t0)
+        gen = hs.stream_tokens.remote(SERVE_APP_RESUME_PROMPT, n_new, temp,
+                                      seed, top_k)
+        it = iter(gen)
+        got, got_t = [], []
+        t0 = time.perf_counter()
+        for _ in range(SERVE_APP_KILL_AFTER):
+            got.append(next(it))
+            got_t.append(time.perf_counter() - t0)
+        router = get_router("llm32", h32.deployment_name)
+        victim_rid = gen._sub.rid
+        rt.kill(router._replicas[victim_rid]["handle"])
+        for tok in it:
+            got.append(tok)
+            got_t.append(time.perf_counter() - t0)
+        _same_tokens("the resumed stream vs the uninterrupted run", got,
+                     whole)
+        check(gen._sub.rid != victim_rid,
+              "the stream did not move off the killed replica")
+        k = SERVE_APP_KILL_AFTER
+        gaps = [b - a for a, b in zip(whole_t, whole_t[1:])]
+        rec["resume"] = {
+            "running_s": running2_s, "tokens": got, "bitwise": True,
+            "uninterrupted_s": whole_t[-1], "resumed_s": got_t[-1],
+            "extra_s": got_t[-1] - whole_t[-1],
+            "gap_at_kill_s": got_t[k] - got_t[k - 1],
+            "median_gap_s": sorted(gaps)[len(gaps) // 2]}
+        r = rec["resume"]
+        log(f"[serve-app] resume: 2 f32 replicas at num_gpus 0.5 on one "
+            f"card, RUNNING in {running2_s:.2f} s; sampled stream (t "
+            f"{temp}, top_k {top_k}, seed {seed}, {n_new} tokens) killed "
+            f"after {k} tokens == the uninterrupted run; {r['resumed_s']:.3f}"
+            f" s against {r['uninterrupted_s']:.3f} s (extra "
+            f"{r['extra_s']:.3f} s; the gap at the kill {r['gap_at_kill_s']:.3f}"
+            f" s, median gap {r['median_gap_s']:.4f} s) ({smi})")
+
+        # 6. shutdown: within 30 s no worker of the port holds the card
+        t0 = time.perf_counter()
+        serve.shutdown()
+        _wait_for(lambda: not _card_holders(before), SERVE_APP_RELEASE_S,
+                  f"workers still hold the card {SERVE_APP_RELEASE_S:g} s "
+                  f"after serve.shutdown(): {_card_holders(before)}")
+        rec["release_s"] = time.perf_counter() - t0
+    finally:
+        try:
+            serve.shutdown()
+        finally:
+            rt.shutdown()
+    mine = lambda: {p: c for p, c in _runtime_procs().items()  # noqa: E731
+                    if p not in before}
+    _wait_for(lambda: not mine(), 60,
+              f"runtime processes outlived shutdown: {mine()}")
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"[serve-app] serve.shutdown released the card in "
+        f"{rec['release_s']:.2f} s; no runtime process left; phase "
+        f"{rec['seconds']:.1f} s")
+    return rec
+
+
 def _kernel_entry(k, case, launches_by_path, **extra):
     entry = {"name": k.name, "route": "cuda",
              "source": f"ray_tpu_torch/csrc/{k.source}",
@@ -2998,8 +3749,9 @@ def _kernel_entry(k, case, launches_by_path, **extra):
     return entry
 
 
-PHASES = ("kernels", "forward", "serve", "parity", "train",
-          "kernels-quantize", "kernels-fused", "dp-train", "runtime")
+PHASES = ("kernels", "forward", "serve", "serve-bench", "parity", "train",
+          "kernels-quantize", "kernels-fused", "dp-train", "runtime",
+          "serve-app")
 
 
 def main(argv=None):
@@ -3033,6 +3785,9 @@ def main(argv=None):
         report["serve"] = phase_serve(params, cfg)
     del params
     torch.cuda.empty_cache()
+    if "serve-bench" in phases:
+        report["serve_bench"] = phase_serve_bench()
+        torch.cuda.empty_cache()
     if "parity" in phases:
         report["parity"] = phase_parity()
 
@@ -3054,10 +3809,14 @@ def main(argv=None):
     if "dp-train" in phases:
         report["dp_train"], report["gpt_sync"] = phase_dp_train()
     if "runtime" in phases:
-        # last: its worker processes come and go on the card, and no
+        # late: its worker processes come and go on the card, and no
         # kernel timing follows them
         torch.cuda.empty_cache()
         report["runtime"] = phase_runtime()
+    if "serve-app" in phases:
+        # last, for the same reason: its replicas come and go on the card
+        torch.cuda.empty_cache()
+        report["serve_app"] = phase_serve_app(report.get("serve"))
 
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps(report, indent=1))
@@ -3075,6 +3834,9 @@ def main(argv=None):
                             if name == "flash_fwd" else 0),
                 "serve": (report["serve"]["flash_launches"]
                           if name == "flash_fwd" else 0),
+                # bench_serve's static and continuous rows and the chaos
+                # engines, in this process
+                "serve_bench": report["serve_bench"]["launches"][name],
                 "train_step": train_launches[name],
                 "dp_train_step": dp_launches[name],
                 "dp_train_step_fused_hop": dp_fused_launches[name],

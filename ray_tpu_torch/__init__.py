@@ -38,7 +38,9 @@ Layout mirrors ``ray_tpu``:
   * ``models.training`` — the single-device train step (AdamW);
   * ``models.convert`` — the JAX parameter tree and AdamW state (numpy
     leaves) ↔ port;
-  * ``serve._engine`` — the continuous-batching engine;
+  * ``serve`` — Serve (controller, router, replicas, handles, the
+    HTTP / RPC / gRPC ingresses) with ``serve.llm``, the GPT behind a
+    deployment on ``serve._engine``, the continuous-batching engine;
   * ``ops.quantize`` — block-wise int8 quantization (K4-K6's plain
     versions and dispatch);
   * ``collective`` — the group API: ``torch.distributed`` (store

@@ -161,13 +161,9 @@ CONFIG_DEFS: List[Tuple[str, type, Any, str]] = [
      "KV arena), 'contiguous' (continuous batching over per-slot "
      "contiguous caches; the parity baseline), or 'static' (legacy "
      "serve.batch micro-batching)"),
-    ("serve_gen_cache_cap", int, 8,
-     "compiled-program LRU entries per LLM replica (generate/prefill/"
-     "stream-step variants; the engine's own step programs are bounded "
-     "by construction and not counted)"),
     ("serve_max_slots", int, 8,
-     "decode slots per replica = the fixed batch width of the compiled "
-     "continuous-batching step program"),
+     "decode slots per replica = the fixed batch width of the "
+     "continuous-batching decode step"),
     ("serve_page_size", int, 16,
      "KV-cache page size in token positions"),
     ("serve_num_pages", int, 0,
@@ -184,9 +180,6 @@ CONFIG_DEFS: List[Tuple[str, type, Any, str]] = [
      "the router sheds before the hard queue_cap bounces requests"),
     ("serve_retry_after_s", float, 1.0,
      "Retry-After hint attached to shed/rejected serve requests"),
-    ("serve_prefill_bucket", int, 32,
-     "prefill token chunks are padded to multiples of this (bounds "
-     "prefill compile variants to max_total/bucket)"),
     ("serve_replay_budget", int, 2,
      "replays per request after a replica dies mid-call (actor-died / "
      "unreachable); exhausting the budget surfaces the ORIGINAL error"),
@@ -200,8 +193,9 @@ CONFIG_DEFS: List[Tuple[str, type, Any, str]] = [
      "an unanswered check_health probe older than this marks the "
      "replica wedged and restarts it"),
     ("serve_engine_stall_s", float, 10.0,
-     "check_health fails when the engine has active slots but its step "
-     "counter has not advanced for this long (hung jit step)"),
+     "check_health fails when the engine has active slots but has "
+     "finished neither a decode step nor a prefill chunk for this long "
+     "(a hung step)"),
     ("serve_drain_grace_s", float, 10.0,
      "drain window granted to a replica's in-flight requests when its "
      "node is preempted without an explicit deadline"),

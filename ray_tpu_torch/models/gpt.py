@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -690,15 +690,20 @@ def sample_logits(logits: torch.Tensor, key: Optional[int],
 
 
 @torch.no_grad()
-def generate(params: Params, cfg: GPTConfig, prompt, max_new_tokens: int,
-             *, temperature: float = 0.0, top_k: Optional[int] = None,
-             seed: int = 0, max_seq: Optional[int] = None,
-             device: DeviceLike = None) -> torch.Tensor:
-    """Autoregressive generation: prompt [B, S] -> [B, S + new].
+def generate_tokens(params: Params, cfg: GPTConfig, prompt,
+                    max_new_tokens: int, *, temperature: float = 0.0,
+                    top_k: Optional[int] = None, seed: int = 0,
+                    key_offset: int = 0, max_seq: Optional[int] = None,
+                    device: DeviceLike = None) -> Iterator[torch.Tensor]:
+    """generate() one position at a time: prompt [B, S] -> yields the
+    tokens [B] drawn for each new position, before the next decode step
+    runs.  Token i is sampled with ``token_key(seed, key_offset + i)``:
+    a continuation that folds k delivered tokens into the prompt and
+    passes ``key_offset=k`` draws the uninterrupted run's noise.
 
     Prefill and decode are both loops of the decode step; GPT-2-family
     configs take the decode-view fast path (fused QKV, compute-dtype
-    weights).  Token i is sampled with ``token_key(seed, i)``."""
+    weights).  The arguments are checked at the first ``next``."""
     dev = resolve_device(device)
     check_params_on(params, dev)
     prompt = torch.as_tensor(prompt, dtype=torch.long, device=dev)
@@ -710,7 +715,6 @@ def generate(params: Params, cfg: GPTConfig, prompt, max_new_tokens: int,
                          f"({max_new_tokens}) > max_seq ({max_seq})")
     if cfg.pos == "learned" and total > cfg.max_seq:
         raise ValueError(f"learned positions stop at {cfg.max_seq}")
-    new: List[torch.Tensor] = []
     if _decode_fast_eligible(cfg):
         view = _decode_view(params, cfg)
         shape = (cfg.n_layers, B, cfg.n_heads, max_seq, cfg.d_head)
@@ -719,9 +723,10 @@ def generate(params: Params, cfg: GPTConfig, prompt, max_new_tokens: int,
         for p in range(S):
             x = _decode_hidden_fast(view, cfg, kc, vc, p, prompt[:, p])
         for i in range(max_new_tokens):
-            tok = sample_logits(x @ view["unembed"], token_key(seed, i),
+            tok = sample_logits(x @ view["unembed"],
+                                token_key(seed, key_offset + i),
                                 temperature, top_k)
-            new.append(tok)
+            yield tok
             if i + 1 < max_new_tokens:
                 x = _decode_hidden_fast(view, cfg, kc, vc, S + i, tok)
     else:
@@ -731,11 +736,25 @@ def generate(params: Params, cfg: GPTConfig, prompt, max_new_tokens: int,
             x, cache = _decode_hidden(params, cache, prompt[:, p], cfg, rope)
         logits = x.to(cfg.dtype) @ _unembed_table(params, cfg)
         for i in range(max_new_tokens):
-            tok = sample_logits(logits, token_key(seed, i), temperature,
-                                top_k)
-            new.append(tok)
+            tok = sample_logits(logits, token_key(seed, key_offset + i),
+                                temperature, top_k)
+            yield tok
             if i + 1 < max_new_tokens:
                 logits, cache = decode_step(params, cache, tok, cfg, rope)
+
+
+def generate(params: Params, cfg: GPTConfig, prompt, max_new_tokens: int,
+             *, temperature: float = 0.0, top_k: Optional[int] = None,
+             seed: int = 0, max_seq: Optional[int] = None,
+             device: DeviceLike = None) -> torch.Tensor:
+    """Autoregressive generation: prompt [B, S] -> [B, S + new], the
+    tokens of ``generate_tokens`` (token i sampled with
+    ``token_key(seed, i)``)."""
+    new = list(generate_tokens(params, cfg, prompt, max_new_tokens,
+                               temperature=temperature, top_k=top_k,
+                               seed=seed, max_seq=max_seq, device=device))
+    prompt = torch.as_tensor(prompt, dtype=torch.long,
+                             device=resolve_device(device))
     if not new:
         return prompt
     return torch.cat([prompt, torch.stack(new, dim=1)], dim=1)

@@ -218,6 +218,7 @@ class ContinuousEngine:
     """Per-replica continuous-batching scheduler (one per model)."""
 
     _END = object()
+    prefill_chunk = 32      # prompt positions between two progress marks
 
     def __init__(self, gpt_mod, cfg, params, *, cache: str = "paged",
                  max_slots: int = 8, page_size: int = 16,
@@ -254,7 +255,10 @@ class ContinuousEngine:
         self._draining = False        # guarded-by: _lock
         self._rid = 0
         self.stall_s = float(stall_s)
-        self._health_snap: Optional[Tuple[int, float]] = None
+        # when the loop last took a sequence into a slot or finished a
+        # prefill chunk or a decode step: what the stall check reads, so a
+        # long admission is progress, and the probes' cadence is moot
+        self._progress_ts = time.monotonic()  # guarded-by: _lock
         self._last_prefill_s = 0.0
 
         # device state (built lazily on the engine thread)
@@ -405,28 +409,26 @@ class ContinuousEngine:
 
     def check_health(self) -> bool:
         """Liveness probe: raises when the scheduler thread died with
-        work pending, the step counter stalls while slots are active, or
-        the page free-list went inconsistent."""
+        work pending, neither a decode step nor a prefill chunk has
+        finished for ``stall_s`` while slots are active, or the page
+        free-list went inconsistent."""
         with self._lock:
             if self._stopped:
                 raise RuntimeError("engine stopped")
             active = sum(1 for s in self._slots if s is not None)
             queued = len(self._waiting)
-            steps = self._totals["steps"]
+            quiet_s = time.monotonic() - self._progress_ts
         thread = self._thread
         if thread is not None and not thread.is_alive() \
                 and (active or queued):
             raise RuntimeError(
                 f"engine scheduler thread died with work pending "
                 f"({active} active, {queued} queued)")
-        now = time.monotonic()
-        snap = self._health_snap
-        if active == 0 or snap is None or snap[0] != steps:
-            self._health_snap = (steps, now)
-        elif now - snap[1] > self.stall_s:
+        if active and quiet_s > self.stall_s:
             raise RuntimeError(
                 f"engine stalled: {active} active slots but no decode "
-                f"step for {now - snap[1]:.1f}s (> {self.stall_s:g}s)")
+                f"step or prefill chunk for {quiet_s:.1f}s "
+                f"(> {self.stall_s:g}s)")
         if self._alloc is not None:
             a = self._alloc
             in_use = len(a._refs)
@@ -540,6 +542,7 @@ class ContinuousEngine:
                         break               # page-starved: wait for evicts
                 self._waiting.popleft()
                 self._slots[slot] = seq
+                self._progress_ts = time.monotonic()
             self._admit_one(seq, slot, plan)
             admitted += 1
         if admitted:
@@ -580,17 +583,25 @@ class ContinuousEngine:
         self._temps[slot] = seq.temperature
         self._topks[slot] = int(seq.top_k or 0)
 
-        # prefill the non-shared prompt suffix
-        chunk = np.asarray(seq.tokens[shared_len:], np.int64)
+        # prefill the non-shared prompt suffix, prefill_chunk positions
+        # at a time (each position is its own decode step, so the split
+        # changes no bit), marking progress after each chunk
+        suffix = np.asarray(seq.tokens[shared_len:], np.int64)
         tp = time.perf_counter()
-        if self._alloc is not None:
-            logits, self._cache = gpt.paged_prefill(
-                self._params, self._cache, self._tensor(chunk),
-                self._tensor(self._ptab[slot]), shared_len, self._cfg)
-        else:
-            logits, self._cache = gpt.slot_prefill(
-                self._params, self._cache, self._tensor(chunk), shared_len,
-                slot, self._cfg)
+        ptab = self._tensor(self._ptab[slot])
+        for lo in range(0, len(suffix), self.prefill_chunk):
+            chunk = self._tensor(suffix[lo:lo + self.prefill_chunk])
+            start = shared_len + lo
+            if self._alloc is not None:
+                logits, self._cache = gpt.paged_prefill(
+                    self._params, self._cache, chunk, ptab, start,
+                    self._cfg)
+            else:
+                logits, self._cache = gpt.slot_prefill(
+                    self._params, self._cache, chunk, start, slot,
+                    self._cfg)
+            with self._lock:
+                self._progress_ts = time.monotonic()
         self._logits[slot] = logits.float()
         self._sync()
         self._last_prefill_s += time.perf_counter() - tp
@@ -630,6 +641,8 @@ class ContinuousEngine:
         self._logits = logits.float()
         toks = toks.cpu().numpy()               # waits for the step
         self._totals["steps"] += 1
+        with self._lock:
+            self._progress_ts = time.monotonic()
         now = time.perf_counter()
         emitted = 0
         finished = []

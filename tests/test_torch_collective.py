@@ -196,6 +196,18 @@ def ranks(tmp_path_factory):
     return get
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _fresh_device_ledger():
+    """The JAX references below compile ``xla_group``'s programs through
+    the process's compilation ledger, at shapes enough to open recompile
+    storms.  Leave later test modules in this process a fresh ledger, so
+    no storm advisory of ours reaches their trainers."""
+    yield
+    from ray_tpu.telemetry import device as devtel
+
+    devtel.reset_for_tests()
+
+
 # ---------------------------------------------------------------------------
 # JAX side
 # ---------------------------------------------------------------------------

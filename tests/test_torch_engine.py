@@ -354,3 +354,95 @@ def test_engine_rejects_params_on_another_device(model):
     cfg, params = model[:2]
     with pytest.raises(ValueError, match="device"):
         ContinuousEngine(gpt, cfg, params, device="meta")
+
+
+# ---------------------------------------------------------------------------
+# liveness
+
+
+class _SlowPrefill:
+    """The gpt module with prefill slowed by ``delay`` s per prompt
+    position, as on the card, where each position is a decode step."""
+
+    def __init__(self, delay):
+        self.delay = delay
+
+    def __getattr__(self, name):
+        return getattr(gpt, name)
+
+    def paged_prefill(self, params, cache, toks, *args, **kwargs):
+        time.sleep(self.delay * toks.shape[0])
+        return gpt.paged_prefill(params, cache, toks, *args, **kwargs)
+
+    def slot_prefill(self, params, cache, toks, *args, **kwargs):
+        time.sleep(self.delay * toks.shape[0])
+        return gpt.slot_prefill(params, cache, toks, *args, **kwargs)
+
+
+def _probe_while(eng, seq, period=0.02):
+    """check_health every ``period`` s until seq finishes: the errors."""
+    errors = []
+    while not seq.result.done():
+        try:
+            eng.check_health()
+        except RuntimeError as e:
+            errors.append(str(e))
+        time.sleep(period)
+    return errors
+
+
+@pytest.mark.parametrize("cache", ["paged", "contiguous"])
+def test_long_prefill_is_progress_not_a_stall(model, cache):
+    # 40 prompt positions at 0.05 s each, in chunks of 8: the admission
+    # takes 2 s, twice stall_s, with no decode step
+    cfg, params = model[:2]
+    prompt = list(range(1, 41))
+    eng = ContinuousEngine(_SlowPrefill(0.05), cfg, params, cache=cache,
+                           max_slots=4, page_size=8, stall_s=1.0,
+                           device="cpu")
+    eng.prefill_chunk = 8
+    try:
+        seq = eng.submit(prompt, max_new_tokens=6)
+        errors = _probe_while(eng, seq)
+        res = eng.collect(seq, timeout=60)
+    finally:
+        eng.stop()
+    assert errors == []
+    # the chunked prefill changes no bit
+    assert res["completion"] == _expected(model, prompt, 6)
+
+
+def test_prefill_chunk_stuck_past_stall_s_fails_health(model):
+    cfg, params = model[:2]
+    # one chunk of 6 positions at 0.5 s each: 3 s without progress
+    eng = ContinuousEngine(_SlowPrefill(0.5), cfg, params, cache="paged",
+                           max_slots=4, page_size=8, stall_s=1.0,
+                           device="cpu")
+    try:
+        seq = eng.submit(PROMPT, max_new_tokens=2)
+        errors = _probe_while(eng, seq)
+        eng.collect(seq, timeout=60)
+    finally:
+        eng.stop()
+    assert errors and all("stalled" in e for e in errors)
+
+
+def test_stall_check_needs_no_probe_while_idle(model):
+    # the last probe came long before the request: a stall is measured
+    # from the admission, not from that probe
+    cfg, params = model[:2]
+    eng = ContinuousEngine(_SlowPrefill(0.05), cfg, params, cache="paged",
+                           max_slots=4, page_size=8, stall_s=1.0,
+                           device="cpu")
+    try:
+        assert eng.check_health()
+        time.sleep(1.5)
+        seq = eng.submit(PROMPT, max_new_tokens=4)
+        # the first probe after the request lands during its prefill
+        _wait(lambda: eng.engine_stats()["active"] == 1)
+        errors = _probe_while(eng, seq)
+        res = eng.collect(seq, timeout=60)
+    finally:
+        eng.stop()
+    assert errors == []
+    assert res["completion"] == _expected(model, PROMPT, 4)

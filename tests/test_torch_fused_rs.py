@@ -28,6 +28,7 @@ import torch.multiprocessing as mp
 
 from test_torch_collective import (AR_SHAPES, _global, _mesh, _rows, _same,
                                    _shard, _to_numpy)
+from test_torch_collective import _fresh_device_ledger  # noqa: F401
 
 SPAWN_DEADLINE_S = 120.0
 HOP_SUB = 3 * 512          # per-rank row length of the hop cases

@@ -122,3 +122,58 @@ def test_sources_use_no_library_attention_or_jax():
     smoke = (REPO / "chip_smoke.py").read_text()
     assert not re.search(r"^\s*(import|from)\s+(jax|ray_tpu)\b", smoke,
                          re.M)
+
+
+_SERVE_PROBE = r"""
+import sys
+import ray_tpu_torch.serve as serve
+import ray_tpu_torch.serve._asgi
+import ray_tpu_torch.serve._common
+import ray_tpu_torch.serve._controller
+import ray_tpu_torch.serve._deployment
+import ray_tpu_torch.serve._grpc
+import ray_tpu_torch.serve._handle
+import ray_tpu_torch.serve._proxy
+import ray_tpu_torch.serve._replica
+import ray_tpu_torch.serve._router
+import ray_tpu_torch.serve.api
+import ray_tpu_torch.serve.batching
+import ray_tpu_torch.serve.llm
+import ray_tpu_torch.serve.multiplex
+import ray_tpu_torch.serve.schema
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "ray_tpu", "torch",
+                                    "aiohttp", "grpc", "yaml"))
+assert not bad, bad
+assert "ray_tpu_torch.serve._engine" not in sys.modules
+# the engine exports resolve on first use, and only then load torch
+assert serve.ContinuousEngine.__module__ == "ray_tpu_torch.serve._engine"
+assert "torch" in sys.modules
+print("ok")
+"""
+
+SERVE_MODULES = ("__init__", "_common", "_deployment", "batching", "_replica",
+                 "multiplex", "_router", "_handle", "_controller", "api",
+                 "_asgi", "_proxy", "_grpc", "schema", "llm")
+
+
+def test_serve_modules_load_no_torch_and_no_jax():
+    """The controller, router, proxy and api workers import Serve; none
+    of it loads torch (nor JAX, nor the optional HTTP/gRPC/YAML
+    packages) until a replica builds a model."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", _SERVE_PROBE], cwd="/",
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_serve_holds_its_modules_and_imports_nothing_of_the_reference():
+    serve_dir = PORT / "serve"
+    have = {p.stem for p in serve_dir.glob("*.py")}
+    assert set(SERVE_MODULES) | {"_engine"} == have
+    ref = re.compile(r"(^\s*(import|from)\s+(jax|ray_tpu)\b)"
+                     r"|import_module\(\s*['\"](jax|ray_tpu)\b", re.M)
+    for f in sorted(serve_dir.glob("*.py")):
+        assert not ref.search(f.read_text()), f

@@ -232,6 +232,38 @@ def test_gpu_lease_gets_a_fresh_device_worker_that_refuses_the_cpu():
         rt.shutdown()
 
 
+def test_fractional_gpu_leases_share_a_card():
+    """Ray grants fractional ``num_gpus``: two 0.5 leases fit one card
+    (Serve's two LLM replicas on a one-card machine), a third waits, and
+    each lease gets a device-visible worker of its own.  Here those
+    workers find no card and refuse the CPU, so each lease ends in that
+    error; the books return to exactly one card."""
+    from ray_tpu_torch._private import common
+
+    card = common.normalize_resources({"GPU": 1})
+    half = common.normalize_resources({"GPU": 0.5})
+    for _ in range(2):
+        assert common.fits(card, half)
+        common.subtract(card, half)
+    assert not common.fits(card, half) and card["GPU"] == 0
+    rt.init(num_cpus=2, num_gpus=1)
+    try:
+        refs = [_pid_env.options(num_gpus=0.5, max_retries=0).remote()
+                for _ in range(2)]
+        pids = set()
+        for ref in refs:
+            with pytest.raises(rt.TaskError, match="holds a GPU lease") as ei:
+                rt.get(ref, timeout=T)
+            pids.add(int(str(ei.value).split("worker pid ")[1].split()[0]))
+        assert len(pids) == 2
+        deadline = time.monotonic() + T
+        while rt.available_resources().get("GPU") != 1.0:
+            assert time.monotonic() < deadline, rt.available_resources()
+            time.sleep(0.2)
+    finally:
+        rt.shutdown()
+
+
 def test_device_value_staged_to_store_once(monkeypatch):
     """The owner keeps a device-resident value for its own gets and stages
     it to the shm store on the first remote fetch only (CUDA is faked by

@@ -118,7 +118,7 @@ Phases, each of which must pass (any failure exits non-zero):
                 (== plain sum, int8 == the codec, broadcast, no keys
                 left); no runtime process outlives shutdown or holds the
                 card.
- 14. serve-app — Serve on the port's runtime (runs last):
+ 14. serve-app — Serve on the port's runtime (runs next to last):
                 build_llm_app("gpt2_small") on a GPU replica
                 (ray_actor_options={"num_gpus": 1}; paged, bf16, seed 0),
                 the controller, proxies and stream ingress on CPU workers;
@@ -136,10 +136,34 @@ Phases, each of which must pass (any failure exits non-zero):
                 to RUNNING, handle latency and tokens/s against the
                 in-process engine, the RPC round trip, the resume's extra
                 latency, each beside the card's name and power limit.
+ 15. train-app — Train on the port's runtime (runs last):
+                ray_tpu_torch.train.JaxTrainer(mode="spmd",
+                compression="int8") on one GPU worker per card
+                (ScalingConfig(use_gpu=True)), each on the card
+                train.torch.get_device() picks; the train loop is
+                dp-train's int8 recipe (GPT-2-small at full width, bf16,
+                remat, AdamW(3e-4, wd 0.1), [16, 513] per rank,
+                GradientSynchronizer("int8") over the gang's NCCL group,
+                or the one-member group dp-train uses at one card), 6
+                steps, report every step, a checkpoint after step 3.  The
+                losses == dp-train's int8 losses, bitwise; K1-K7 launches
+                per step == dp-train's prediction; the checkpoint
+                Result.checkpoint returns == the worker's step-3 params;
+                a second run whose first gang dies after step 4
+                (FailureConfig(max_failures=1)) resumes on fresh GPU
+                leases from the step-3 checkpoint, its steps 4-6 and final
+                params == the uninterrupted run's, bitwise; no process
+                holds the card after shutdown.  Times: gang up to the
+                first step, the worker's step (CUDA events) against
+                dp-train's int8 step run in fresh processes just before
+                the trainer's (its losses == dp-train's too), report per
+                step, the checkpoint's save, the restart's time to
+                resume.
 
     python3 chip_smoke.py --phases dp-train
     python3 chip_smoke.py --phases runtime
     python3 chip_smoke.py --phases serve-bench,serve-app
+    python3 chip_smoke.py --phases train-app
 
 runs the device and build phases and the named ones only (a development
 aid; with no arguments every phase runs).
@@ -1417,9 +1441,10 @@ def _kernel_reading(fn, kernel, counter, n=20):
     torch.profiler over n calls after one warm-up: the mean over the
     launch records the profile kept times the launches per call that the
     wrapper ``counter`` counted.  torch.profiler can lose a launch's
-    record on the card (it lost 2 of 20 after a long run of serving), and
-    a sum over n calls then reads fast; a profile that kept fewer than
-    half the launches fails."""
+    record on the card (after serve-bench its raw results keep 19 of 20
+    kernels and 18 of 20 scratch writes of a window, however padded:
+    chip_studies.py's ``profiler_record_study``), and a sum over n calls then reads fast; a
+    profile that kept fewer than half the launches fails."""
     import re
 
     from ray_tpu_torch.ops import _kernels
@@ -1609,111 +1634,6 @@ def _clocks():
         return f"nvidia-smi failed: {e}"
 
 
-# the cases where the order of phases moved a cold reading (K6, K5: four
-# fifths of their bytes are the f32 output) and K4 (one fifth)
-COLD_STUDY_CASES = (("dequantize_accumulate", "chunk 3538944", 1),
-                    ("dequantize_accumulate", "chunk 4829184", 1),
-                    ("dequantize", "phase-2 chunk 4829184", 1),
-                    ("quantize", "phase-1 chunk 4829184", 1))
-COLD_SPIN_CYCLES = 2_000_000    # ~1 ms at the H100's clocks
-
-
-def cold_l2_study(reps=COLD_REPS):
-    """Why a cold-L2 reading can beat its bytes bound.  For the
-    ``COLD_STUDY_CASES``, the kernel's device time under three orders of
-    launch after the 128 MiB scratch write: "host" (the write, then the
-    launch as soon as the host issues it), "idle" (the write, the host
-    waits for the card and 1 ms more, then the launch: the card idles in
-    between) and "queued" (a spin kernel first, so the write and the
-    launch wait in the queue and run back to back).  For each: the
-    launches the wrapper counted, the records the profile kept, the mean
-    per kept record, the records' sum over ``reps`` (the reading before
-    ``_kernel_reading``), and the card's idle gap between the write's end
-    and the kernel's start.  The clocks are read before and after."""
-    import re
-    import statistics
-
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from ray_tpu_torch.ops import _kernels
-
-    scratch = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
-
-    def host(call):
-        scratch.fill_(1.0)
-        call()
-
-    def idle(call):
-        scratch.fill_(1.0)
-        torch.cuda.synchronize()
-        time.sleep(1e-3)
-        call()
-
-    def queued(call):
-        torch.cuda._sleep(COLD_SPIN_CYCLES)
-        scratch.fill_(1.0)
-        call()
-
-    orders = {"host": host, "idle": idle, "queued": queued}
-    out = {"clocks_before": _clocks(), "cases": []}
-    for i, (kernel, case, n, block, world) in enumerate(_cold_cases()):
-        if (kernel, case, world) not in COLD_STUDY_CASES:
-            continue
-        call, fn, nbytes, _ = _cold_call(kernel, n, block, world,
-                                         SEED + 60 + i)
-        bound = nbytes / HBM_BYTES_PER_S * 1e3
-        own = re.compile(rf"\b{fn}\b")
-        rec = {"kernel": kernel, "case": case, "n": n, "bound_ms": bound}
-        for name, order in orders.items():
-            order(call)
-            torch.cuda.synchronize()
-            before = _kernels.launch_counts()[kernel]
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(reps):
-                    order(call)
-                torch.cuda.synchronize()
-            launched = _kernels.launch_counts()[kernel] - before
-            fill_end, fills, durs, gaps = None, 0, [], []
-            for e in sorted((e for e in prof.events()
-                             if e.device_type == DeviceType.CUDA),
-                            key=lambda e: e.time_range.start):
-                if "Fill" in e.name:
-                    fill_end, fills = e.time_range.end, fills + 1
-                elif own.search(e.name):
-                    durs.append(e.time_range.elapsed_us() / 1e3)
-                    if fill_end is not None:
-                        gaps.append(e.time_range.start - fill_end)
-            check(durs, f"cold study {kernel} {case} {name}: no record")
-            ms = sum(durs) / len(durs)
-            rec[name] = {"launches": launched, "records": len(durs),
-                         "fill_records": fills, "ms": ms,
-                         "share_of_bound": bound / ms,
-                         "sum_over_reps_ms": sum(durs) / reps,
-                         "ms_min": min(durs), "ms_max": max(durs),
-                         "gap_us_median": statistics.median(gaps or [0.0]),
-                         "gap_us_max": max(gaps or [0.0]),
-                         "clocks": _clocks()}
-        out["cases"].append(rec)
-        log(f"[cold-study] {kernel} {case}: bound {bound:.4f} ms; " + "; ".join(
-            f"{o} {r['records']}/{r['launches']} records ({r['fill_records']}"
-            f" fills), {r['ms']:.4f} ms ({r['share_of_bound']:.0%}; sum over"
-            f" {reps} {r['sum_over_reps_ms']:.4f}), {r['ms_min']:.4f}-"
-            f"{r['ms_max']:.4f}, gap median {r['gap_us_median']:.1f} us max "
-            f"{r['gap_us_max']:.1f}" for o, r in
-            ((o, rec[o]) for o in orders)))
-        del call
-        torch.cuda.empty_cache()
-    out["clocks_after"] = _clocks()
-    log(f"[cold-study] clocks (sm, mem, max sm, max mem, power, temp, "
-        f"event reasons) before: {out['clocks_before']}; after: "
-        f"{out['clocks_after']}")
-    del scratch
-    torch.cuda.empty_cache()
-    return out
-
-
 def wrapper_host_us(calls=100, repeats=5):
     """Host microseconds per call of ``_kernels.dequantize`` and
     ``_kernels.dequantize_accumulate`` at the 1,048,576-element case: a
@@ -1895,10 +1815,44 @@ def phase_kernels_quantize():
             f"{plain_ms:.3f} ms, bound {rec6['bound_ms']:.4f} ms")
         del x, q, s
     torch.cuda.empty_cache()
-    out["cold"] = _checked_cold_times()
+    out["cold"] = _in_fresh_process("_checked_cold_times")
     out["wrapper_host_us"] = wrapper_host_us()
     log(f"[kernels-quantize] library: none ({QUANT_LIBRARY_NOTE})")
     return out
+
+
+def _fresh_entry(fn_name, out_path):
+    sys.path.insert(0, str(ROOT))
+    Path(out_path).write_text(json.dumps(globals()[fn_name]()))
+
+
+def _in_fresh_process(fn_name, timeout_s=900):
+    """``fn_name()`` of this script run in a spawned process, its result
+    (JSON) returned here, while this process waits.  The cold-L2 readings
+    run so: once a process has served (serve-bench) or, at times, run the
+    kernels phases, torch.profiler's raw results keep fewer of a window's
+    launch records (19 of 20 kernels and 18 of 20 scratch writes,
+    however the window is padded, or none), while fresh processes kept
+    every record in every window measured (chip_studies.py's
+    ``profiler_record_study`` and ``profiler_session_study``; PERF.md
+    section 6)."""
+    import multiprocessing
+
+    import torch
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "out.json")
+        proc = multiprocessing.get_context("spawn").Process(
+            target=_fresh_entry, args=(fn_name, out))
+        proc.start()
+        proc.join(timeout_s)
+        if proc.is_alive():
+            proc.kill()
+            proc.join(10)
+        check(proc.exitcode == 0, f"{fn_name} in a fresh process exited "
+              f"with {proc.exitcode}")
+        return json.loads(Path(out).read_text())
 
 
 def _checked_cold_times():
@@ -2369,7 +2323,7 @@ def phase_kernels_fused():
                       "error": raised}
     log(f"[kernels-fused] missing peer: the launch gave up and raised after "
         f"{waited:.2f} s (bound 0.25 s): {raised}")
-    out["cold"] = fused_cold_times()
+    out["cold"] = _in_fresh_process("fused_cold_times")
     log(f"[kernels-fused] library: none ({FUSED_LIBRARY_NOTE})")
     return out
 
@@ -2466,6 +2420,8 @@ def _rel(a, b):
 def _dp_run(mode, cfg, batch, group, world):
     """1 warm-up and DP_STEPS timed data-parallel steps from seeded params:
     backward, sync (per ``mode``), write the synced grads back, AdamW."""
+    import resource
+
     import torch
 
     from ray_tpu_torch.models import gpt, training
@@ -2508,6 +2464,7 @@ def _dp_run(mode, cfg, batch, group, world):
     sync_ev.clear()
     sync_host.clear()
     launches, vector = [], []
+    ru0 = resource.getrusage(resource.RUSAGE_THREAD)
     t0 = time.perf_counter()
     for _ in range(DP_STEPS):
         _kernels.reset_launch_counts()
@@ -2516,6 +2473,7 @@ def _dp_run(mode, cfg, batch, group, world):
         vector.append(_kernels.vector_launch_counts())
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / DP_STEPS
+    ru1 = resource.getrusage(resource.RUSAGE_THREAD)
     sync_ms = (sum(a.elapsed_time(b) for a, b in sync_ev) / len(sync_ev)
                if sync_ev else 0.0)
     host_ms = 1e3 * sum(sync_host) / len(sync_host) if sync_host else 0.0
@@ -2525,6 +2483,10 @@ def _dp_run(mode, cfg, batch, group, world):
            * (batch["tokens"].shape[1] - 1) / (step_ms / 1e3),
            "sync_ms": sync_ms, "sync_share": sync_ms / step_ms,
            "sync_host_ms": host_ms,
+           # this thread's CPU time per step (the trainer's worker reads
+           # the same for its loop thread)
+           "thread_cpu_ms": 1e3 * (ru1.ru_utime + ru1.ru_stime - ru0.ru_utime
+                                   - ru0.ru_stime) / DP_STEPS,
            "launches": launches, "vector_launches": vector}
     if mode.startswith("int8"):
         rec["profile"] = _dp_profile(step)
@@ -2763,35 +2725,45 @@ def _dp_rank_entry(rank, world, init_method, out_path):
         Path(out_path).write_text(json.dumps(rec))
 
 
+def _spawn_ranks(entry, world, timeout_s=900):
+    """``entry(rank, world, init_method, out_path)`` in one spawned
+    process per rank; rank 0's record (JSON at out_path) returned."""
+    import multiprocessing
+
+    import torch
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = multiprocessing.get_context("spawn")
+        out = os.path.join(tmp, "rank0.json")
+        procs = [ctx.Process(target=entry,
+                             args=(r, world, f"file://{tmp}/store", out))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout_s
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        codes = [p.exitcode for p in procs]
+        check(codes == [0] * world, f"{entry.__name__} ranks exited with "
+              f"{codes}")
+        return json.loads(Path(out).read_text())
+
+
 def phase_dp_train():
     """Runs dp-train and gpt-sync on one rank per card: in-process at
     world 1, one spawned process per card otherwise."""
-    import multiprocessing
-
     import torch
 
     world = torch.cuda.device_count()
     if world == 1:
         rec = _dp_body(0, 1, None)
     else:
-        with tempfile.TemporaryDirectory() as tmp:
-            ctx = multiprocessing.get_context("spawn")
-            out = os.path.join(tmp, "dp.json")
-            procs = [ctx.Process(target=_dp_rank_entry,
-                                 args=(r, world, f"file://{tmp}/store", out))
-                     for r in range(world)]
-            for p in procs:
-                p.start()
-            deadline = time.monotonic() + 900
-            for p in procs:
-                p.join(max(0.0, deadline - time.monotonic()))
-            for p in procs:
-                if p.is_alive():
-                    p.kill()
-                    p.join(10)
-            codes = [p.exitcode for p in procs]
-            check(codes == [0] * world, f"dp ranks exited with {codes}")
-            rec = json.loads(Path(out).read_text())
+        rec = _spawn_ranks(_dp_rank_entry, world)
     dp, gs = rec["dp_train"], rec["gpt_sync"]
     for mode in DP_MODES:
         r = dp["runs"][mode]
@@ -3735,12 +3707,433 @@ def phase_serve_app(serve_rec=None):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# train-app: GPT-2-small training through the port's trainer
+# (ray_tpu_torch.train.JaxTrainer) on GPU workers of its runtime, with
+# dp-train's int8 recipe in the train loop.  Runs last: its workers come
+# and go on the card.
+
+TRAIN_APP_STEPS = 6
+TRAIN_APP_CKPT_STEP = 3          # a checkpoint after this step
+TRAIN_APP_CRASH_STEP = 4         # the restart run's first gang dies here
+TRAIN_APP_BATCH = (16, 512)      # dp-train's [16, 513] per rank
+
+
+class _StepClock:
+    """A step's ms: CUDA events on the card, the host clock elsewhere."""
+
+    def __init__(self, cuda):
+        import torch
+
+        self.cuda = cuda
+        if cuda:
+            self.ev = (torch.cuda.Event(enable_timing=True),
+                       torch.cuda.Event(enable_timing=True))
+            self.ev[0].record()
+        self.t0 = time.perf_counter()
+
+    def ms(self):
+        import torch
+
+        if not self.cuda:
+            return (time.perf_counter() - self.t0) * 1e3
+        self.ev[1].record()
+        torch.cuda.synchronize()
+        return self.ev[0].elapsed_time(self.ev[1])
+
+
+def _param_digest(names, leaves):
+    """sha256 over the parameters' names and bytes, in tree order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for name, t in zip(names, leaves):
+        h.update(name.encode())
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _train_app_loop(config):
+    """One rank of the trainer's run: dp-train's int8 step (backward,
+    GradientSynchronizer("int8") over the gang's group, the synced grads
+    written back, AdamW) on this rank's seeded batch, on the card
+    ``train.torch.get_device()`` picks.  Reports every step (loss, its
+    ms by CUDA events, the K1-K7 launches of the step), checkpoints the
+    params, AdamW's state and the error-feedback residuals after
+    ``ckpt_step``, and resumes from such a checkpoint.  The first gang of
+    a run with ``crash_step`` dies right after reporting that step.
+    (``preset`` "nano" on CPU workers, with a gloo group, rehearses it
+    off the card.)"""
+    import resource
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.collective import collective as col
+    from ray_tpu_torch.collective.compression import parse_compression
+    from ray_tpu_torch.models import gpt, training
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.parallel import GradientSynchronizer, sharding
+    from ray_tpu_torch.train.torch import get_device
+
+    t_start = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ctx = train.get_context()
+    rank, world = ctx.get_world_rank(), ctx.get_world_size()
+    device = get_device()
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(device)
+    group = os.environ.get("RAY_TPU_TORCH_TRAIN_COLLECTIVE_GROUP")
+    own_group = group is None
+    if own_group:
+        # one worker: the backend makes no group (as the reference's), so
+        # the loop opens the one-member NCCL group dp-train's run uses
+        group = "dp"
+        col.init_collective_group(1, 0, backend="nccl" if cuda else "gloo",
+                                  group_name=group)
+    try:
+        peers = col.get_group_handle(group).peers is not None
+        cfg = getattr(gpt.GPTConfig, config.get("preset", "gpt2_small"))()
+        B, S = config.get("batch", TRAIN_APP_BATCH)
+        tokens = torch.from_numpy(np.random.RandomState(SEED + rank).randint(
+            0, cfg.vocab_size, (B, S + 1))).to(device)
+        batch = {"tokens": tokens}
+        init_state, _ = training.make_train_step(cfg, device=device)
+        state = init_state(seed=SEED)
+        named = training.param_leaves(state["params"])
+        names = [n for n, _ in named]
+        leaves = [t for _, t in named]
+        opt = state["opt_state"]
+        sync = GradientSynchronizer(group, compression="int8")
+        predicted = {**FLASH_TRAIN_LAUNCHES, **sharding.sync_launch_counts(
+            sharding.sync_plan([t.numel() for t in leaves],
+                               parse_compression("int8"), world, peers))}
+        start = 0
+        restored = train.get_checkpoint()
+        if restored is not None:
+            with restored.as_directory() as d:
+                sub = os.path.join(d, f"rank_{rank}")
+                saved = torch.load(
+                    os.path.join(sub if os.path.isdir(sub) else d,
+                                 "state.pt"), map_location=device)
+            with torch.no_grad():
+                for n, t in zip(names, leaves):
+                    t.copy_(saved["params"][n])
+            opt.load_state_dict(saved["opt"])
+            # GradientSynchronizer has no public way to set its
+            # error-feedback residuals (nor has the reference's)
+            sync._residuals = dict(saved["residuals"])
+            start = saved["step"]
+            del saved
+        t_ready = time.time()
+        report_s = None
+        for step in range(start + 1, config["steps"] + 1):
+            _kernels.reset_launch_counts()
+            clock = _StepClock(cuda)
+            t_host = time.perf_counter()
+            ru0 = resource.getrusage(resource.RUSAGE_THREAD)
+            opt.zero_grad(set_to_none=True)
+            loss = gpt.loss_fn(state["params"], batch, cfg, device=device)
+            loss.backward()
+            synced = sync([t.grad for t in leaves])
+            for t, g in zip(leaves, synced):
+                t.grad = g
+            opt.step()
+            host_ms = (time.perf_counter() - t_host) * 1e3
+            ru1 = resource.getrusage(resource.RUSAGE_THREAD)
+            launches = _kernels.launch_counts()
+            metrics = {"step": step, "loss": loss.detach().float().item(),
+                       "step_ms": clock.ms(), "host_ms": host_ms,
+                       # the loop thread's own CPU time while it issued
+                       # the step
+                       "thread_cpu_ms": 1e3 * (
+                           ru1.ru_utime + ru1.ru_stime
+                           - ru0.ru_utime - ru0.ru_stime),
+                       "launches": launches, "predicted": predicted,
+                       "peers": peers, "device": str(device),
+                       "pid": os.getpid(), "t_start": t_start,
+                       "t_ready": t_ready, "prev_report_s": report_s}
+            ckpt_dir = None
+            if step == config["ckpt_step"] or step == config["steps"]:
+                metrics["digest"] = _param_digest(names, leaves)
+            if step == config["ckpt_step"]:
+                ckpt_dir = tempfile.mkdtemp(prefix="train-app-ckpt-")
+                t0 = time.perf_counter()
+                torch.save({"step": step,
+                            "params": dict(zip(names, leaves)),
+                            "opt": opt.state_dict(),
+                            "residuals": sync.residuals},
+                           os.path.join(ckpt_dir, "state.pt"))
+                metrics["ckpt_save_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            train.report(metrics, checkpoint=None if ckpt_dir is None
+                         else train.Checkpoint(ckpt_dir))
+            report_s = time.perf_counter() - t0
+            if ckpt_dir is not None:
+                shutil.rmtree(ckpt_dir, ignore_errors=True)
+                report_s = None         # a checkpoint's copy, not a report
+            if step == config.get("crash_step") and restored is None:
+                os._exit(1)             # the host dies: the gang restarts
+    finally:
+        if own_group:
+            col.destroy_collective_group(group)
+
+
+class _TrainAppResults:
+    """RunConfig callback keeping each rank-0 result with the driver's
+    time of its arrival."""
+
+    def __init__(self):
+        self.results = []
+
+    def on_trial_result(self, trial, metrics):
+        self.results.append((time.time(), dict(metrics)))
+
+    def on_trial_complete(self, trial):
+        pass
+
+    def on_trial_error(self, trial):
+        pass
+
+
+def _int8_dp_rank(rank, world, init_method, out_path=None):
+    """One rank of dp-train's int8 run alone (``_dp_body``'s group, seeds
+    and batch, without its other modes); rank 0's record is written to
+    ``out_path`` and returned."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.collective import collective as col
+    from ray_tpu_torch.models import gpt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    col.init_collective_group(world, rank, backend="nccl", group_name="dp",
+                              init_method=init_method)
+    try:
+        cfg = gpt.GPTConfig.gpt2_small()
+        B, S = TRAIN_APP_BATCH
+        tokens = torch.from_numpy(np.random.RandomState(SEED + rank).randint(
+            0, cfg.vocab_size, (B, S + 1))).cuda()
+        rec, state, leaves = _dp_run("int8", cfg, {"tokens": tokens}, "dp",
+                                     world)
+        del state, leaves
+        torch.cuda.empty_cache()
+        rec = {"world": world, "runs": {"int8": rec}}
+        if rank == 0 and out_path is not None:
+            Path(out_path).write_text(json.dumps(rec))
+        return rec
+    finally:
+        col.destroy_collective_group("dp")
+
+
+def _train_app_fit(name, storage, world, use_gpu=True, **run_kw):
+    from ray_tpu_torch._private.protocol import free_port
+    from ray_tpu_torch.train import (JaxConfig, JaxTrainer, RunConfig,
+                                     ScalingConfig)
+
+    cb = _TrainAppResults()
+    config = {"steps": TRAIN_APP_STEPS, "ckpt_step": TRAIN_APP_CKPT_STEP}
+    config.update(run_kw.pop("loop", {}))
+    t0 = time.time()
+    result = JaxTrainer(
+        _train_app_loop, train_loop_config=config,
+        scaling_config=ScalingConfig(num_workers=world, use_gpu=use_gpu,
+                                     gpus_per_worker=1),
+        backend_config=JaxConfig(mode="spmd", compression="int8",
+                                 coordinator_port=free_port()),
+        run_config=RunConfig(name=name, storage_path=storage,
+                             callbacks=[cb], **run_kw)).fit()
+    return t0, time.time(), result, cb.results
+
+
+def phase_train_app(dp_rec=None):
+    import math
+    import shutil
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.collective.compression import parse_compression
+    from ray_tpu_torch.models import gpt, training
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.parallel import sharding
+    from ray_tpu_torch.train import FailureConfig
+
+    smi = _smi_line()
+    t_phase = time.perf_counter()
+    world = torch.cuda.device_count()
+    # dp-train's int8 run alone, one fresh process per rank, right before
+    # the trainer's: the worker's step is held to a step of a process as
+    # young as its own (an in-process step slows as its process ages:
+    # PERF.md section 7), and its losses to dp-train's
+    dp = _spawn_ranks(_int8_dp_rank, world)["runs"]["int8"]
+    if dp_rec is not None and dp_rec["world"] == world:
+        check(dp["losses"] == dp_rec["runs"]["int8"]["losses"],
+              f"dp-train's int8 losses in fresh processes {dp['losses']} "
+              f"differ from dp-train's {dp_rec['runs']['int8']['losses']}")
+    want = dp["losses"][:TRAIN_APP_STEPS]
+    cfg = gpt.GPTConfig.gpt2_small()
+    sizes = [math.prod(shape) for _, shape in
+             training.param_leaves(gpt.param_shapes(cfg))]
+    rec = {"card": smi, "world": world}
+    before = set(_runtime_procs())
+    storage = tempfile.mkdtemp(prefix="train-app-")
+    rt.init(num_cpus=4)
+    try:
+        # 1. the uninterrupted run: 6 steps, a checkpoint after step 3
+        t_fit, t_end, result, got = _train_app_fit("train-app", storage,
+                                                   world)
+        steps = [m for _, m in got]
+        check([m["step"] for m in steps] == list(range(1, TRAIN_APP_STEPS
+                                                        + 1)),
+              f"train-app reported steps {[m['step'] for m in steps]}")
+        losses = [m["loss"] for m in steps]
+        check(losses == want, f"train-app losses {losses} are not dp-train's"
+              f" int8 losses {want} (bitwise)")
+        m0 = steps[0]
+        predicted = {**FLASH_TRAIN_LAUNCHES, **sharding.sync_launch_counts(
+            sharding.sync_plan(sizes, parse_compression("int8"), world,
+                               m0["peers"]))}
+        check(m0["predicted"] == predicted, f"the worker predicts "
+              f"{m0['predicted']}, this process {predicted}")
+        for m in steps:
+            check(m["launches"] == predicted, f"train-app step {m['step']}"
+                  f" launched {m['launches']}, predicted {predicted}")
+        on_path = [k for k in QUANT_KERNELS + tuple(FLASH_TRAIN_LAUNCHES)
+                   if k != _kernels.FUSED_REDUCE_SCATTER.name]
+        check(all(steps[-1]["launches"][k] > 0 for k in on_path),
+              f"a kernel of the path was not launched: {steps[-1]['launches']}")
+        check(m0["device"] == "cuda:0", f"rank 0 computed on {m0['device']}")
+        # the checkpoint Result.checkpoint returns loads to the worker's
+        # step-3 parameters, bitwise
+        check(result.checkpoint is not None, "fit returned no checkpoint")
+        ck = steps[TRAIN_APP_CKPT_STEP - 1]
+        with result.checkpoint.as_directory() as d:
+            sub = os.path.join(d, "rank_0")
+            saved = torch.load(os.path.join(sub if os.path.isdir(sub) else d,
+                                            "state.pt"), map_location="cpu")
+        names = list(saved["params"])
+        digest = _param_digest(names, [saved["params"][n] for n in names])
+        check(saved["step"] == TRAIN_APP_CKPT_STEP and digest == ck["digest"],
+              f"checkpoint {result.checkpoint.path}: step {saved['step']}, "
+              f"digest {digest[:16]} != the worker's {ck['digest'][:16]}")
+        ckpt_bytes = sum(os.path.getsize(os.path.join(r, f))
+                         for r, _, fs in os.walk(result.checkpoint.path)
+                         for f in fs)
+        del saved
+        later = steps[1:]
+        step_ms = sum(m["step_ms"] for m in later) / len(later)
+        reports = [m["prev_report_s"] for m in steps
+                   if m["prev_report_s"] is not None]
+        rec["run"] = {
+            "losses": losses, "dp_train_losses": want,
+            "launches_per_step": steps[-1]["launches"],
+            "predicted": predicted, "peer_memory": m0["peers"],
+            "gang_up_s": m0["t_ready"] - t_fit,
+            "worker_start_s": m0["t_start"] - t_fit,
+            "first_report_s": got[0][0] - t_fit, "fit_s": t_end - t_fit,
+            "step_ms": [m["step_ms"] for m in steps],
+            "step_ms_mean_2_to_6": step_ms,
+            "host_ms": [m["host_ms"] for m in steps],
+            "host_ms_mean_2_to_6": sum(m["host_ms"] for m in later)
+            / len(later),
+            "thread_cpu_ms_mean_2_to_6": sum(m["thread_cpu_ms"]
+                                             for m in later) / len(later),
+            "dp_fresh_step_ms": dp["step_ms"],
+            "dp_fresh_thread_cpu_ms": dp["thread_cpu_ms"],
+            "dp_train_step_ms": None if dp_rec is None
+            else dp_rec["runs"]["int8"]["step_ms"],
+            "report_s_mean": sum(reports) / len(reports),
+            "reports_timed": len(reports),
+            "ckpt_save_s": ck["ckpt_save_s"], "ckpt_bytes": ckpt_bytes,
+            "checkpoint": "== the worker's step-3 params (sha256)"}
+        r = rec["run"]
+        in_phase = ("not run" if dp_rec is None
+                    else f"{r['dp_train_step_ms']:.2f} ms")
+        log(f"[train-app] JaxTrainer(mode=spmd, compression=int8) on {world}"
+            f" GPU worker(s): gang up to the first step {r['gang_up_s']:.2f}"
+            f" s (worker process up {r['worker_start_s']:.2f} s); losses == "
+            f"dp-train's int8 losses (bitwise) {[round(x, 4) for x in losses]}"
+            f"; launches per step {r['launches_per_step']} == predicted; "
+            f"step {step_ms:.2f} ms (CUDA events, steps 2-6; the host "
+            f"issues it in {r['host_ms_mean_2_to_6']:.2f} ms, the loop "
+            f"thread on a CPU {r['thread_cpu_ms_mean_2_to_6']:.2f} ms of "
+            f"them) against dp-train's int8 step in a fresh process just "
+            f"before {dp['step_ms']:.2f} ms (its thread on a CPU "
+            f"{dp['thread_cpu_ms']:.2f} ms; in the dp-train phase "
+            f"{in_phase}); report "
+            f"{1e3 * r['report_s_mean']:.2f} ms per step; checkpoint "
+            f"{ckpt_bytes / 1e9:.2f} GB saved in {r['ckpt_save_s']:.2f} s, "
+            f"== the step-3 params ({smi})")
+        shutil.rmtree(os.path.join(storage, "train-app"), ignore_errors=True)
+
+        # 2. the restart: the first gang dies after step 4; the trainer
+        # builds a new one on fresh GPU leases, which resumes from the
+        # step-3 checkpoint
+        t_fit, t_end, result, got = _train_app_fit(
+            "train-app-restart", storage, world,
+            failure_config=FailureConfig(max_failures=1),
+            loop={"crash_step": TRAIN_APP_CRASH_STEP})
+        seq = [m["step"] for _, m in got]
+        resumed = list(range(TRAIN_APP_CKPT_STEP + 1, TRAIN_APP_STEPS + 1))
+        check(seq == list(range(1, TRAIN_APP_CRASH_STEP + 1)) + resumed,
+              f"restart run reported steps {seq}")
+        first, after = got[:TRAIN_APP_CRASH_STEP], got[TRAIN_APP_CRASH_STEP:]
+        check(after[0][1]["pid"] != first[0][1]["pid"],
+              "the restarted gang runs in the dead worker's process")
+        check([m["loss"] for _, m in first] == losses[:TRAIN_APP_CRASH_STEP],
+              "the restart run's first gang differs from the uninterrupted "
+              "run")
+        got_after = [m["loss"] for _, m in after]
+        check(got_after == losses[TRAIN_APP_CKPT_STEP:],
+              f"resumed steps {resumed} lost {got_after} != the "
+              f"uninterrupted run's {losses[TRAIN_APP_CKPT_STEP:]}")
+        check(after[-1][1]["digest"] == steps[-1]["digest"],
+              "the resumed run's final params differ from the "
+              "uninterrupted run's")
+        for _, m in after:
+            check(m["launches"] == predicted, f"resumed step {m['step']} "
+                  f"launched {m['launches']}")
+        t_dead = first[-1][0]
+        rec["restart"] = {
+            "steps": seq, "resumed_losses": got_after,
+            "resume_to_ready_s": after[0][1]["t_ready"] - t_dead,
+            "resume_to_first_report_s": after[0][0] - t_dead,
+            "worker_start_s": after[0][1]["t_start"] - t_dead,
+            "fit_s": t_end - t_fit}
+        r = rec["restart"]
+        log(f"[train-app] restart: the gang died after step "
+            f"{TRAIN_APP_CRASH_STEP}; a new gang on fresh GPU leases resumed"
+            f" from the step-{TRAIN_APP_CKPT_STEP} checkpoint "
+            f"{r['resume_to_ready_s']:.2f} s after the last report (its "
+            f"worker up at {r['worker_start_s']:.2f} s, its first report at "
+            f"{r['resume_to_first_report_s']:.2f} s); steps {resumed} == "
+            f"the uninterrupted run's, final params bitwise ({smi})")
+    finally:
+        rt.shutdown()
+        shutil.rmtree(storage, ignore_errors=True)
+    mine = lambda: {p: c for p, c in _runtime_procs().items()  # noqa: E731
+                    if p not in before}
+    _wait_for(lambda: not mine(), 60,
+              f"runtime processes outlived shutdown: {mine()}")
+    check(not _card_holders(before), f"runtime processes hold the card "
+          f"after shutdown: {_card_holders(before)}")
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"[train-app] shutdown left no runtime process and none holds the "
+        f"card; phase {rec['seconds']:.1f} s")
+    return rec
+
+
 def _kernel_entry(k, case, launches_by_path, **extra):
+    # the main path: a step through the trainer (K1-K6; K7 runs there only
+    # with the fused hop forced, and its entry says so)
     entry = {"name": k.name, "route": "cuda",
              "source": f"ray_tpu_torch/csrc/{k.source}",
              "replaces": k.replaces.split()[0],
-             "launches": launches_by_path["dp_train_step"]
-             if k.name in QUANT_KERNELS else launches_by_path["train_step"],
+             "launches": launches_by_path["train_app_step"],
              "launches_by_path": launches_by_path,
              "max_abs_err": case["max_abs_err"],
              "ms": case["ms"], "plain_ms": case["plain_ms"],
@@ -3751,7 +4144,7 @@ def _kernel_entry(k, case, launches_by_path, **extra):
 
 PHASES = ("kernels", "forward", "serve", "serve-bench", "parity", "train",
           "kernels-quantize", "kernels-fused", "dp-train", "runtime",
-          "serve-app")
+          "serve-app", "train-app")
 
 
 def main(argv=None):
@@ -3817,6 +4210,10 @@ def main(argv=None):
         # last, for the same reason: its replicas come and go on the card
         torch.cuda.empty_cache()
         report["serve_app"] = phase_serve_app(report.get("serve"))
+    if "train-app" in phases:
+        # last as well: its GPU workers come and go on the card
+        torch.cuda.empty_cache()
+        report["train_app"] = phase_train_app(report.get("dp_train"))
 
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps(report, indent=1))
@@ -3845,7 +4242,11 @@ def main(argv=None):
                 "runtime_actor_forward":
                     report["runtime"]["forward"]["actor_launches"][name],
                 "runtime_actor_train_step":
-                    report["runtime"]["train"]["launches_per_step"][name]}
+                    report["runtime"]["train"]["launches_per_step"][name],
+                # one step of GPT-2-small through the trainer on GPU
+                # workers (dp-train's int8 recipe)
+                "train_app_step":
+                    report["train_app"]["run"]["launches_per_step"][name]}
 
     k1 = report["kernels"][0]
     bwd = report["kernels_bwd"][0]

@@ -1,0 +1,328 @@
+#!/usr/bin/env python3
+"""Diagnostic studies on one NVIDIA GPU, behind PERF.md sections 6 and 7.
+No chip_smoke phase runs them and they gate nothing; they reuse
+chip_smoke.py's cases and helpers.
+
+    python3 chip_studies.py STEP [STEP ...]
+
+builds the kernels (chip_smoke's device and build phases), then runs the
+steps in order:
+
+  cold-l2            ``cold_l2_study``: why a cold-L2 reading can beat its
+                     bytes bound (three launch orders, kept records, idle
+                     gaps, clocks).
+  profiler-records   ``profiler_record_study``: where torch.profiler loses
+                     a window's launch records (per host-sleep pad, the
+                     kept writes and kernels in order, threads alive).
+  profiler-sessions  ``profiler_session_study``: 200 windows in a row,
+                     the lossy ones logged.
+  serve-bench        chip_smoke's serve-bench phase, which puts the
+                     process into the state that loses records.
+  train-app-host     ``train_app_host_study``: the in-process int8 dp step
+                     alone, with the port's runtime up and idle, and alone
+                     again.
+
+For example ``python3 chip_studies.py profiler-records serve-bench
+profiler-records``.  Results go to chip_smoke_out/chip_studies.json.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+import time
+
+from chip_smoke import (COLD_REPS, HBM_BYTES_PER_S, L2_FLUSH_BYTES, ROOT,
+                        SEED, _clocks, _cold_call, _cold_cases,
+                        _int8_dp_rank, check, log, phase_build, phase_device,
+                        phase_serve_bench)
+
+
+# the cases where the order of phases moved a cold reading (K6, K5: four
+# fifths of their bytes are the f32 output) and K4 (one fifth)
+COLD_STUDY_CASES = (("dequantize_accumulate", "chunk 3538944", 1),
+                    ("dequantize_accumulate", "chunk 4829184", 1),
+                    ("dequantize", "phase-2 chunk 4829184", 1),
+                    ("quantize", "phase-1 chunk 4829184", 1))
+COLD_SPIN_CYCLES = 2_000_000    # ~1 ms at the H100's clocks
+
+
+def cold_l2_study(reps=COLD_REPS):
+    """Why a cold-L2 reading can beat its bytes bound.  For the
+    ``COLD_STUDY_CASES``, the kernel's device time under three orders of
+    launch after the 128 MiB scratch write: "host" (the write, then the
+    launch as soon as the host issues it), "idle" (the write, the host
+    waits for the card and 1 ms more, then the launch: the card idles in
+    between) and "queued" (a spin kernel first, so the write and the
+    launch wait in the queue and run back to back).  For each: the
+    launches the wrapper counted, the records the profile kept, the mean
+    per kept record, the records' sum over ``reps`` (the reading before
+    ``_kernel_reading``), and the card's idle gap between the write's end
+    and the kernel's start.  The clocks are read before and after."""
+    import re
+    import statistics
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.ops import _kernels
+
+    scratch = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+
+    def host(call):
+        scratch.fill_(1.0)
+        call()
+
+    def idle(call):
+        scratch.fill_(1.0)
+        torch.cuda.synchronize()
+        time.sleep(1e-3)
+        call()
+
+    def queued(call):
+        torch.cuda._sleep(COLD_SPIN_CYCLES)
+        scratch.fill_(1.0)
+        call()
+
+    orders = {"host": host, "idle": idle, "queued": queued}
+    out = {"clocks_before": _clocks(), "cases": []}
+    for i, (kernel, case, n, block, world) in enumerate(_cold_cases()):
+        if (kernel, case, world) not in COLD_STUDY_CASES:
+            continue
+        call, fn, nbytes, _ = _cold_call(kernel, n, block, world,
+                                         SEED + 60 + i)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        own = re.compile(rf"\b{fn}\b")
+        rec = {"kernel": kernel, "case": case, "n": n, "bound_ms": bound}
+        for name, order in orders.items():
+            order(call)
+            torch.cuda.synchronize()
+            before = _kernels.launch_counts()[kernel]
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    order(call)
+                torch.cuda.synchronize()
+            launched = _kernels.launch_counts()[kernel] - before
+            fill_end, fills, durs, gaps = None, 0, [], []
+            for e in sorted((e for e in prof.events()
+                             if e.device_type == DeviceType.CUDA),
+                            key=lambda e: e.time_range.start):
+                if "Fill" in e.name:
+                    fill_end, fills = e.time_range.end, fills + 1
+                elif own.search(e.name):
+                    durs.append(e.time_range.elapsed_us() / 1e3)
+                    if fill_end is not None:
+                        gaps.append(e.time_range.start - fill_end)
+            check(durs, f"cold study {kernel} {case} {name}: no record")
+            ms = sum(durs) / len(durs)
+            rec[name] = {"launches": launched, "records": len(durs),
+                         "fill_records": fills, "ms": ms,
+                         "share_of_bound": bound / ms,
+                         "sum_over_reps_ms": sum(durs) / reps,
+                         "ms_min": min(durs), "ms_max": max(durs),
+                         "gap_us_median": statistics.median(gaps or [0.0]),
+                         "gap_us_max": max(gaps or [0.0]),
+                         "clocks": _clocks()}
+        out["cases"].append(rec)
+        log(f"[cold-study] {kernel} {case}: bound {bound:.4f} ms; " + "; ".join(
+            f"{o} {r['records']}/{r['launches']} records ({r['fill_records']}"
+            f" fills), {r['ms']:.4f} ms ({r['share_of_bound']:.0%}; sum over"
+            f" {reps} {r['sum_over_reps_ms']:.4f}), {r['ms_min']:.4f}-"
+            f"{r['ms_max']:.4f}, gap median {r['gap_us_median']:.1f} us max "
+            f"{r['gap_us_max']:.1f}" for o, r in
+            ((o, rec[o]) for o in orders)))
+        del call
+        torch.cuda.empty_cache()
+    out["clocks_after"] = _clocks()
+    log(f"[cold-study] clocks (sm, mem, max sm, max mem, power, temp, "
+        f"event reasons) before: {out['clocks_before']}; after: "
+        f"{out['clocks_after']}")
+    del scratch
+    torch.cuda.empty_cache()
+    return out
+
+
+PROFILE_PADS_MS = (0.0, 5.0, 50.0)
+
+
+def _study_case(kernel, case, world):
+    """The cold case's call and the pattern of its kernel's name."""
+    import re
+
+    i, (_, _, n, block, _) = next(
+        (i, c) for i, c in enumerate(_cold_cases())
+        if (c[0], c[1], c[4]) == (kernel, case, world))
+    call, fn, _, _ = _cold_call(kernel, n, block, world, SEED + 60 + i)
+    return call, re.compile(rf"\b{fn}\b")
+
+
+def _profile_window(call, kernel, own, scratch, reps, pad_ms=0.0):
+    """One torch.profiler window over ``reps`` cold launches of ``call``
+    (the scratch write, then the launch), padded by ``pad_ms`` of host
+    sleep after it opens and before it closes: the launches the wrapper
+    counted; the kernel, scratch-write and launch-call records in the
+    profiler's raw results and the kernel records ``prof.events()``
+    kept; the order of the kept writes (W) and kernels (K) by start time;
+    the first kept record's start after the window opened."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.ops import _kernels
+
+    scratch.fill_(1.0)
+    call()
+    torch.cuda.synchronize()
+    before = _kernels.launch_counts()[kernel]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad_ms / 1e3)
+        for _ in range(reps):
+            scratch.fill_(1.0)
+            call()
+        torch.cuda.synchronize()
+        time.sleep(pad_ms / 1e3)
+    launched = _kernels.launch_counts()[kernel] - before
+    raw = prof.profiler.kineto_results
+    dev = sorted((e for e in raw.events()
+                  if e.device_type() == DeviceType.CUDA),
+                 key=lambda e: e.start_ns())
+    seq = "".join("K" if own.search(e.name()) else
+                  "W" if "fill" in e.name().lower() else "" for e in dev)
+    return {"pad_ms": pad_ms, "launches": launched,
+            "raw_kernel_records": seq.count("K"),
+            "raw_write_records": seq.count("W"),
+            "launch_call_records": sum(
+                1 for e in raw.events() if e.device_type() == DeviceType.CPU
+                and "LaunchKernel" in e.name()),
+            "events_kernel_records": sum(
+                1 for e in prof.events() if e.device_type == DeviceType.CUDA
+                and own.search(e.name)),
+            "order": seq,
+            "first_record_after_open_us":
+                (dev[0].start_ns() - raw.trace_start_ns()) / 1e3
+                if dev else None}
+
+
+def profiler_record_study(tag, reps=COLD_REPS, pads_ms=PROFILE_PADS_MS):
+    """Where torch.profiler loses launch records (PERF.md §6): K6 at the
+    3.54M dp chunk, cold, as ``quantize_cold_times`` launches it, in one
+    ``_profile_window`` per pad, so a record lost at the start, the end
+    or in between shows, and whether padding the window keeps it; and the
+    Python threads alive (a thread left by serving could launch in the
+    window)."""
+    import threading
+
+    import torch
+
+    threads = sorted(t.name for t in threading.enumerate())
+    kernel, case, world = COLD_STUDY_CASES[0]
+    call, own = _study_case(kernel, case, world)
+    scratch = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    out = {"tag": tag, "threads": threads, "case": case, "pads": []}
+    for pad in pads_ms:
+        rec = _profile_window(call, kernel, own, scratch, reps, pad)
+        out["pads"].append(rec)
+        log(f"[profiler-study] {tag}: pad {pad:g} ms: {rec['launches']} "
+            f"launches, raw records {rec['raw_kernel_records']} kernels / "
+            f"{rec['raw_write_records']} writes / "
+            f"{rec['launch_call_records']} launch calls, prof.events() "
+            f"{rec['events_kernel_records']} kernels; order {rec['order']}; "
+            f"first record {rec['first_record_after_open_us']} us after "
+            f"the window opened")
+    log(f"[profiler-study] {tag}: threads alive {threads}")
+    del call, scratch
+    torch.cuda.empty_cache()
+    return out
+
+
+PROFILE_SESSION_CASES = (("dequantize", "small", 1),
+                         ("dequantize_accumulate", "chunk 3538944", 1))
+
+
+def profiler_session_study(sessions=200, reps=COLD_REPS, churn_mib=0):
+    """Whether torch.profiler's record losses grow with the windows a
+    process has opened, or follow the caching allocator returning memory
+    to the driver: ``sessions`` windows, alternating the
+    ``PROFILE_SESSION_CASES``, each ``_profile_window`` with no pad, and
+    before each (with ``churn_mib``) a buffer of that size allocated,
+    freed and ``torch.cuda.empty_cache()``; the windows that lost a
+    record, and the losses per block of 20 windows."""
+    import torch
+
+    scratch = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    cases = [(k, *_study_case(k, c, w)) for k, c, w in PROFILE_SESSION_CASES]
+    lossy, per_block = [], []
+    for i in range(sessions):
+        kernel, call, own = cases[i % len(cases)]
+        if churn_mib:
+            churn = torch.ones(churn_mib << 18, device="cuda")
+            del churn
+            torch.cuda.empty_cache()
+        rec = _profile_window(call, kernel, own, scratch, reps)
+        lost = (2 * rec["launches"] - rec["raw_kernel_records"]
+                - rec["raw_write_records"])
+        if i % 20 == 0:
+            per_block.append(0)
+        per_block[-1] += lost
+        if lost:
+            lossy.append({"window": i, "kernel": kernel, **rec})
+            log(f"[profiler-sessions] window {i} ({kernel}): lost {lost} "
+                f"of {2 * rec['launches']} records; order {rec['order']}")
+    log(f"[profiler-sessions] {sessions} windows (churn {churn_mib} MiB): "
+        f"{len(lossy)} lost records; lost per block of 20 windows "
+        f"{per_block}")
+    del cases, scratch
+    torch.cuda.empty_cache()
+    return {"sessions": sessions, "churn_mib": churn_mib, "lossy": lossy,
+            "lost_per_block": per_block}
+
+
+def train_app_host_study():
+    """Whether the runtime's idle daemons slow the dp step's host: the
+    in-process int8 dp run (chip_smoke's ``_int8_dp_rank`` at world 1)
+    alone, with the port's runtime up and idle (``init(num_cpus=4)``, no
+    task), and alone again: ms per step and the thread's CPU ms per step
+    of each."""
+    import ray_tpu_torch as rt
+
+    out = []
+    for tag in ("alone", "runtime up", "alone again"):
+        if tag == "runtime up":
+            rt.init(num_cpus=4)
+        try:
+            r = _int8_dp_rank(0, 1, None)["runs"]["int8"]
+        finally:
+            rt.shutdown()
+        out.append({"tag": tag, "step_ms": r["step_ms"],
+                    "thread_cpu_ms": r["thread_cpu_ms"]})
+        log(f"[train-app-host] {tag}: {r['step_ms']:.2f} ms per int8 dp "
+            f"step, its thread on a CPU {r['thread_cpu_ms']:.2f} ms")
+    return out
+
+
+STEPS = {"cold-l2": cold_l2_study,
+         "profiler-records": lambda: profiler_record_study("cli"),
+         "profiler-sessions": profiler_session_study,
+         "serve-bench": phase_serve_bench,
+         "train-app-host": train_app_host_study}
+
+
+def main(argv):
+    unknown = [s for s in argv if s not in STEPS]
+    if not argv or unknown:
+        sys.exit(f"usage: chip_studies.py STEP [STEP ...]; steps: "
+                 f"{', '.join(STEPS)} (unknown: {unknown})")
+    report = {"device": phase_device()}
+    phase_build()
+    t0 = time.perf_counter()
+    report["steps"] = [{"step": s, "result": STEPS[s]()} for s in argv]
+    report["seconds"] = time.perf_counter() - t0
+    out = ROOT / "chip_smoke_out" / "chip_studies.json"
+    out.parent.mkdir(exist_ok=True)
+    out.write_text(json.dumps(report, indent=1, default=str))
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

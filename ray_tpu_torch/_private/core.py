@@ -3181,6 +3181,9 @@ class CoreWorker:
     # running / retrying, so a call queued behind >60s of work keeps its
     # protection (the exact-tracking role of the reference's borrow acks).
     ACTOR_TRANSIT_S = 60.0
+    # how long a dead actor's still-open connection may deliver the acks
+    # of calls that ran before its death (_on_control_push, "pub:actor")
+    ACTOR_DEAD_DRAIN_S = 5.0
 
     def on_actor_handle_serialized(self, actor_id: str,
                                    owner_addr) -> Optional[str]:
@@ -3486,7 +3489,22 @@ class CoreWorker:
             with self.lock:
                 ac = self.actors.get(aid)
             if ac is not None and payload["event"] == "dead":
-                self._fail_actor(ac, actor.get("error") or "actor died")
+                err = actor.get("error") or "actor died"
+                with ac.lock:
+                    connected = ac.client is not None
+                if connected:
+                    # acks of calls that ran before the death may still be
+                    # in flight on the actor's own connection (a released
+                    # actor is killed right after its last reply): what
+                    # remains fails when that connection closes
+                    # (_on_actor_conn_lost), or after a grace period if it
+                    # never does; the reference fails them here at once
+                    t = threading.Timer(self.ACTOR_DEAD_DRAIN_S,
+                                        self._fail_actor, (ac, err))
+                    t.daemon = True
+                    t.start()
+                else:
+                    self._fail_actor(ac, err)
         handlers = getattr(self, "_push_handlers", {}).get(topic, ())
         for fn in list(handlers):
             try:

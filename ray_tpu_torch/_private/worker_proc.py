@@ -146,6 +146,23 @@ class _ReplyBatcher:
             except Exception:
                 logger.exception("ack batch push failed")
 
+    def flush(self, timeout: float = 5.0) -> None:
+        """Ship every queued ack now, on this thread, after the frame a
+        sender may have on the wire (waiting up to ``timeout`` for it)."""
+        deadline = time.monotonic() + timeout
+        with self._cv:
+            while self._draining and time.monotonic() < deadline:
+                self._cv.wait(0.005)
+            batch, self._pending = self._pending, []
+            traced, self._tp_pending = self._tp_pending, []
+        if traced:
+            self._emit_linger_spans(traced, len(batch))
+        if batch:
+            try:
+                self._send(batch)
+            except Exception:
+                logger.exception("ack batch push failed")
+
     @staticmethod
     def _emit_linger_spans(traced, batch_n: int):
         """Retro worker.ack_linger spans: completion handed to the
@@ -456,6 +473,14 @@ class WorkerMain:
                     backlog=self._ack_backlog)
             return self._mux_batcher
 
+    def _flush_acks(self) -> None:
+        with self._batcher_lock:
+            batchers = list(self._reply_batchers.values())
+            if self._mux_batcher is not None:
+                batchers.append(self._mux_batcher)
+        for b in batchers:
+            b.flush()
+
     def _ack_backlog(self) -> bool:
         """More completions imminent? drives ack-frame lingering."""
         return not self.task_queue.empty()
@@ -736,8 +761,14 @@ class WorkerMain:
                     # out of scope queues __ray_terminate__ BEHIND pending
                     # calls; the actor drains, then exits).  Reply first,
                     # then mark DEAD at the control (so the exit isn't
-                    # "restarted"), then exit.
+                    # "restarted"), then exit.  The acks of the calls
+                    # before it may still wait in a lingering batcher:
+                    # ship them first, or the control's kill reaps this
+                    # process before they leave and their owner sees
+                    # ActorDiedError for calls that ran (the reference
+                    # loses them so, ray_tpu/_private/worker_proc.py:706)
                     d.resolve(self._store_reply(spec, None, t0))
+                    self._flush_acks()
                     try:
                         self.core._control_call(
                             "kill_actor",

@@ -296,9 +296,12 @@ def _kv_issue(g: GroupHandle, x: np.ndarray, op: str,
 
 def init_collective_group(world_size: int, rank: int, backend: str = "nccl",
                           group_name: str = "default",
-                          init_method: Optional[str] = None) -> GroupHandle:
+                          init_method: Optional[str] = None,
+                          device: Optional[int] = None) -> GroupHandle:
     """Register this process as ``rank`` of ``group_name`` and rendezvous
-    with the other members (reference: collective.py:120)."""
+    with the other members (reference: collective.py:120).  An ``nccl``
+    member binds card ``device`` (default: its rank), modulo the cards it
+    sees; a caller whose ranks span nodes passes the local rank."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r} (known: {BACKENDS})")
     if group_name in _groups:
@@ -314,7 +317,8 @@ def init_collective_group(world_size: int, rank: int, backend: str = "nccl",
             raise RuntimeError(
                 "backend 'nccl' needs a CUDA device and none is available; "
                 "use backend='gloo' for CPU tensors")
-        device = torch.device("cuda", rank % torch.cuda.device_count())
+        index = rank if device is None else device
+        device = torch.device("cuda", index % torch.cuda.device_count())
         torch.cuda.set_device(device)
     else:
         device = torch.device("cpu")

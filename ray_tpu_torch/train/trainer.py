@@ -1,0 +1,248 @@
+"""JaxTrainer: the data-parallel trainer of the port (the reference's
+name: "Jax" names the reference's API; the loops it runs are torch).
+
+Mirrors the reference's DataParallelTrainer (reference:
+python/ray/train/data_parallel_trainer.py; fit flow
+train/base_trainer.py:567): spawn a worker gang, run
+`train_loop_per_worker` on every worker, stream reported results back,
+persist + rank checkpoints, and restart the group from the latest
+checkpoint on worker failure (FailureConfig.max_failures).
+
+The port's copy of ``ray_tpu/train/trainer.py``: the backend joins the
+workers into one collective group (see backend.JaxConfig), and the train
+loop syncs its gradients over it (``parallel.GradientSynchronizer``).
+The reference's flight recorder, goodput accounting and remediation
+(its ``telemetry`` and ``elastic.remediation``) wait for ROADMAP A.5,
+and ``datasets=`` for the port's Data (ROADMAP A.4c-ii).
+
+The reference's `JaxTrainer.as_trainable()` (the run loop as a Tune
+trainable) comes with the port's Tune (ROADMAP A.10).
+"""
+
+from __future__ import annotations
+
+import logging
+import re
+import time
+from typing import Any, Callable, Dict, List, Optional
+
+from .backend import BackendConfig, JaxConfig
+from .backend_executor import (BackendExecutor, TrainingFailedError,
+                               TrainingWorkerError)
+from .checkpoint import Checkpoint
+from .checkpoint_manager import CheckpointManager
+from .config import RunConfig, ScalingConfig
+from .result import Result
+
+logger = logging.getLogger(__name__)
+
+
+def _find_latest_checkpoint(trial_dir: str,
+                            world_size: int = 1) -> Optional[Checkpoint]:
+    """Scan <trial_dir>/checkpoint_* for the newest complete checkpoint.
+
+    Complete = a `.complete_rank_k` marker exists for EVERY rank (markers
+    are written after each rank's copy/upload lands): a checkpoint where
+    one worker died mid-report has a subset of ranks and restoring from
+    it would hand the missing ranks someone else's shard — or nothing.
+    Works on local dirs and remote URIs alike (train.storage)."""
+    from . import storage
+
+    need = {f".complete_rank_{k}" for k in range(world_size)}
+    cands = []
+    for name in storage.listdir(trial_dir):
+        if not re.fullmatch(r"checkpoint_\d+", name):
+            continue
+        cdir = storage.join(trial_dir, name)
+        if need <= set(storage.listdir(cdir)):
+            cands.append((name, cdir))
+    if not cands:
+        return None
+    return Checkpoint(max(cands)[1])
+
+
+class JaxTrainer:
+    def __init__(self, train_loop_per_worker: Callable,
+                 *, train_loop_config: Optional[Dict[str, Any]] = None,
+                 scaling_config: Optional[ScalingConfig] = None,
+                 run_config: Optional[RunConfig] = None,
+                 backend_config: Optional[BackendConfig] = None,
+                 datasets: Optional[Dict[str, Any]] = None,
+                 resume_from_checkpoint: Optional[Checkpoint] = None):
+        self._train_fn = train_loop_per_worker
+        self._config = dict(train_loop_config or {})
+        self.scaling_config = scaling_config or ScalingConfig()
+        self.run_config = run_config or RunConfig()
+        self.backend_config = backend_config or JaxConfig()
+        if datasets:
+            raise NotImplementedError(
+                "datasets=: the port's Data library, which shards datasets "
+                "over the workers, is not ported yet (ROADMAP A.4c-ii); "
+                "read the data inside train_loop_per_worker")
+        self._resume_checkpoint = resume_from_checkpoint
+
+    # -- the run loop (shared by fit() and the Tune trainable) -------------
+
+    def _publish_state(self, trial_name: str, status: str,
+                       metrics: Optional[Dict[str, Any]], rounds: int):
+        """Run-state snapshot into the control KV (ns 'train') for the
+        dashboard (reference: TrainStateActor feeding
+        dashboard/modules/train/train_head.py) — advisory, never fails
+        the run."""
+        from ray_tpu_torch.train.backend import publish_run_state
+
+        publish_run_state(trial_name, status,
+                          name=self.run_config.name,
+                          workers=self.scaling_config.num_workers,
+                          rounds=rounds, metrics=metrics)
+
+    def _run(self, trial_dir: str, experiment_name: str, trial_name: str,
+             on_report: Optional[Callable[[Dict[str, Any]], None]] = None,
+             ) -> Result:
+        ckpt_mgr = CheckpointManager(self.run_config.checkpoint_config)
+        max_failures = self.run_config.failure_config.max_failures
+        failures = 0
+        restore = self._resume_checkpoint
+        executor = BackendExecutor(self.backend_config, self.scaling_config)
+        executor.start()
+        last_metrics: Optional[Dict[str, Any]] = None
+        error: Optional[BaseException] = None
+        n = self.scaling_config.num_workers
+        rounds = 0  # report rounds consumed, survives restarts
+        elastic = getattr(self.backend_config, "elastic", None)
+        # safety net: every genuine loss shrinks the width toward
+        # min_workers, so recoveries are naturally bounded — this cap only
+        # guards against a pathological notice/restart loop
+        elastic_recoveries = 0
+        max_elastic_recoveries = 2 * n + 2
+        per_worker_cks: Optional[List[Optional[Checkpoint]]] = None
+        self._publish_state(trial_name, "RUNNING", None, 0)
+        try:
+            while True:
+                try:
+                    executor.start_training(
+                        self._train_fn, self._config, experiment_name,
+                        trial_name, trial_dir, checkpoint=restore,
+                        start_iteration=rounds,
+                        per_worker_checkpoints=per_worker_cks)
+                    per_worker_cks = None
+                    while True:
+                        results = executor.get_next_results()
+                        if results is None:
+                            break
+                        rounds += 1
+                        # rank-0 metrics are authoritative (reference keeps
+                        # per-rank results; rank 0 drives callbacks)
+                        _, metrics, ckpt_path = results[0]
+                        ckpt_paths = {p for _, _, p in results if p}
+                        last_metrics = metrics
+                        if ckpt_paths:
+                            assert len(ckpt_paths) == 1, (
+                                f"workers reported different checkpoint dirs: "
+                                f"{ckpt_paths}")
+                            ckpt = Checkpoint(next(iter(ckpt_paths)))
+                            ckpt_mgr.register_checkpoint(ckpt, metrics or {})
+                        if on_report is not None and metrics is not None:
+                            on_report(metrics)
+                        self._publish_state(trial_name, "RUNNING",
+                                            metrics, rounds)
+                    executor.finish_training()
+                    break
+                except TrainingWorkerError as e:
+                    if (elastic is not None
+                            and elastic_recoveries < max_elastic_recoveries):
+                        try:
+                            cks, step, new_n = executor.elastic_recover()
+                        except Exception as rec_err:
+                            logger.warning(
+                                "elastic recovery unavailable (%s); falling "
+                                "back to storage-checkpoint restart",
+                                rec_err)
+                        else:
+                            # in-memory recovery: does NOT count against
+                            # max_failures (bounded by width shrinking to
+                            # min_workers + the recoveries cap above)
+                            elastic_recoveries += 1
+                            per_worker_cks = cks
+                            n = new_n
+                            ckpt_mgr.note_emergency(step)
+                            logger.warning(
+                                "elastic recovery %d: resuming %d-wide from "
+                                "replicated snapshot step=%d (trigger: %s)",
+                                elastic_recoveries, new_n, step, e)
+                            self._publish_state(trial_name, "RESTARTING",
+                                                last_metrics, rounds)
+                            continue
+                    failures += 1
+                    if max_failures != -1 and failures > max(max_failures, 0):
+                        error = e
+                        break
+                    logger.warning(
+                        "training worker died (%s); restarting group "
+                        "(failure %d/%s) from latest checkpoint", e,
+                        failures, max_failures if max_failures != -1 else "inf")
+                    # the dir scan is marker-validated (an upload that
+                    # died with its worker left no marker), so it is the
+                    # safe restore source; the manager's latest may point
+                    # at an in-flight upload
+                    restore = (_find_latest_checkpoint(trial_dir, n)
+                               or self._resume_checkpoint)
+                    executor.restart()
+                    # a full restart rebuilds at the configured width even
+                    # after elastic shrinks
+                    n = executor.worker_group.num_workers
+                    per_worker_cks = None
+                except TrainingFailedError as e:
+                    error = e
+                    break
+        finally:
+            executor.shutdown()
+            self._publish_state(trial_name,
+                                "ERRORED" if error else "FINISHED",
+                                last_metrics, rounds)
+        return Result(metrics=last_metrics,
+                      checkpoint=ckpt_mgr.latest_checkpoint,
+                      path=trial_dir, error=error,
+                      best_checkpoints=ckpt_mgr.best_checkpoints())
+
+    def fit(self) -> Result:
+        from ray_tpu_torch._private.usage_stats import record_library_usage
+
+        record_library_usage("train")
+        from . import storage
+
+        name = self.run_config.name or f"JaxTrainer_{int(time.time())}"
+        exp_dir = storage.join(self.run_config.resolved_storage_path(), name)
+        trial_name = f"{name}_00000"
+        trial_dir = storage.join(exp_dir, trial_name)
+        storage.makedirs(trial_dir)
+        callbacks = list(self.run_config.callbacks or ())
+        on_report = None
+        trial_shim = None
+        if callbacks:
+            # standalone fit() fires RunConfig.callbacks too (reference:
+            # trainers always run through Tune's callback plumbing); the
+            # shim carries the trial fields callbacks read
+            trial_shim = type("TrialShim", (), {})()
+            trial_shim.trial_id = trial_name
+            trial_shim.trial_dir = trial_dir
+            trial_shim.config = dict(self._config)
+
+            def on_report(metrics, _t=trial_shim):
+                for cb in callbacks:
+                    cb.on_trial_result(_t, metrics)
+
+        result = self._run(trial_dir, name, trial_name, on_report=on_report)
+        for cb in callbacks:
+            if result.error is not None:
+                cb.on_trial_error(trial_shim)
+            else:
+                cb.on_trial_complete(trial_shim)
+        if result.error is not None:
+            raise TrainingFailedError(
+                f"training failed: {result.error}") from result.error
+        return result
+
+
+# Torch users of the reference map to this 1:1.
+DataParallelTrainer = JaxTrainer

@@ -1,4 +1,23 @@
-"""Runtime utilities of the port: ``tracing``, the runtime's copy of
-``ray_tpu/util/tracing.py``.  The rest of ``ray_tpu.util`` (placement
-groups, actor pools, queues, the state API, metrics) comes with the
-slices that need it (ROADMAP A.4d, A.5)."""
+"""Runtime utilities of the port: ``tracing``, placement groups and the
+scheduling strategies, the runtime's copies of ``ray_tpu/util/tracing.py``,
+``placement_group.py`` and ``scheduling_strategies.py``.  The rest of
+``ray_tpu.util`` (actor pools, queues, the state API, metrics) comes with
+the slices that need it (ROADMAP A.4d, A.5)."""
+
+from .placement_group import (PlacementGroup, get_placement_group,
+                              placement_group, placement_group_table,
+                              remove_placement_group)
+from .scheduling_strategies import (NodeAffinitySchedulingStrategy,
+                                    NodeLabelSchedulingStrategy,
+                                    PlacementGroupSchedulingStrategy)
+
+__all__ = [
+    "NodeAffinitySchedulingStrategy",
+    "NodeLabelSchedulingStrategy",
+    "PlacementGroup",
+    "PlacementGroupSchedulingStrategy",
+    "get_placement_group",
+    "placement_group",
+    "placement_group_table",
+    "remove_placement_group",
+]

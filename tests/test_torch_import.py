@@ -2,8 +2,9 @@
 module of the JAX package, its runtime modules load no torch either, its
 entry points refuse to fall back to the CPU silently (an NCCL collective
 group with no card raises), the kv collective backend runs on the port's
-own runtime, and its sources call no library attention and no
-torch.compile."""
+own runtime, its Train layer (``ray_tpu_torch.train``, with elastic and
+the placement groups) loads neither torch nor the JAX package, and its
+sources call no library attention and no torch.compile."""
 
 import os
 import re
@@ -119,9 +120,10 @@ def test_sources_use_no_library_attention_or_jax():
     for f in files:
         hits = banned.findall(f.read_text())
         assert not hits, (f, hits)
-    smoke = (REPO / "chip_smoke.py").read_text()
-    assert not re.search(r"^\s*(import|from)\s+(jax|ray_tpu)\b", smoke,
-                         re.M)
+    for script in ("chip_smoke.py", "chip_studies.py"):
+        text = (REPO / script).read_text()
+        assert not re.search(r"^\s*(import|from)\s+(jax|ray_tpu)\b", text,
+                             re.M), script
 
 
 _SERVE_PROBE = r"""
@@ -177,3 +179,51 @@ def test_serve_holds_its_modules_and_imports_nothing_of_the_reference():
                      r"|import_module\(\s*['\"](jax|ray_tpu)\b", re.M)
     for f in sorted(serve_dir.glob("*.py")):
         assert not ref.search(f.read_text()), f
+
+
+_TRAIN_PROBE = r"""
+import sys
+import ray_tpu_torch.train as train
+import ray_tpu_torch.train.backend
+import ray_tpu_torch.train.backend_executor
+import ray_tpu_torch.train.checkpoint
+import ray_tpu_torch.train.checkpoint_manager
+import ray_tpu_torch.train.config
+import ray_tpu_torch.train.result
+import ray_tpu_torch.train.session
+import ray_tpu_torch.train.storage
+import ray_tpu_torch.train.torch
+import ray_tpu_torch.train.trainer
+import ray_tpu_torch.train.worker_group
+import ray_tpu_torch.elastic.config
+import ray_tpu_torch.elastic.emergency
+import ray_tpu_torch.elastic.resume
+import ray_tpu_torch.util.placement_group
+import ray_tpu_torch.util.scheduling_strategies
+import ray_tpu_torch._private.fileio
+for name in train.__all__:
+    getattr(train, name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "ray_tpu", "torch"))
+assert not bad, bad
+print("ok")
+"""
+
+TRAIN_MODULES = ("__init__", "backend", "backend_executor", "checkpoint",
+                 "checkpoint_manager", "config", "result", "session",
+                 "storage", "torch", "trainer", "worker_group")
+
+
+def test_train_modules_load_no_torch_and_no_jax():
+    """The driver and the control plane import Train; no module of it (nor
+    its exports, nor elastic's, placement groups, file IO) loads torch or
+    anything of the JAX package: only a train loop that builds a model
+    does."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", _TRAIN_PROBE], cwd="/",
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+    have = {p.stem for p in (PORT / "train").glob("*.py")}
+    assert have == set(TRAIN_MODULES)

@@ -476,3 +476,31 @@ def test_workers_load_no_jax_and_see_no_card(cluster):
 def test_cluster_offers_no_gpu_here(cluster):
     assert "GPU" not in rt.cluster_resources()
     assert rt.cluster_resources()["CPU"] == 4.0
+
+
+@rt.remote
+def _burn(seconds):
+    end = time.monotonic() + seconds
+    n = 0
+    while time.monotonic() < end:
+        n += 1
+    return n
+
+
+@rt.remote
+class _Released:
+    def f(self, i):
+        return i * i
+
+
+def test_released_handle_keeps_its_queued_call(cluster):
+    """A handle dropped as soon as its call is submitted releases its
+    actor, and the release waits for the calls already submitted
+    (ray_tpu/_private/core.py:3391-3395): under CPU-burning tasks, while
+    the actors are still being placed, every call still returns."""
+    for _ in range(3):
+        burners = [_burn.remote(1.0) for _ in range(3)]
+        got = rt.get([_Released.remote().f.remote(i)
+                      for i in range(32)], timeout=120)
+        assert got == [i * i for i in range(32)]
+        rt.get(burners, timeout=T)

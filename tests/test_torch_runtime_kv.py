@@ -214,7 +214,11 @@ class M:
         return ns["run_ops"](col, rank, world, xs, np.asarray, None)
 
 ray_tpu.init(num_cpus=world + 1)
-outs = ray_tpu.get([M.remote().run.remote(r) for r in range(world)],
+# hold the handles: a handle dropped as soon as its call is submitted
+# is released at once, and the reference may then kill its actor before
+# the call runs
+ms = [M.remote() for _ in range(world)]
+outs = ray_tpu.get([m.run.remote(r) for r, m in enumerate(ms)],
                    timeout=120)
 for rank, out in enumerate(outs):
     np.savez(f"{sys.argv[2]}/ref{rank}.npz", **out)

@@ -69,7 +69,9 @@ Phases, each of which must pass (any failure exits non-zero):
                 timed launch, each launch in its vector body, read as the
                 mean over the launch records torch.profiler kept; a
                 reading faster than the bytes bound fails.  The wrappers'
-                host us per call.
+                host us per call.  The phase runs in a spawned process
+                and its cold readings in another, so that every reading
+                is a fresh process's (``_in_fresh_process``).
  10. kernels-fused — K7 (the fused int8 reduce-scatter over CUDA peer
                 memory) against its plain version and the staged K4 -> K6
                 hop, bitwise, sum and mean: a real one-rank NCCL group
@@ -159,11 +161,35 @@ Phases, each of which must pass (any failure exits non-zero):
                 the trainer's (its losses == dp-train's too), report per
                 step, the checkpoint's save, the restart's time to
                 resume.
+ 16. data-train — Data on the port's runtime, feeding train-app's loop:
+                init(num_cpus=cards + 4); 6 distinct [16, 513] int64
+                batches per rank (seed 100) written to parquet by
+                ray_tpu_torch.data and read back (== the array, bitwise);
+                JaxTrainer(datasets={"train": ds}) splits it over the
+                gang (streaming_split(n, equal=True)), and each step's
+                batch comes from get_dataset_shard("train")
+                .iter_jax_batches(batch_size=16, prefetch=2), staged onto
+                the worker's card through pinned buffers and a copy
+                stream; then the same loop array-fed (rank r, step s:
+                rows [96r + 16s, +16) of the array, sliced in the
+                worker).  Every Data-fed batch == its slice, int64, on
+                the rank's card, 6 per rank through the copy stream;
+                losses and final params == the array-fed fit's, bitwise;
+                K1-K7 launches per step == train-app's prediction; no
+                process holds the card after shutdown.  Times: fit to the
+                first batch in hand, the input wait per step, the
+                Data-fed step against the array-fed one; then 256 MiB of
+                int32 tokens through iter_jax_batches(batch_size=256) in
+                this process, GB/s and rows/s against iter_batches on
+                the host alone and the same batches copied from pinned
+                memory alone (CUDA events), every staged batch == its
+                host batch.
 
     python3 chip_smoke.py --phases dp-train
     python3 chip_smoke.py --phases runtime
     python3 chip_smoke.py --phases serve-bench,serve-app
     python3 chip_smoke.py --phases train-app
+    python3 chip_smoke.py --phases data-train
 
 runs the device and build phases and the named ones only (a development
 aid; with no arguments every phase runs).
@@ -1728,13 +1754,15 @@ def phase_kernels_quantize():
                     x, block, impl="plain", **kw), iters=plain_iters,
                     warmup=1)}
         k4_bound = _k4_bytes(n, block, esize) / HBM_BYTES_PER_S * 1e3
-        k4_dev = _kernel_reading(
+        k4_read = _kernel_reading(
             lambda: qz.quantize_blockwise(x, block, reciprocal_scale=True),
-            "quantize_kernel", "quantize")["ms"]
+            "quantize_kernel", "quantize")
+        k4_dev = k4_read["ms"]
         rec4 = {"case": name, "n": n, "block": block, "dtype": dname,
                 "max_abs_err": max(errs.values()), "errors": errs,
                 "ms": k4["det"]["ms"], "plain_ms": k4["det"]["plain_ms"],
-                "device_ms": k4_dev,
+                "device_ms": k4_dev, "records": k4_read["records"],
+                "launches": k4_read["launches"],
                 "stochastic_ms": k4["stoch"]["ms"],
                 "stochastic_plain_ms": k4["stoch"]["plain_ms"],
                 "bound_ms": k4_bound, "bound_by": "bytes",
@@ -1743,23 +1771,27 @@ def phase_kernels_quantize():
         k5_call = lambda: qz.dequantize_blockwise(  # noqa: E731
             q, s, (n,), torch.float32, block)
         k5_ms = cuda_time_ms(k5_call)
-        k5_dev = _kernel_reading(k5_call, "dequantize_kernel",
-                                 "dequantize")["ms"]
+        k5_read = _kernel_reading(k5_call, "dequantize_kernel", "dequantize")
+        k5_dev = k5_read["ms"]
         k5_plain = cuda_time_ms(lambda: qz.dequantize_blockwise(
             q, s, (n,), torch.float32, block, impl="plain"),
             iters=plain_iters, warmup=1)
         rec5 = {"case": name, "n": n, "block": block, "out_dtype": "float32",
                 "max_abs_err": max(deq.values()), "errors": deq,
                 "ms": k5_ms, "plain_ms": k5_plain, "device_ms": k5_dev,
+                "records": k5_read["records"],
+                "launches": k5_read["launches"],
                 "bound_ms": _k5_bytes(n, block) / HBM_BYTES_PER_S * 1e3,
                 "bound_by": "bytes", "bytes": _k5_bytes(n, block)}
         out["dequantize"].append(rec5)
         log(f"[kernels-quantize] {name} n={n} block={block} {dname}: K4 == "
             f"plain (both scale rules, det + stochastic); K4 "
             f"{rec4['ms']:.4f} ms by events, {k4_dev:.4f} ms device "
-            f"(stochastic {rec4['stochastic_ms']:.4f}), plain "
+            f"({k4_read['records']} of {k4_read['launches']} launches "
+            f"recorded; stochastic {rec4['stochastic_ms']:.4f}), plain "
             f"{rec4['plain_ms']:.3f} ms, bound {k4_bound:.4f} ms; K5 == "
-            f"plain; K5 {k5_ms:.4f} ms by events, {k5_dev:.4f} ms device, "
+            f"plain; K5 {k5_ms:.4f} ms by events, {k5_dev:.4f} ms device "
+            f"({k5_read['records']} of {k5_read['launches']} recorded), "
             f"plain {k5_plain:.3f} ms, bound {rec5['bound_ms']:.4f} ms")
         del x, q, s
         torch.cuda.empty_cache()
@@ -1799,23 +1831,25 @@ def phase_kernels_quantize():
         k6_call = lambda: qz.dequantize_accumulate(  # noqa: E731
             q, s, world, 256)
         ms = cuda_time_ms(k6_call)
-        dev = _kernel_reading(k6_call, "dequant_accum_kernel",
-                              "dequantize_accumulate")["ms"]
+        k6_read = _kernel_reading(k6_call, "dequant_accum_kernel",
+                                  "dequantize_accumulate")
+        dev = k6_read["ms"]
         plain_ms = cuda_time_ms(lambda: qz.dequantize_accumulate(
             q, s, world, 256, impl="plain"), iters=5, warmup=1)
         rec6 = {"case": f"world{world}", "world": world, "n": n,
                 "block": 256, "max_abs_err": max(errs.values()),
                 "errors": errs, "ms": ms, "plain_ms": plain_ms,
-                "device_ms": dev,
+                "device_ms": dev, "records": k6_read["records"],
+                "launches": k6_read["launches"],
                 "bound_ms": _k6_bytes(world, n, 256) / HBM_BYTES_PER_S * 1e3,
                 "bound_by": "bytes", "bytes": _k6_bytes(world, n, 256)}
         out["dequantize_accumulate"].append(rec6)
         log(f"[kernels-quantize] K6 world={world} n={n}: == plain (sum and "
-            f"mean); {ms:.4f} ms by events, {dev:.4f} ms device, plain "
+            f"mean); {ms:.4f} ms by events, {dev:.4f} ms device "
+            f"({k6_read['records']} of {k6_read['launches']} recorded), plain "
             f"{plain_ms:.3f} ms, bound {rec6['bound_ms']:.4f} ms")
         del x, q, s
     torch.cuda.empty_cache()
-    out["cold"] = _in_fresh_process("_checked_cold_times")
     out["wrapper_host_us"] = wrapper_host_us()
     log(f"[kernels-quantize] library: none ({QUANT_LIBRARY_NOTE})")
     return out
@@ -1828,8 +1862,10 @@ def _fresh_entry(fn_name, out_path):
 
 def _in_fresh_process(fn_name, timeout_s=900):
     """``fn_name()`` of this script run in a spawned process, its result
-    (JSON) returned here, while this process waits.  The cold-L2 readings
-    run so: once a process has served (serve-bench) or, at times, run the
+    (JSON) returned here, while this process waits.  Every kernel reading
+    by torch.profiler that is held to its records (``_kernel_reading``:
+    kernels-quantize's warm and cold readings, kernels-fused's cold ones)
+    runs so: once a process has served (serve-bench) or, at times, run the
     kernels phases, torch.profiler's raw results keep fewer of a window's
     launch records (19 of 20 kernels and 18 of 20 scratch writes,
     however the window is padded, or none), while fresh processes kept
@@ -3753,6 +3789,92 @@ def _param_digest(names, leaves):
     return h.hexdigest()
 
 
+def data_train_tokens(world, vocab, batch=TRAIN_APP_BATCH,
+                      steps=TRAIN_APP_STEPS):
+    """data-train's tokens: ``steps`` distinct [B, S + 1] int64 batches
+    per rank, rank r's rows at [r * steps * B, (r + 1) * steps * B), the
+    rows ``split(world, equal=True)`` gives it."""
+    import numpy as np
+
+    B, S = batch
+    tokens = np.random.RandomState(SEED + 100).randint(
+        0, vocab, (world * steps * B, S + 1))
+    check(tokens.dtype == np.int64, f"tokens are {tokens.dtype}")
+    return tokens
+
+
+class _DataFeed:
+    """data-train's batches in the train loop.  ``"dataset"`` reads the
+    rank's shard of the trainer's dataset through iter_jax_batches (a
+    copy stream, 2 batches in flight), ``"array"`` slices the same seeded
+    array in the worker; each batch is held against its slice, bitwise."""
+
+    def __init__(self, mode, rank, world, vocab, batch, steps, device):
+        from ray_tpu_torch import train
+        from ray_tpu_torch.data import iterator as data_iterator
+
+        self.mode, self.rank, self.device = mode, rank, device
+        self.B = batch[0]
+        per = steps * self.B
+        self.rows = data_train_tokens(world, vocab, batch, steps)[
+            rank * per:(rank + 1) * per]
+        self.iterator = data_iterator
+        self.wait_ms = {}
+        self.t_first = None
+        self.bad = []
+        self.stream = None
+        if mode == "dataset":
+            data_iterator.reset_staging_counts()
+            # on a card no device is named: the default resolves now, to
+            # the card set_device picked (the CPU rehearsal names its CPU)
+            self.stream = iter(train.get_dataset_shard(
+                "train").iter_jax_batches(
+                    batch_size=self.B, prefetch=2,
+                    device=None if device.type == "cuda" else device))
+        else:
+            check(mode == "array", f"unknown data mode {mode!r}")
+
+    def _rows(self, step):
+        return self.rows[self.B * (step - 1):self.B * step]
+
+    def fetch(self, step):
+        import torch
+
+        t0 = time.perf_counter()
+        if self.stream is not None:
+            tokens = next(self.stream)["tokens"]
+        else:
+            tokens = torch.from_numpy(self._rows(step)).to(self.device)
+        self.wait_ms[step] = (time.perf_counter() - t0) * 1e3
+        if self.t_first is None:
+            self.t_first = time.time()
+        return tokens
+
+    def record(self, step, tokens):
+        """The step's batch checks and input wait, for its report."""
+        import torch
+
+        same = torch.equal(tokens.cpu(), torch.from_numpy(self._rows(step)))
+        where = str(tokens.device)
+        if not (same and tokens.dtype == torch.int64
+                and where == str(self.device)):
+            self.bad.append({"step": step, "equal": same, "on": where,
+                             "dtype": str(tokens.dtype)})
+        return {"data": self.mode, "input_wait_ms": self.wait_ms[step],
+                "t_first_batch": self.t_first, "batch_bad": self.bad,
+                "staging": self.iterator.staging_counts()}
+
+    def close(self, out_dir):
+        """Ends the shard's epoch and writes this rank's record (the
+        trainer surfaces rank 0's reports only)."""
+        if self.stream is not None:
+            self.stream.close()
+        Path(out_dir, f"{self.mode}-rank{self.rank}.json").write_text(
+            json.dumps({"rank": self.rank, "device": str(self.device),
+                        "batch_bad": self.bad, "wait_ms": self.wait_ms,
+                        "staging": self.iterator.staging_counts()}))
+
+
 def _train_app_loop(config):
     """One rank of the trainer's run: dp-train's int8 step (backward,
     GradientSynchronizer("int8") over the gang's group, the synced grads
@@ -3798,9 +3920,13 @@ def _train_app_loop(config):
         peers = col.get_group_handle(group).peers is not None
         cfg = getattr(gpt.GPTConfig, config.get("preset", "gpt2_small"))()
         B, S = config.get("batch", TRAIN_APP_BATCH)
-        tokens = torch.from_numpy(np.random.RandomState(SEED + rank).randint(
-            0, cfg.vocab_size, (B, S + 1))).to(device)
-        batch = {"tokens": tokens}
+        if config.get("data") is None:
+            tokens = torch.from_numpy(np.random.RandomState(
+                SEED + rank).randint(0, cfg.vocab_size, (B, S + 1))).to(device)
+            feed = None
+        else:
+            feed = _DataFeed(config["data"], rank, world, cfg.vocab_size,
+                             (B, S), config["steps"], device)
         init_state, _ = training.make_train_step(cfg, device=device)
         state = init_state(seed=SEED)
         named = training.param_leaves(state["params"])
@@ -3829,6 +3955,8 @@ def _train_app_loop(config):
             start = saved["step"]
             del saved
         t_ready = time.time()
+        if feed is not None:
+            tokens = feed.fetch(start + 1)
         report_s = None
         for step in range(start + 1, config["steps"] + 1):
             _kernels.reset_launch_counts()
@@ -3836,7 +3964,8 @@ def _train_app_loop(config):
             t_host = time.perf_counter()
             ru0 = resource.getrusage(resource.RUSAGE_THREAD)
             opt.zero_grad(set_to_none=True)
-            loss = gpt.loss_fn(state["params"], batch, cfg, device=device)
+            loss = gpt.loss_fn(state["params"], {"tokens": tokens}, cfg,
+                               device=device)
             loss.backward()
             synced = sync([t.grad for t in leaves])
             for t, g in zip(leaves, synced):
@@ -3844,6 +3973,12 @@ def _train_app_loop(config):
             opt.step()
             host_ms = (time.perf_counter() - t_host) * 1e3
             ru1 = resource.getrusage(resource.RUSAGE_THREAD)
+            if feed is not None:
+                # the next step's batch, fetched while this one runs on
+                # the card: the loop's input wait
+                step_tokens = tokens
+                if step < config["steps"]:
+                    tokens = feed.fetch(step + 1)
             launches = _kernels.launch_counts()
             metrics = {"step": step, "loss": loss.detach().float().item(),
                        "step_ms": clock.ms(), "host_ms": host_ms,
@@ -3856,6 +3991,8 @@ def _train_app_loop(config):
                        "peers": peers, "device": str(device),
                        "pid": os.getpid(), "t_start": t_start,
                        "t_ready": t_ready, "prev_report_s": report_s}
+            if feed is not None:
+                metrics.update(feed.record(step, step_tokens))
             ckpt_dir = None
             if step == config["ckpt_step"] or step == config["steps"]:
                 metrics["digest"] = _param_digest(names, leaves)
@@ -3877,6 +4014,8 @@ def _train_app_loop(config):
                 report_s = None         # a checkpoint's copy, not a report
             if step == config.get("crash_step") and restored is None:
                 os._exit(1)             # the host dies: the gang restarts
+        if feed is not None:
+            feed.close(config["out_dir"])
     finally:
         if own_group:
             col.destroy_collective_group(group)
@@ -3929,7 +4068,8 @@ def _int8_dp_rank(rank, world, init_method, out_path=None):
         col.destroy_collective_group("dp")
 
 
-def _train_app_fit(name, storage, world, use_gpu=True, **run_kw):
+def _train_app_fit(name, storage, world, use_gpu=True, datasets=None,
+                   **run_kw):
     from ray_tpu_torch._private.protocol import free_port
     from ray_tpu_torch.train import (JaxConfig, JaxTrainer, RunConfig,
                                      ScalingConfig)
@@ -3939,7 +4079,7 @@ def _train_app_fit(name, storage, world, use_gpu=True, **run_kw):
     config.update(run_kw.pop("loop", {}))
     t0 = time.time()
     result = JaxTrainer(
-        _train_app_loop, train_loop_config=config,
+        _train_app_loop, train_loop_config=config, datasets=datasets,
         scaling_config=ScalingConfig(num_workers=world, use_gpu=use_gpu,
                                      gpus_per_worker=1),
         backend_config=JaxConfig(mode="spmd", compression="int8",
@@ -4127,13 +4267,288 @@ def phase_train_app(dp_rec=None):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# data-train: train-app's loop fed by the port's Data: a dataset read from
+# parquet, split over the gang by the trainer (streaming_split(n,
+# equal=True)) and staged onto each worker's card by iter_jax_batches; then
+# the staging path alone, in this process, at a size a loader moves.
+
+DATA_STAGE_BYTES = 256 << 20      # int32 tokens of [*, 513] through staging
+DATA_STAGE_BATCH = 256
+
+
+def data_train_dataset(tokens, root):
+    """The tokens written to parquet by Data and read back, checked
+    bitwise against the array."""
+    import numpy as np
+
+    from ray_tpu_torch import data as rd
+
+    path = os.path.join(root, "tokens")
+    rd.from_numpy(tokens, column="tokens").write_parquet(path)
+    ds = rd.read_parquet(path)
+    back = np.concatenate([b["tokens"] for b in ds.iter_batches(
+        batch_size=None, batch_format="numpy", prefetch_batches=0)])
+    check(back.dtype == tokens.dtype and np.array_equal(back, tokens),
+          f"parquet round trip: {back.dtype} {back.shape} != the array's "
+          f"{tokens.dtype} {tokens.shape}")
+    return ds
+
+
+def data_train_fits(storage, world, use_gpu=True, loop=None):
+    """The Data-fed fit, then the array-fed fit, of train-app's loop;
+    -> {mode: (t_fit, t_end, reports, per-rank records)}."""
+    from ray_tpu_torch.models import gpt
+
+    loop = dict(loop or {})
+    cfg = getattr(gpt.GPTConfig, loop.get("preset", "gpt2_small"))()
+    tokens = data_train_tokens(world, cfg.vocab_size,
+                               loop.get("batch", TRAIN_APP_BATCH))
+    ds = data_train_dataset(tokens, storage)
+    out = {}
+    for mode in ("dataset", "array"):
+        out_dir = tempfile.mkdtemp(prefix=f"data-train-{mode}-", dir=storage)
+        t_fit, t_end, result, got = _train_app_fit(
+            f"data-train-{mode}", storage, world, use_gpu=use_gpu,
+            datasets={"train": ds} if mode == "dataset" else None,
+            loop={**loop, "data": mode, "ckpt_step": None,
+                  "out_dir": out_dir})
+        check(result.error is None, f"data-train {mode}: {result.error}")
+        ranks = [json.loads(Path(out_dir, f"{mode}-rank{r}.json").read_text())
+                 for r in range(world)]
+        out[mode] = (t_fit, t_end, [m for _, m in got], ranks)
+    return out
+
+
+def check_data_train(fits, world, steps=TRAIN_APP_STEPS, on_card=True):
+    """data-train's checks on the two fits' records (the launch counts
+    aside): every Data-fed batch its array slice, int64, on the rank's
+    device, staged through the copy stream on a card (the CPU rehearsal
+    stages through none); losses and final params of the two fits
+    bitwise."""
+    reports = {mode: fit[2] for mode, fit in fits.items()}
+    for mode, got in reports.items():
+        check([m["step"] for m in got] == list(range(1, steps + 1)),
+              f"data-train {mode} reported steps {[m['step'] for m in got]}")
+        for r in fits[mode][3]:
+            check(not r["batch_bad"], f"data-train {mode} rank {r['rank']}: "
+                  f"batches differ from their array slices: {r['batch_bad']}")
+    for r in fits["dataset"][3]:
+        check(r["staging"]["batches"] == steps
+              and r["staging"]["copy_stream_batches"] == steps * on_card,
+              f"rank {r['rank']} staged {r['staging']}, not {steps} batches "
+              f"{'through' if on_card else 'past'} the copy stream")
+    losses = {mode: [m["loss"] for m in got] for mode, got in reports.items()}
+    check(losses["dataset"] == losses["array"], f"Data-fed losses "
+          f"{losses['dataset']} are not the array-fed fit's "
+          f"{losses['array']} (bitwise)")
+    check(reports["dataset"][-1]["digest"] == reports["array"][-1]["digest"],
+          "the Data-fed fit's final params differ from the array-fed fit's")
+    check(sorted(r["rank"] for r in fits["dataset"][3]) == list(range(world)),
+          "a rank wrote no record")
+    return losses
+
+
+def _staging_reading(world):
+    """The staging path alone in this process: DATA_STAGE_BYTES of int32
+    tokens through iter_jax_batches onto the card, against iter_batches
+    on the host alone and against the same batches copied from pinned
+    memory alone (the card's host-to-device copy bound here)."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch import data as rd
+    from ray_tpu_torch.data import iterator as data_iterator
+
+    S1 = TRAIN_APP_BATCH[1] + 1
+    rows = DATA_STAGE_BYTES // (4 * S1)
+    tokens = np.random.RandomState(SEED + 101).randint(
+        0, 50304, (rows, S1)).astype(np.int32)
+    ds = rd.from_numpy(tokens, column="tokens").materialize()
+    nbytes = tokens.nbytes
+    B = DATA_STAGE_BATCH
+    n_batches = rows // B
+
+    def host():
+        t0 = time.perf_counter()
+        n = 0
+        for b in ds.iter_batches(batch_size=B, batch_format="numpy",
+                                 drop_last=True):
+            n += len(b["tokens"])
+        return time.perf_counter() - t0, n
+
+    def staged():
+        data_iterator.reset_staging_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = 0
+        for b in ds.iter_jax_batches(batch_size=B, prefetch=2):
+            n += b["tokens"].shape[0]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = data_iterator.staging_counts()
+        check(counts["copy_stream_batches"] == n_batches,
+              f"staging counted {counts}, not {n_batches} batches")
+        return dt, n
+
+    pinned = torch.from_numpy(tokens[:n_batches * B]).pin_memory()
+    dev = torch.empty((B, S1), dtype=torch.int32, device="cuda")
+
+    def copies():
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        torch.cuda.synchronize()
+        ev[0].record()
+        for i in range(n_batches):
+            dev.copy_(pinned[i * B:(i + 1) * B], non_blocking=True)
+        ev[1].record()
+        torch.cuda.synchronize()
+        return ev[0].elapsed_time(ev[1]) / 1e3, n_batches * B
+
+    readings = {"host": [], "staged": [], "pinned_copy": []}
+    for name in ("host", "staged", "pinned_copy", "pinned_copy", "staged",
+                 "host"):
+        dt, n = {"host": host, "staged": staged, "pinned_copy": copies}[name]()
+        check(n == n_batches * B, f"{name} moved {n} rows, not "
+              f"{n_batches * B}")
+        readings[name].append(dt)
+    moved = n_batches * B * S1 * 4
+    rec = {"rows": n_batches * B, "bytes": moved, "batch": [B, S1],
+           "dtype": "int32", "array_bytes": nbytes, "seconds": readings}
+    for name, dts in readings.items():
+        mean = sum(dts) / len(dts)
+        rec[f"{name}_gb_s"] = moved / mean / 1e9
+        rec[f"{name}_rows_s"] = n_batches * B / mean
+    # every staged batch equals its host batch, bitwise (an untimed pass)
+    for i, (h, d) in enumerate(zip(
+            ds.iter_batches(batch_size=B, batch_format="numpy",
+                            drop_last=True),
+            ds.iter_jax_batches(batch_size=B, prefetch=2))):
+        t = d["tokens"]
+        check(t.device.type == "cuda" and t.dtype == torch.int32
+              and torch.equal(t.cpu(), torch.from_numpy(h["tokens"])),
+              f"staged batch {i} differs from its host batch")
+    rec["checked_batches"] = i + 1
+    check(i + 1 == n_batches, f"checked {i + 1} of {n_batches} batches")
+    del pinned, dev
+    return rec
+
+
+def phase_data_train():
+    import math
+    import shutil
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.collective.compression import parse_compression
+    from ray_tpu_torch.models import gpt, training
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.parallel import sharding
+
+    smi = _smi_line()
+    t_phase = time.perf_counter()
+    world = torch.cuda.device_count()
+    cfg = gpt.GPTConfig.gpt2_small()
+    sizes = [math.prod(shape) for _, shape in
+             training.param_leaves(gpt.param_shapes(cfg))]
+    rec = {"card": smi, "world": world}
+    before = set(_runtime_procs())
+    storage = tempfile.mkdtemp(prefix="data-train-")
+    # the gang's bundles hold a CPU each; Data's read tasks and its split
+    # coordinator need their own beside them
+    rt.init(num_cpus=world + 4)
+    try:
+        fits = data_train_fits(storage, world)
+        losses = check_data_train(fits, world)
+        steps = {mode: fit[2] for mode, fit in fits.items()}
+        m0 = steps["dataset"][0]
+        predicted = {**FLASH_TRAIN_LAUNCHES, **sharding.sync_launch_counts(
+            sharding.sync_plan(sizes, parse_compression("int8"), world,
+                               m0["peers"]))}
+        for mode, got in steps.items():
+            for m in got:
+                check(m["launches"] == predicted, f"data-train {mode} step "
+                      f"{m['step']} launched {m['launches']}, predicted "
+                      f"{predicted}")
+        check(predicted[_kernels.FUSED_REDUCE_SCATTER.name] == 0,
+              f"K7 predicted on data-train's path: {predicted}")
+        on_path = [k for k in QUANT_KERNELS + tuple(FLASH_TRAIN_LAUNCHES)
+                   if k != _kernels.FUSED_REDUCE_SCATTER.name]
+        check(all(steps["dataset"][-1]["launches"][k] > 0 for k in on_path),
+              f"a kernel of the path was not launched: "
+              f"{steps['dataset'][-1]['launches']}")
+        check(all(r["device"] == f"cuda:{r['rank']}"
+                  for r in fits["dataset"][3]),
+              f"ranks computed on {[r['device'] for r in fits['dataset'][3]]}")
+        run = {}
+        for mode, (t_fit, t_end, got, ranks) in fits.items():
+            later = got[1:]
+            run[mode] = {
+                "losses": losses[mode],
+                "first_batch_s": got[0]["t_first_batch"] - t_fit,
+                "gang_up_s": got[0]["t_ready"] - t_fit,
+                "fit_s": t_end - t_fit,
+                "input_wait_ms": [m["input_wait_ms"] for m in got],
+                "input_wait_ms_by_rank": [r["wait_ms"] for r in ranks],
+                "input_wait_ms_mean_2_to_6": sum(
+                    m["input_wait_ms"] for m in later) / len(later),
+                "step_ms": [m["step_ms"] for m in got],
+                "step_ms_mean_2_to_6": sum(m["step_ms"] for m in later)
+                / len(later),
+                "host_ms_mean_2_to_6": sum(m["host_ms"] for m in later)
+                / len(later),
+                "staging_by_rank": [r["staging"] for r in ranks]}
+        rec["run"] = run
+        rec["launches_per_step"] = steps["dataset"][-1]["launches"]
+        rec["predicted"] = predicted
+        d, a = run["dataset"], run["array"]
+        log(f"[data-train] JaxTrainer(datasets={{'train': read_parquet}}) "
+            f"on {world} GPU worker(s): fit to first batch in hand "
+            f"{d['first_batch_s']:.2f} s (array-fed "
+            f"{a['first_batch_s']:.2f} s); input wait per step after the "
+            f"first {[round(x, 3) for x in d['input_wait_ms'][1:]]} ms "
+            f"(array-fed {[round(x, 3) for x in a['input_wait_ms'][1:]]});"
+            f" step {d['step_ms_mean_2_to_6']:.2f} ms Data-fed against "
+            f"{a['step_ms_mean_2_to_6']:.2f} ms array-fed (CUDA events, "
+            f"steps 2-6); losses == the array-fed fit's (bitwise) "
+            f"{[round(x, 4) for x in d['losses']]}, final params bitwise; "
+            f"every batch == its array slice, int64, on the rank's card, "
+            f"{TRAIN_APP_STEPS} staged per rank through the copy stream; "
+            f"launches per step {rec['launches_per_step']} == predicted "
+            f"({smi})")
+        rec["staging"] = st = _staging_reading(world)
+        log(f"[data-train] staging {st['bytes'] / 2**20:.0f} MiB of int32 "
+            f"tokens in [{DATA_STAGE_BATCH}, {st['batch'][1]}] batches: "
+            f"iter_jax_batches onto the card {st['staged_gb_s']:.3f} GB/s "
+            f"({st['staged_rows_s']:.0f} rows/s), iter_batches on the host "
+            f"alone {st['host_gb_s']:.3f} GB/s ({st['host_rows_s']:.0f} "
+            f"rows/s), the same batches from pinned memory alone "
+            f"{st['pinned_copy_gb_s']:.3f} GB/s (CUDA events); "
+            f"{st['checked_batches']} staged batches == their host batches "
+            f"({smi})")
+    finally:
+        rt.shutdown()
+        shutil.rmtree(storage, ignore_errors=True)
+    mine = lambda: {p: c for p, c in _runtime_procs().items()  # noqa: E731
+                    if p not in before}
+    _wait_for(lambda: not mine(), 60,
+              f"runtime processes outlived shutdown: {mine()}")
+    check(not _card_holders(before), f"runtime processes hold the card "
+          f"after shutdown: {_card_holders(before)}")
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"[data-train] shutdown left no runtime process and none holds the "
+        f"card; phase {rec['seconds']:.1f} s")
+    return rec
+
+
 def _kernel_entry(k, case, launches_by_path, **extra):
-    # the main path: a step through the trainer (K1-K6; K7 runs there only
-    # with the fused hop forced, and its entry says so)
+    # the main path: a step through the trainer on Data-fed batches (K1-K6;
+    # K7 runs there only with the fused hop forced, and its entry says so)
     entry = {"name": k.name, "route": "cuda",
              "source": f"ray_tpu_torch/csrc/{k.source}",
              "replaces": k.replaces.split()[0],
-             "launches": launches_by_path["train_app_step"],
+             "launches": launches_by_path["data_train_step"],
              "launches_by_path": launches_by_path,
              "max_abs_err": case["max_abs_err"],
              "ms": case["ms"], "plain_ms": case["plain_ms"],
@@ -4144,7 +4559,7 @@ def _kernel_entry(k, case, launches_by_path, **extra):
 
 PHASES = ("kernels", "forward", "serve", "serve-bench", "parity", "train",
           "kernels-quantize", "kernels-fused", "dp-train", "runtime",
-          "serve-app", "train-app")
+          "serve-app", "train-app", "data-train")
 
 
 def main(argv=None):
@@ -4196,7 +4611,12 @@ def main(argv=None):
         report["train"] = phase_train(kernel_ms)
         torch.cuda.empty_cache()
     if "kernels-quantize" in phases:
-        report["kernels_quantize"] = phase_kernels_quantize()
+        # each in a fresh process: this one has served and run the kernels
+        # phases, and may then lose profiler records (_in_fresh_process)
+        report["kernels_quantize"] = _in_fresh_process(
+            "phase_kernels_quantize")
+        report["kernels_quantize"]["cold"] = _in_fresh_process(
+            "_checked_cold_times")
     if "kernels-fused" in phases:
         report["kernels_fused"] = phase_kernels_fused()
     if "dp-train" in phases:
@@ -4214,6 +4634,10 @@ def main(argv=None):
         # last as well: its GPU workers come and go on the card
         torch.cuda.empty_cache()
         report["train_app"] = phase_train_app(report.get("dp_train"))
+    if "data-train" in phases:
+        # after train-app: its GPU workers come and go on the card too
+        torch.cuda.empty_cache()
+        report["data_train"] = phase_data_train()
 
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps(report, indent=1))
@@ -4246,7 +4670,10 @@ def main(argv=None):
                 # one step of GPT-2-small through the trainer on GPU
                 # workers (dp-train's int8 recipe)
                 "train_app_step":
-                    report["train_app"]["run"]["launches_per_step"][name]}
+                    report["train_app"]["run"]["launches_per_step"][name],
+                # the same step on batches Data read, split and staged
+                "data_train_step":
+                    report["data_train"]["launches_per_step"][name]}
 
     k1 = report["kernels"][0]
     bwd = report["kernels_bwd"][0]

@@ -21,6 +21,9 @@ steps in order:
   train-app-host     ``train_app_host_study``: the in-process int8 dp step
                      alone, with the port's runtime up and idle, and alone
                      again.
+  data-host          ``data_host_study``: Data's host iteration of 256 MiB
+                     of tokens, with and without its prefetch thread,
+                     staged, and as a bare loop, with a profile.
 
 For example ``python3 chip_studies.py profiler-records serve-bench
 profiler-records``.  Results go to chip_smoke_out/chip_studies.json.
@@ -302,11 +305,88 @@ def train_app_host_study():
     return out
 
 
+def data_host_study(passes=2):
+    """Where Data's host iteration spends its time on this machine
+    (PERF.md §6: data-train's staging reading found ``iter_batches``
+    alone far below the pinned copy rate): 256 MiB of int32 tokens in
+    [256, 513] batches through ``iter_batches`` with the prefetch thread
+    (the default) and without it, through ``iter_jax_batches`` onto the
+    card, and the block sliced and converted in a bare loop; a profile
+    of one pass without the thread; the package versions."""
+    import cProfile
+    import io
+    import pstats
+
+    import numpy as np
+    import pyarrow as pa
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data as rd
+    from ray_tpu_torch.data.block import BlockAccessor
+    from chip_smoke import DATA_STAGE_BATCH, DATA_STAGE_BYTES
+
+    out = {"numpy": np.__version__, "pyarrow": pa.__version__,
+           "torch": torch.__version__, "passes": []}
+    B = DATA_STAGE_BATCH
+    rows = DATA_STAGE_BYTES // (4 * 513)
+    tokens = np.random.RandomState(SEED + 101).randint(
+        0, 50304, (rows, 513)).astype(np.int32)
+    rt.init(num_cpus=4)
+    try:
+        ds = rd.from_numpy(tokens, column="tokens").materialize()
+
+        def host(prefetch):
+            return sum(len(b["tokens"]) for b in ds.iter_batches(
+                batch_size=B, batch_format="numpy", drop_last=True,
+                prefetch_batches=prefetch))
+
+        def staged():
+            n = sum(b["tokens"].shape[0] for b in ds.iter_jax_batches(
+                batch_size=B, prefetch=2))
+            torch.cuda.synchronize()
+            return n
+
+        def bare():
+            block = rt.get(ds.get_internal_block_refs()[0], timeout=60)
+            table = BlockAccessor(block).to_arrow()
+            return sum(len(BlockAccessor(table.slice(i, B)).to_batch(
+                "numpy")["tokens"]) for i in range(0, rows - B + 1, B))
+
+        for _ in range(passes):
+            for tag, fn in (("iter_batches, prefetch thread",
+                             lambda: host(None)),
+                            ("iter_batches, no thread", lambda: host(0)),
+                            ("iter_jax_batches", staged),
+                            ("bare slice + to_batch", bare)):
+                t0 = time.perf_counter()
+                n = fn()
+                dt = time.perf_counter() - t0
+                out["passes"].append({"tag": tag, "s": dt, "rows": n,
+                                      "gb_s": n * 513 * 4 / dt / 1e9,
+                                      "batch_ms": dt / (n / B) * 1e3})
+                log(f"[data-host] {tag}: {n * 513 * 4 / dt / 1e9:.3f} "
+                    f"GB/s, {dt / (n / B) * 1e3:.3f} ms per batch")
+        prof = cProfile.Profile()
+        prof.enable()
+        host(0)
+        prof.disable()
+        text = io.StringIO()
+        pstats.Stats(prof, stream=text).sort_stats("tottime").print_stats(12)
+        out["profile"] = text.getvalue()
+        log(f"[data-host] profile of one pass without the thread:\n"
+            f"{out['profile']}")
+    finally:
+        rt.shutdown()
+    return out
+
+
 STEPS = {"cold-l2": cold_l2_study,
          "profiler-records": lambda: profiler_record_study("cli"),
          "profiler-sessions": profiler_session_study,
          "serve-bench": phase_serve_bench,
-         "train-app-host": train_app_host_study}
+         "train-app-host": train_app_host_study,
+         "data-host": data_host_study}
 
 
 def main(argv):

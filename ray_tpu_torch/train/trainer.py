@@ -12,8 +12,10 @@ The port's copy of ``ray_tpu/train/trainer.py``: the backend joins the
 workers into one collective group (see backend.JaxConfig), and the train
 loop syncs its gradients over it (``parallel.GradientSynchronizer``).
 The reference's flight recorder, goodput accounting and remediation
-(its ``telemetry`` and ``elastic.remediation``) wait for ROADMAP A.5,
-and ``datasets=`` for the port's Data (ROADMAP A.4c-ii).
+(its ``telemetry`` and ``elastic.remediation``) wait for ROADMAP A.5.
+``datasets=`` shards each port ``Dataset`` over the workers with
+``streaming_split(n, equal=True)`` at every (re)start, as the reference
+does.
 
 The reference's `JaxTrainer.as_trainable()` (the run loop as a Tune
 trainable) comes with the port's Tune (ROADMAP A.10).
@@ -74,12 +76,36 @@ class JaxTrainer:
         self.scaling_config = scaling_config or ScalingConfig()
         self.run_config = run_config or RunConfig()
         self.backend_config = backend_config or JaxConfig()
-        if datasets:
-            raise NotImplementedError(
-                "datasets=: the port's Data library, which shards datasets "
-                "over the workers, is not ported yet (ROADMAP A.4c-ii); "
-                "read the data inside train_loop_per_worker")
+        self._datasets = datasets or {}
         self._resume_checkpoint = resume_from_checkpoint
+
+    # -- dataset sharding --------------------------------------------------
+
+    def _shard_datasets(self, n: int) -> Optional[List[Dict[str, Any]]]:
+        """Per-worker dataset shards.  ray_tpu_torch.data Datasets shard via
+        streaming_split (one coordinator actor streams blocks; workers get
+        serializable DataIterators — reference: get_dataset_shard returns
+        a DataIterator backed by streaming_split(equal=True)); anything
+        else is replicated."""
+        if not self._datasets:
+            return None
+        per_worker: List[Dict[str, Any]] = [dict() for _ in range(n)]
+        for name, ds in self._datasets.items():
+            shards = None
+            streaming_split = getattr(ds, "streaming_split", None)
+            split = getattr(ds, "split", None)  # ray_tpu_torch.data Dataset
+            if callable(streaming_split):
+                shards = streaming_split(n, equal=True)
+            elif callable(split):
+                try:
+                    shards = split(n, equal=True)
+                except TypeError:
+                    shards = split(n)
+            if shards is None or len(shards) != n:
+                shards = [ds] * n
+            for i in range(n):
+                per_worker[i][name] = shards[i]
+        return per_worker
 
     # -- the run loop (shared by fit() and the Tune trainable) -------------
 
@@ -123,6 +149,7 @@ class JaxTrainer:
                     executor.start_training(
                         self._train_fn, self._config, experiment_name,
                         trial_name, trial_dir, checkpoint=restore,
+                        dataset_shards_per_worker=self._shard_datasets(n),
                         start_iteration=rounds,
                         per_worker_checkpoints=per_worker_cks)
                     per_worker_cks = None

@@ -3,8 +3,9 @@ module of the JAX package, its runtime modules load no torch either, its
 entry points refuse to fall back to the CPU silently (an NCCL collective
 group with no card raises), the kv collective backend runs on the port's
 own runtime, its Train layer (``ray_tpu_torch.train``, with elastic and
-the placement groups) loads neither torch nor the JAX package, and its
-sources call no library attention and no torch.compile."""
+the placement groups) and its Data library (``ray_tpu_torch.data``) load
+neither torch nor the JAX package, and its sources call no library
+attention and no torch.compile."""
 
 import os
 import re
@@ -227,3 +228,49 @@ def test_train_modules_load_no_torch_and_no_jax():
     assert out.stdout.strip().endswith("ok")
     have = {p.stem for p in (PORT / "train").glob("*.py")}
     assert have == set(TRAIN_MODULES)
+
+
+_DATA_PROBE = r"""
+import sys
+import ray_tpu_torch.data as data
+import ray_tpu_torch.data._avro
+import ray_tpu_torch.data.aggregate
+import ray_tpu_torch.data.block
+import ray_tpu_torch.data.compute
+import ray_tpu_torch.data.context
+import ray_tpu_torch.data.dataset
+import ray_tpu_torch.data.datasource
+import ray_tpu_torch.data.execution
+import ray_tpu_torch.data.external
+import ray_tpu_torch.data.grouped
+import ray_tpu_torch.data.iterator
+import ray_tpu_torch.data.lake
+import ray_tpu_torch.data.logical
+import ray_tpu_torch.data.preprocessors
+import ray_tpu_torch.train.trainer
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "ray_tpu", "torch"))
+assert not bad, bad
+print("ok")
+"""
+
+DATA_MODULES = ("__init__", "_avro", "aggregate", "block", "compute",
+                "context", "dataset", "datasource", "execution", "external",
+                "grouped", "iterator", "lake", "logical", "preprocessors")
+
+
+def test_data_modules_load_no_torch_and_no_jax():
+    """Read tasks and the split coordinator run on CPU workers, which come
+    up in a fraction of the time a worker that imports torch takes: no
+    module of the port's Data (nor the trainer that shards datasets)
+    loads torch, JAX or the JAX package; only the functions that make
+    tensors import torch."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", _DATA_PROBE], cwd="/",
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+    have = {p.stem for p in (PORT / "data").glob("*.py")}
+    assert have == set(DATA_MODULES)
+    assert have == {p.stem for p in (REPO / "ray_tpu" / "data").glob("*.py")}

@@ -690,3 +690,39 @@ def test_fused_rs_builds_with_its_ptxas_report(gpu):
     log = _kernels.build_log(_kernels.FUSED_REDUCE_SCATTER)
     assert "fused_rs_kernel" in log and "Used" in log, log
     assert "bytes spill" in log
+
+
+@pytest.mark.cuda
+def test_iter_jax_batches_stages_onto_the_card_through_the_copy_stream(gpu):
+    """Data's device-fed iterator: 8 host batches (read-only arrays, as
+    the shm blocks are) with 2 in flight, through its ring of pinned
+    buffers and its copy stream, onto the current card: every batch is
+    its host batch bitwise (a torch dtype cast on the host too), and the
+    staging counters show all 8 on the copy stream."""
+    import numpy as np
+
+    from ray_tpu_torch.data import iterator
+
+    rng = np.random.RandomState(0)
+    host = []
+    for _ in range(8):
+        b = {"tokens": rng.randint(0, 50304, (16, 513)),
+             "x": rng.standard_normal((16, 7))}
+        for v in b.values():
+            v.flags.writeable = False
+        host.append(b)
+    iterator.reset_staging_counts()
+    it = iterator.iter_jax_batches(iter(host), prefetch=2,
+                                   dtypes={"x": torch.bfloat16})
+    got = list(it)
+    assert len(got) == 8
+    want_dev = torch.device("cuda", torch.cuda.current_device())
+    for h, d in zip(host, got):
+        assert d["tokens"].device == want_dev and d["x"].device == want_dev
+        assert d["tokens"].dtype == torch.int64
+        assert torch.equal(d["tokens"].cpu(), torch.from_numpy(h["tokens"]))
+        assert torch.equal(d["x"].cpu(),
+                           torch.from_numpy(h["x"]).to(torch.bfloat16))
+    per_batch = 16 * 513 * 8 + 16 * 7 * 2
+    assert iterator.staging_counts() == {
+        "batches": 8, "bytes": 8 * per_batch, "copy_stream_batches": 8}

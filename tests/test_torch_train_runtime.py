@@ -13,7 +13,11 @@ the module), plus what the port's backend adds, and the oracle:
   * the port's trainer equals the same steps run in this process,
     bitwise, with SGD and with AdamW(3e-4, weight_decay=0.1);
   * a two-worker "spmd" gang (a gloo group on CPU workers) takes a synced
-    step that equals one process on the joined batch.
+    step that equals one process on the joined batch;
+  * ``datasets=`` reaches each worker as its equal shard, on a node whose
+    CPUs the gang holds too, and GPT nano trained on Data-fed batches
+    (chip_smoke's data-train at nano size, on gloo CPU workers) is
+    bitwise the same loop on the sliced array.
 
 No int8 and no AdamW in the oracle: across the two packages the grads
 differ by ulps, one ulp can flip an int8 code, and AdamW turns a flipped
@@ -113,11 +117,6 @@ def test_unported_backend_options_raise(kw, item):
     # off and unset run
     assert JaxConfig(telemetry=False).telemetry is False
     assert JaxConfig().telemetry is None
-
-
-def test_datasets_raise_naming_data():
-    with pytest.raises(NotImplementedError, match="A.4c-ii"):
-        JaxTrainer(_loop_basic, datasets={"train": [1, 2, 3]})
 
 
 # -- end-to-end runs (test_train.py) -----------------------------------------
@@ -524,6 +523,105 @@ def test_two_process_spmd_train_step_matches_single(cluster, tmp_path):
                                                            want)
     assert abs(result.metrics["loss1"] - want[1]) < 1e-4, (result.metrics,
                                                            want)
+
+
+# -- datasets= (test_train.py) -----------------------------------------------
+
+
+def _loop_data(config):
+    shard = train.get_dataset_shard("train")
+    total = rows = 0
+    for batch in shard.iter_batches(batch_size=8, batch_format="numpy"):
+        total += int(batch["id"].sum())
+        rows += len(batch["id"])
+    train.report({"rows": rows, "sum": total})
+
+
+def test_trainer_dataset_streaming_shards(cluster, tmp_path):
+    """datasets= flows through streaming_split into per-worker
+    DataIterators (reference: get_dataset_shard -> DataIterator)."""
+    from ray_tpu_torch import data as rd
+
+    trainer = JaxTrainer(
+        _loop_data,
+        datasets={"train": rd.range(64, override_num_blocks=4)},
+        scaling_config=ScalingConfig(num_workers=2),
+        run_config=RunConfig(name="tds", storage_path=str(tmp_path)),
+    )
+    result = trainer.fit()
+    assert result.error is None
+    # equal=True: each worker saw exactly half the rows; rank 0 the first
+    assert result.metrics["rows"] == 32
+    assert result.metrics["sum"] == sum(range(32))
+
+
+def test_data_fed_gpt_fit_is_bitwise_the_array_fed_fit(cluster, tmp_path):
+    """The CPU rehearsal of chip_smoke's data-train phase, through its own
+    functions: GPT nano on 2 gloo CPU workers ("spmd", int8 sync), 6
+    steps on batches that Data wrote to parquet, read back, split over the
+    gang (streaming_split(2, equal=True)) and staged by iter_jax_batches,
+    against the same loop on the same rows sliced from the seeded array
+    in the worker.  Every batch equals its slice, the losses and final
+    params are bitwise the array-fed fit's."""
+    import chip_smoke
+
+    fits = chip_smoke.data_train_fits(
+        str(tmp_path), 2, use_gpu=False,
+        loop={"preset": "nano", "batch": (2, 32)})
+    losses = chip_smoke.check_data_train(fits, 2, on_card=False)
+    assert len(losses["dataset"]) == chip_smoke.TRAIN_APP_STEPS
+    assert all(np.isfinite(losses["dataset"]))
+    for r in fits["dataset"][3]:
+        assert r["device"] == "cpu"
+        assert r["staging"]["bytes"] == chip_smoke.TRAIN_APP_STEPS * 2 * 33 * 8
+
+
+def _loop_data_gang(config):
+    """Each rank stages its shard with iter_jax_batches; the sums meet in
+    the gang's gloo group."""
+    from ray_tpu_torch import collective
+    from ray_tpu_torch.train.torch import get_device
+
+    group = os.environ["RAY_TPU_TORCH_TRAIN_COLLECTIVE_GROUP"]
+    shard = train.get_dataset_shard("train")
+    total = torch.zeros(1, dtype=torch.int64)
+    rows = 0
+    for batch in shard.iter_jax_batches(batch_size=8,
+                                        device=get_device()):
+        total += batch["id"].sum()
+        rows += batch["id"].shape[0]
+    train.report({"rows": rows,
+                  "total": int(collective.allreduce(total, group)[0])})
+
+
+@pytest.fixture
+def reserved_node(cluster):
+    """A node of 2 CPUs in place of the module's cluster (which comes back
+    after the test)."""
+    rt.shutdown()
+    rt.init(num_cpus=2)
+    yield
+    rt.shutdown()
+    rt.init(num_cpus=4)
+
+
+def test_dataset_shards_on_a_fully_reserved_node(reserved_node, tmp_path):
+    """A gang of 2 gloo workers holds both CPUs of the node, and Data's
+    split coordinator and read tasks still run beside it: the workers'
+    blocking gets lend their CPUs (the reference's note at
+    ray_tpu/data/iterator.py:111-114)."""
+    from ray_tpu_torch import data as rd
+
+    ds = rd.range(64, override_num_blocks=4).map_batches(
+        lambda b: {"id": b["id"] * 2})
+    result = JaxTrainer(
+        _loop_data_gang, datasets={"train": ds},
+        scaling_config=ScalingConfig(num_workers=2),
+        backend_config=JaxConfig(mode="spmd", coordinator_port=free_port()),
+        run_config=RunConfig(name="reserved", storage_path=str(tmp_path)),
+    ).fit()
+    assert result.error is None, result.error
+    assert result.metrics == {"rows": 32, "total": sum(range(0, 128, 2))}
 
 
 # -- the oracle: the reference's JaxTrainer on the same loop -----------------

@@ -102,7 +102,7 @@ Phases, each of which must pass (any failure exits non-zero):
                 gradient, fp32 against int8 (auto chunks) against int8
                 with impl="fused": times, error, chunked == chunks=1 and
                 fused == staged bitwise, K7's device ms.
- 13. runtime  — the port's task/actor runtime (runs next to last):
+ 13. runtime  — the port's task/actor runtime:
                 ray_tpu_torch.init(num_cpus=4) offers as many GPUs as torch
                 sees; spawn to first task of a fresh CPU and GPU worker; a
                 num_gpus=1 actor runs GPT-2-small (seed 0) on its card:
@@ -120,7 +120,7 @@ Phases, each of which must pass (any failure exits non-zero):
                 (== plain sum, int8 == the codec, broadcast, no keys
                 left); no runtime process outlives shutdown or holds the
                 card.
- 14. serve-app — Serve on the port's runtime (runs next to last):
+ 14. serve-app — Serve on the port's runtime:
                 build_llm_app("gpt2_small") on a GPU replica
                 (ray_actor_options={"num_gpus": 1}; paged, bf16, seed 0),
                 the controller, proxies and stream ingress on CPU workers;
@@ -138,7 +138,7 @@ Phases, each of which must pass (any failure exits non-zero):
                 to RUNNING, handle latency and tokens/s against the
                 in-process engine, the RPC round trip, the resume's extra
                 latency, each beside the card's name and power limit.
- 15. train-app — Train on the port's runtime (runs last):
+ 15. train-app — Train on the port's runtime:
                 ray_tpu_torch.train.JaxTrainer(mode="spmd",
                 compression="int8") on one GPU worker per card
                 (ScalingConfig(use_gpu=True)), each on the card
@@ -184,12 +184,50 @@ Phases, each of which must pass (any failure exits non-zero):
                 the host alone and the same batches copied from pinned
                 memory alone (CUDA events), every staged batch == its
                 host batch.
+ 17. dag      — compiled DAGs on the port's runtime: init(num_cpus=4), two
+                stage actors at num_gpus=0.5 on one card.  (a) [8, 1024]
+                int64 tokens on the card into stage A (GPT-2-small, bf16,
+                seed 0), whose last position's logits (bf16 [8, 50304],
+                805 KB) cross a raw-tensor edge in the default 1 MiB slot
+                to stage B, which returns the f32 log-softmax's argmax:
+                B's logits == this process's forward on its card, bitwise,
+                the tokens equal, K1 12 launches per iteration in A, a
+                node's exception re-raised at get; times over 20
+                iterations of the compiled DAG, the interpreted execute(),
+                a .remote() chain and the forward in this process, 20
+                executes pipelined (nslots 4) against 20 one at a time.
+                (b) a 128 MiB bf16 CUDA tensor through an edge of one 129
+                MiB slot x 2: GB/s end to end and split into the writer's
+                device -> shm and the reader's shm -> device copies,
+                against the object plane (put by A, got by B) and pinned
+                copies, bitwise each way.  (c) allreduce_bind of both
+                actors' f32 [1,048,576] contributions (seeds 1, 2) with
+                sum, max, min and prod: each result on its card, bitwise
+                the in-order fold on the CPU.  After teardown both actors
+                take ordinary calls; no process holds the card after.
+ 18. cli-jobs — the CLI-started cluster: `python -m ray_tpu_torch start
+                --head --num-cpus 4` (GPU offered by default) with its
+                cluster file under a temporary directory,
+                init(address="auto") here, list_nodes() GPU == the cards;
+                `job submit` of a script whose num_gpus=1 task runs the
+                [1, 1024] bf16 forward: SUCCEEDED, `job logs` hold this
+                process's sha256 of the last logits, K1 12; a ClientServer
+                in its own process and a client process
+                (init("ray-tpu-torch://...")) whose num_gpus=1 actor's
+                bf16 result arrives on the client's card, bitwise, while
+                the server loads no torch and holds no card; timeline()
+                holds the GPU task's X event; `stop` ends every daemon and
+                no process holds the card.  Times: start to a head that
+                answers, init("auto"), submit to SUCCEEDED with the GPU
+                worker's age at its task, a trivial task's round trip
+                through the client against this driver's.
 
     python3 chip_smoke.py --phases dp-train
     python3 chip_smoke.py --phases runtime
     python3 chip_smoke.py --phases serve-bench,serve-app
     python3 chip_smoke.py --phases train-app
     python3 chip_smoke.py --phases data-train
+    python3 chip_smoke.py --phases dag,cli-jobs
 
 runs the device and build phases and the named ones only (a development
 aid; with no arguments every phase runs).
@@ -481,6 +519,8 @@ def phase_kernels():
         ("f32", torch.float32, (8, 12, 1024, 1024, 64), True, True),
         # the train step's shape: K1 runs it twice per layer, with lse
         ("train+lse", torch.bfloat16, (16, 12, 512, 512, 64), True, True),
+        # the cli-jobs phase's GPU task: one sequence
+        ("job", torch.bfloat16, (1, 12, 1024, 1024, 64), True, False),
     ]
     g = torch.Generator(device="cuda").manual_seed(SEED)
     results = []
@@ -4542,6 +4582,793 @@ def phase_data_train():
     return rec
 
 
+# ---------------------------------------------------------------------------
+# dag: compiled DAGs on the port's runtime (after data-train: its GPU stage
+# actors come and go on the card).  Two stage actors share the card
+# (num_gpus=0.5 each); the driver feeds [8, 1024] tokens on its card, stage
+# A runs GPT-2-small's forward and sends the last position's bf16 logits
+# over a raw-tensor edge to stage B, which returns the next tokens.
+
+DAG_TOKENS = (8, 1024)           # the pipeline's input, int64 on the card
+DAG_ITERS = 20
+DAG_NSLOTS = 4
+DAG_BIG_NUMEL = 64 << 20         # the channel-rate tensor: 128 MiB of bf16
+DAG_BIG_SLOT = 129 << 20
+DAG_BIG_REPS = 5
+DAG_REDUCE_N = 1 << 20           # allreduce_bind's f32 contributions
+DAG_REDUCE_SLOT = 8 << 20        # room for a 4 MiB contribution on the raw path
+
+
+def _sync():
+    import torch
+
+    torch.cuda.synchronize()
+
+
+def _dag_cfg():
+    from ray_tpu_torch.models import gpt
+
+    return gpt.GPTConfig.gpt2_small()
+
+
+def _dag_tokens(shape, seed):
+    """Seeded int64 tokens on the card (the same on every process)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(0, _dag_cfg().vocab_size, shape, generator=g,
+                         device="cuda")
+
+
+def _dag_big(seed):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(DAG_BIG_NUMEL, generator=g, device="cuda",
+                       dtype=torch.bfloat16)
+
+
+def _dag_contrib(seed):
+    import numpy as np
+    import torch
+
+    x = np.random.RandomState(seed).standard_normal(
+        DAG_REDUCE_N).astype(np.float32)
+    return torch.from_numpy(x).to("cuda")
+
+
+def _last_logits(params, cfg, tokens):
+    """Stage A: the forward's last position."""
+    import torch
+
+    from ray_tpu_torch.models import gpt
+
+    if tokens.dim() != 2:
+        raise ValueError(f"tokens must be [batch, positions], got "
+                         f"{list(tokens.shape)}")
+    with torch.no_grad():
+        logits = gpt.apply(params, tokens, cfg, device="cuda")
+    return logits[:, -1].contiguous()
+
+
+def _next_tokens(logits):
+    """Stage B: the greedy next tokens from the f32 log-softmax."""
+    import torch
+
+    return torch.argmax(torch.log_softmax(logits.float(), dim=-1), dim=-1)
+
+
+class _DagStage:
+    """A stage actor on a share of the card: GPT-2-small (seed 0) for stage
+    A, the sampling step for stage B, both ends of the channel-rate runs
+    and one contributor of the allreduce."""
+
+    def __init__(self, with_model):
+        import torch
+
+        from ray_tpu_torch.models import gpt
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.cfg = _dag_cfg()
+        self.params = gpt.init(self.cfg, seed=SEED, device="cuda") \
+            if with_model else None
+        self.seen = None
+        self.big = None
+        self.chans = {}
+        self.contribs = {}
+
+    def ready(self):
+        import torch
+
+        return {"pid": os.getpid(), "age_s": _proc_age_s(),
+                "sees_card": torch.cuda.is_available()}
+
+    def reset_counts(self):
+        from ray_tpu_torch.ops import _kernels
+
+        _kernels.reset_launch_counts()
+
+    def counts(self):
+        from ray_tpu_torch.ops import _kernels
+
+        return _kernels.launch_counts()
+
+    # -- the pipeline --------------------------------------------------------
+
+    def last_logits(self, tokens):
+        return _last_logits(self.params, self.cfg, tokens)
+
+    def next_tokens(self, logits):
+        self.seen = logits
+        return _next_tokens(logits)
+
+    def seen_logits(self):
+        return {"device": str(self.seen.device), "logits": self.seen}
+
+    # -- the channel's rate --------------------------------------------------
+
+    def make_big(self, seed):
+        self.big = _dag_big(seed)
+        _sync()
+        return self.big.numel()
+
+    def send_big(self, _):
+        return self.big
+
+    def take_big(self, t):
+        _sync()
+        self.seen = t
+        return t.numel()
+
+    def check_big(self, seed):
+        import torch
+
+        t = self.seen
+        return {"device": str(t.device), "dtype": str(t.dtype),
+                "bitwise": bool(torch.equal(t, _dag_big(seed)))}
+
+    def _chan(self, path):
+        from ray_tpu_torch.dag import Channel
+
+        if path not in self.chans:
+            self.chans[path] = Channel(path, DAG_BIG_SLOT, 2)
+        return self.chans[path]
+
+    def write_big(self, path):
+        """One write of the big tensor into the ring: the device -> shm
+        copy, straight into the slot (the ring has room: no wait)."""
+        c = self._chan(path)
+        _sync()
+        t0 = time.perf_counter()
+        c.write(self.big, timeout_s=60)
+        return time.perf_counter() - t0
+
+    def read_big(self, path):
+        """One read of the big tensor out of the ring: shm -> an owned host
+        buffer -> the card, synchronized."""
+        c = self._chan(path)
+        t0 = time.perf_counter()
+        tag, t = c.read(timeout_s=60)
+        _sync()
+        self.seen = t
+        return {"s": time.perf_counter() - t0, "tag": tag,
+                "device": str(t.device)}
+
+    def close_chans(self):
+        for c in self.chans.values():
+            c.release()
+        self.chans.clear()
+
+    def put_big(self):
+        import ray_tpu_torch as rt
+
+        _sync()
+        t0 = time.perf_counter()
+        ref = rt.put(self.big)
+        return [ref], time.perf_counter() - t0
+
+    def fetch_big(self, refs):
+        import ray_tpu_torch as rt
+
+        t0 = time.perf_counter()
+        t = rt.get(refs[0], timeout=300)
+        _sync()
+        self.seen = t
+        return time.perf_counter() - t0
+
+    # -- allreduce_bind ------------------------------------------------------
+
+    def contrib(self, seed, offset):
+        # made once per seed: an iteration times the exchange and the
+        # reduction, not numpy's generator
+        if seed + offset not in self.contribs:
+            self.contribs[seed + offset] = _dag_contrib(seed + offset)
+        return self.contribs[seed + offset]
+
+    def describe(self, t):
+        return {"device": str(t.device), "value": t}
+
+
+def _chain_ms(fn, n):
+    """ms per call of ``fn`` over ``n`` calls, each ending synchronized."""
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        _sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"mean_ms": sum(times) / n, "min_ms": min(times),
+            "max_ms": max(times)}
+
+
+def _pinned_rates(nbytes):
+    """GB/s of one pinned D2H and one pinned H2D copy of ``nbytes`` bytes
+    (CUDA events, 5 each after a warm-up)."""
+    import torch
+
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    d2h = cuda_time_ms(lambda: host.copy_(dev, non_blocking=True), iters=5,
+                       warmup=1)
+    h2d = cuda_time_ms(lambda: dev.copy_(host, non_blocking=True), iters=5,
+                       warmup=1)
+    del dev, host
+    return {"d2h_gb_s": nbytes / d2h / 1e6, "h2d_gb_s": nbytes / h2d / 1e6}
+
+
+def _dag_pipeline(rt, a, b, tokens, local, rec):
+    """(a): the two-stage pipeline through the compiled DAG, against the
+    interpreted DAG, a .remote() chain and the forward in this process."""
+    import torch
+
+    from ray_tpu_torch.dag import InputNode
+
+    cfg = _dag_cfg()
+    with InputNode() as inp:
+        dag = b.next_tokens.bind(a.last_logits.bind(inp))
+    # the interpreted DAG and the .remote() chain: task calls, the logits
+    # through the object plane
+    rt.get(dag.execute(tokens), timeout=300)    # warm both stages
+    times = {"interpreted": _chain_ms(
+        lambda: rt.get(dag.execute(tokens), timeout=300), DAG_ITERS),
+        "remote_chain": _chain_ms(
+        lambda: rt.get(b.next_tokens.remote(a.last_logits.remote(tokens)),
+                       timeout=300), DAG_ITERS)}
+
+    # the main path: every count at 0 just before, read just after
+    rt.get(a.reset_counts.remote(), timeout=60)
+    cd = dag.experimental_compile(nslots=DAG_NSLOTS)
+    ok_iters = 0
+    try:
+        out = cd.execute(tokens).get(timeout=300)   # the exec loops attach
+        ok_iters += 1
+        check(out.device.type == "cuda" and torch.equal(out,
+                                                        local["tokens"]),
+              f"the compiled DAG's tokens {out.tolist()} != the driver's "
+              f"{local['tokens'].tolist()}")
+        seq = _chain_ms(lambda: cd.execute(tokens).get(timeout=300),
+                        DAG_ITERS)
+        ok_iters += DAG_ITERS
+        # DAG_ITERS executes with up to nslots in flight, then the same
+        # number one at a time
+        outs = []
+        t0 = time.perf_counter()
+        inflight = []
+        for _ in range(DAG_ITERS):
+            if len(inflight) == DAG_NSLOTS:
+                outs.append(inflight.pop(0).get(timeout=300))
+            inflight.append(cd.execute(tokens))
+        outs += [r.get(timeout=300) for r in inflight]
+        pipelined_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in range(DAG_ITERS):
+            outs.append(cd.execute(tokens).get(timeout=300))
+        sequential_s = time.perf_counter() - t0
+        ok_iters += 2 * DAG_ITERS
+        check(all(torch.equal(o, local["tokens"]) for o in outs),
+              "a compiled iteration's tokens differ from the driver's")
+        # a node's exception re-raises at get, and the DAG goes on
+        try:
+            cd.execute(tokens[0]).get(timeout=300)
+            raised = None
+        except ValueError as e:
+            raised = str(e)
+        check(raised is not None and "tokens must be" in raised,
+              f"stage A's exception did not re-raise at get: {raised}")
+        check(torch.equal(cd.execute(tokens).get(timeout=300),
+                          local["tokens"]), "the DAG after an error")
+        ok_iters += 1
+    finally:
+        cd.teardown()
+    launches = rt.get(a.counts.remote(), timeout=60)
+    per_iter = {k: v // ok_iters for k, v in launches.items()}
+    check(launches["flash_fwd"] == cfg.n_layers * ok_iters,
+          f"stage A launched flash_fwd {launches['flash_fwd']} times over "
+          f"{ok_iters} iterations, expected {cfg.n_layers} each")
+    seen = rt.get(b.seen_logits.remote(), timeout=60)
+    check(seen["device"].startswith("cuda")
+          and seen["logits"].dtype == local["logits"].dtype
+          and torch.equal(seen["logits"], local["logits"]),
+          f"stage B's logits ({seen['device']}) are not bitwise the "
+          f"driver's forward")
+    times["compiled"] = seq
+    rec["pipeline"] = {
+        "iterations": ok_iters, "launches_per_iteration": per_iter,
+        "logits_bytes": local["logits"].numel()
+        * local["logits"].element_size(),
+        "times": times, "forward_in_process": local["times"],
+        "pipelined_s": pipelined_s, "sequential_s": sequential_s,
+        "nslots": DAG_NSLOTS, "error_reraised": raised}
+    log(f"[dag] compiled two-stage pipeline at [{DAG_TOKENS[0]}, "
+        f"{DAG_TOKENS[1]}]: {seq['mean_ms']:.2f} ms per iteration "
+        f"(min {seq['min_ms']:.2f}); interpreted execute() "
+        f"{times['interpreted']['mean_ms']:.2f} ms; .remote() chain "
+        f"{times['remote_chain']['mean_ms']:.2f} ms; the forward + "
+        f"sampling in this process {local['times']['mean_ms']:.2f} ms; "
+        f"{DAG_ITERS} executes pipelined (nslots {DAG_NSLOTS}) "
+        f"{pipelined_s:.3f} s against {sequential_s:.3f} s one at a time; "
+        f"flash_fwd {per_iter['flash_fwd']:.0f} per iteration in stage A; "
+        f"stage B's logits == the driver's (bitwise, on its card); the "
+        f"node's error re-raised at get")
+
+
+def _dag_channel_rate(rt, a, b, rec):
+    """(b): a 128 MiB bf16 CUDA tensor through a raw-tensor edge, end to
+    end through a compiled DAG and split into its two copies, against the
+    object plane and pinned copies."""
+    from ray_tpu_torch.dag import InputNode
+    from ray_tpu_torch.dag.channel import TAG_DEVICE
+
+    nbytes = DAG_BIG_NUMEL * 2
+    rt.get(a.make_big.remote(SEED + 3), timeout=300)
+    with InputNode() as inp:
+        dag = b.take_big.bind(a.send_big.bind(inp))
+    cd = dag.experimental_compile(buffer_size_bytes=DAG_BIG_SLOT, nslots=2)
+    try:
+        cd.execute(0).get(timeout=300)       # attach, first touch of the ring
+        e2e = _chain_ms(lambda: cd.execute(0).get(timeout=300), DAG_BIG_REPS)
+    finally:
+        cd.teardown()
+    check(rt.get(b.check_big.remote(SEED + 3), timeout=300)["bitwise"],
+          "the tensor through the compiled DAG differs from the one sent")
+    # the two copies, one side at a time (the ring has room: no wait)
+    path = os.path.join(tempfile.mkdtemp(prefix="dag-rate-",
+                                         dir="/dev/shm"), "big")
+    writes, reads = [], []
+    try:
+        for _ in range(DAG_BIG_REPS + 1):
+            writes.append(rt.get(a.write_big.remote(path), timeout=300))
+            r = rt.get(b.read_big.remote(path), timeout=300)
+            check(r["tag"] == TAG_DEVICE and r["device"].startswith("cuda"),
+                  f"the edge's read took tag {r['tag']} onto {r['device']}")
+            reads.append(r["s"])
+        got = rt.get(b.check_big.remote(SEED + 3), timeout=300)
+        check(got["bitwise"] and got["dtype"] == "torch.bfloat16",
+              f"the tensor through the channel differs: {got}")
+    finally:
+        rt.get([a.close_chans.remote(), b.close_chans.remote()], timeout=60)
+        import shutil
+
+        shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    # the object plane, the same tensor: put by A, got by B
+    refs, put_s = rt.get(a.put_big.remote(), timeout=300)
+    get_s = rt.get(b.fetch_big.remote(refs), timeout=300)
+    check(rt.get(b.check_big.remote(SEED + 3), timeout=300)["bitwise"],
+          "the tensor through the object plane differs")
+    del refs
+    write_s, read_s = sorted(writes[1:]), sorted(reads[1:])
+    mid = len(write_s) // 2
+    out = {"bytes": nbytes, "slot_bytes": DAG_BIG_SLOT, "nslots": 2,
+           "dag_ms": e2e, "dag_gb_s": nbytes / e2e["mean_ms"] / 1e6,
+           "write_s": writes, "read_s": reads,
+           "write_gb_s": nbytes / write_s[mid] / 1e9,
+           "read_gb_s": nbytes / read_s[mid] / 1e9,
+           "first_write_gb_s": nbytes / writes[0] / 1e9,
+           "object_plane_put_s": put_s, "object_plane_get_s": get_s,
+           "object_plane_gb_s": nbytes / get_s / 1e9}
+    out.update(_pinned_rates(nbytes))
+    rec["channel"] = out
+    log(f"[dag] {nbytes >> 20} MiB bf16 through a raw-tensor edge "
+        f"({DAG_BIG_SLOT >> 20} MiB slot, 2 slots): compiled DAG "
+        f"{e2e['mean_ms']:.1f} ms per iteration = {out['dag_gb_s']:.3f} "
+        f"GB/s end to end; the writer's device -> shm copy "
+        f"{out['write_gb_s']:.3f} GB/s (first write "
+        f"{out['first_write_gb_s']:.3f}), the reader's shm -> device "
+        f"{out['read_gb_s']:.3f} GB/s (medians of {DAG_BIG_REPS}); the "
+        f"object plane {out['object_plane_gb_s']:.3f} GB/s (get; put "
+        f"{put_s:.3f} s); pinned copies D2H {out['d2h_gb_s']:.1f} / H2D "
+        f"{out['h2d_gb_s']:.1f} GB/s; bitwise each way")
+
+
+def _dag_allreduce(rt, a, b, rec):
+    """(c): allreduce_bind over both stage actors' f32 contributions, each
+    participant's result on its card, bitwise the in-order CPU fold."""
+    import torch
+
+    from ray_tpu_torch.dag import InputNode, MultiOutputNode, allreduce_bind
+
+    xs = [_dag_contrib(s).cpu() for s in (1, 2)]
+    # the fold in group order, written out on the CPU
+    folds = {"sum": xs[0] + xs[1], "max": torch.maximum(xs[0], xs[1]),
+             "min": torch.minimum(xs[0], xs[1]), "prod": xs[0] * xs[1]}
+    out = {}
+    for op in ("sum", "max", "min", "prod"):
+        # the input 1 is A's seed; B adds 1 to it
+        with InputNode() as inp:
+            outs = allreduce_bind([a.contrib.bind(inp, 0),
+                                   b.contrib.bind(inp, 1)], op=op)
+            dag = MultiOutputNode([a.describe.bind(outs[0]),
+                                   b.describe.bind(outs[1])])
+        cd = dag.experimental_compile(buffer_size_bytes=DAG_REDUCE_SLOT)
+        try:
+            cd.execute(1).get(timeout=300)      # the exec loops attach
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                res = cd.execute(1).get(timeout=300)
+                times.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            cd.teardown()
+        want = folds[op]
+        out[op] = {"ms": sum(times) / len(times),
+                   "devices": [r["device"] for r in res],
+                   "bitwise": [bool(torch.equal(r["value"].cpu(), want))
+                               for r in res]}
+        check(all(d.startswith("cuda") for d in out[op]["devices"])
+              and all(out[op]["bitwise"]), f"allreduce {op}: {out[op]}")
+    rec["allreduce"] = out
+    log(f"[dag] allreduce_bind of two f32 [{DAG_REDUCE_N}] contributions: "
+        + ", ".join(f"{op} {v['ms']:.2f} ms" for op, v in out.items())
+        + "; each participant's result on its card, bitwise the in-order "
+        "fold on the CPU")
+
+
+def phase_dag():
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.models import gpt
+
+    smi = _smi_line()
+    t_phase = time.perf_counter()
+    cfg = _dag_cfg()
+    rec = {"card": smi}
+    # the driver's own run of what the pipeline computes
+    params = gpt.init(cfg, seed=SEED, device="cuda")
+    tokens = _dag_tokens(DAG_TOKENS, SEED + 2)
+    logits = _last_logits(params, cfg, tokens)
+    local = {"logits": logits, "tokens": _next_tokens(logits),
+             "times": _chain_ms(lambda: _next_tokens(
+                 _last_logits(params, cfg, tokens)), DAG_ITERS)}
+    before = set(_runtime_procs())
+    rt.init(num_cpus=4)
+    try:
+        check(rt.cluster_resources().get("GPU") == torch.cuda.device_count(),
+              f"cluster offers {rt.cluster_resources()}")
+        stage_cls = rt.remote(num_gpus=0.5)(_DagStage)
+        t0 = time.perf_counter()
+        a, b = stage_cls.remote(True), stage_cls.remote(False)
+        ready = rt.get([a.ready.remote(), b.ready.remote()], timeout=300)
+        rec["actors_up_s"] = time.perf_counter() - t0
+        check(all(r["sees_card"] for r in ready)
+              and ready[0]["pid"] != ready[1]["pid"],
+              f"stage actors {ready}")
+        _dag_pipeline(rt, a, b, tokens, local, rec)
+        _dag_channel_rate(rt, a, b, rec)
+        _dag_allreduce(rt, a, b, rec)
+        # after every teardown both actors take ordinary calls again
+        again = rt.get([a.ready.remote(), b.ready.remote()], timeout=60)
+        check([r["pid"] for r in again] == [r["pid"] for r in ready],
+              "a stage actor changed after teardown")
+        rt.kill(a)
+        rt.kill(b)
+    finally:
+        rt.shutdown()
+    mine = lambda: {p: c for p, c in _runtime_procs().items()  # noqa: E731
+                    if p not in before}
+    _wait_for(lambda: not mine(), 60,
+              f"runtime processes outlived shutdown: {mine()}")
+    check(not _card_holders(before), f"runtime processes hold the card "
+          f"after shutdown: {_card_holders(before)}")
+    del params
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"[dag] stage actors up in {rec['actors_up_s']:.2f} s; after "
+        f"teardown both took ordinary calls; shutdown left no process "
+        f"holding the card; phase {rec['seconds']:.1f} s ({smi})")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# cli-jobs: the CLI-started cluster and what talks to it (after dag).  The
+# head comes from `python -m ray_tpu_torch start --head`, this process
+# joins it with init(address="auto"), a job submitted through the CLI runs
+# a GPU task, a client drives a GPU actor through a ClientServer, and
+# `stop` ends every daemon.
+
+JOB_TOKENS = (1, 1024)
+CLIENT_TENSOR = (1024, 1024)     # the client's CUDA result, bf16
+CLIENT_RTT_CALLS = 200
+
+
+def _job_forward():
+    """The job's GPU task: GPT-2-small's [1, 1024] bf16 forward (seed-0
+    weights, seeded tokens), the sha256 of the last position's logits and
+    K1's launches in the task's process."""
+    import hashlib
+
+    import torch
+
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.ops import _kernels
+
+    age = _proc_age_s()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _dag_cfg()
+    params = gpt.init(cfg, seed=SEED, device="cuda")
+    tokens = _dag_tokens(JOB_TOKENS, SEED + 4)
+    _kernels.reset_launch_counts()
+    last = _last_logits(params, cfg, tokens)
+    _sync()
+    launches = _kernels.launch_counts()
+    return {"sha256": hashlib.sha256(last.view(torch.int16).cpu().numpy()
+                                     .tobytes()).hexdigest(),
+            "launches": launches, "worker_age_s": age,
+            "device": str(last.device), "pid": os.getpid()}
+
+
+_JOB_SCRIPT = """\
+import json, sys, time
+sys.path.insert(0, {root!r})
+import chip_smoke
+import ray_tpu_torch as rt
+
+rt.init()                                 # RAY_TPU_TORCH_ADDRESS
+task = rt.remote(num_gpus=1)(chip_smoke._job_forward)
+t0 = time.perf_counter()
+out = rt.get(task.remote(), timeout=600)
+out["task_s"] = time.perf_counter() - t0
+print("JOB_RESULT " + json.dumps(out), flush=True)
+rt.shutdown()
+"""
+
+
+class _ClientGPU:
+    """A num_gpus=1 actor driven through a client: a seeded bf16 tensor on
+    its card and the sha256 of its bytes."""
+
+    def make(self, seed):
+        import hashlib
+
+        import torch
+
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        t = torch.randn(CLIENT_TENSOR, generator=g, device="cuda",
+                        dtype=torch.bfloat16)
+        sha = hashlib.sha256(t.view(torch.int16).cpu().numpy().tobytes())
+        return {"tensor": t, "sha256": sha.hexdigest(), "pid": os.getpid()}
+
+
+_CLIENT_SCRIPT = """\
+import hashlib, json, sys, time
+sys.path.insert(0, {root!r})
+import torch
+import chip_smoke
+import ray_tpu_torch as rt
+
+t0 = time.perf_counter()
+info = rt.init({address!r})
+init_s = time.perf_counter() - t0
+actor = rt.remote(num_gpus=1)(chip_smoke._ClientGPU).remote()
+got = rt.get(actor.make.remote(7), timeout=600)
+t = got["tensor"]
+g = torch.Generator(device="cuda").manual_seed(7)
+own = torch.randn(chip_smoke.CLIENT_TENSOR, generator=g, device="cuda",
+                  dtype=torch.bfloat16)
+noop = rt.remote(chip_smoke._noop)
+for _ in range(20):
+    rt.get(noop.remote(), timeout=60)
+t0 = time.perf_counter()
+for _ in range(chip_smoke.CLIENT_RTT_CALLS):
+    rt.get(noop.remote(), timeout=60)
+rtt_us = (time.perf_counter() - t0) / chip_smoke.CLIENT_RTT_CALLS * 1e6
+out = {{"client": info.get("client"), "init_s": init_s,
+       "device": str(t.device), "dtype": str(t.dtype),
+       "sha256": hashlib.sha256(t.view(torch.int16).cpu().numpy()
+                                .tobytes()).hexdigest(),
+       "actor_sha256": got["sha256"], "actor_pid": got["pid"],
+       "equal_own": bool(torch.equal(t, own)), "rtt_us": rtt_us}}
+rt.kill(actor)
+rt.shutdown()
+print("CLIENT_RESULT " + json.dumps(out), flush=True)
+"""
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _cli(*args, timeout=600):
+    """``python -m ray_tpu_torch <args>``: (seconds, completed process)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    env.pop("RAY_TPU_TORCH_ADDRESS", None)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "ray_tpu_torch", *args],
+                       capture_output=True, text=True, timeout=timeout,
+                       env=env, cwd=str(ROOT))
+    dt = time.perf_counter() - t0
+    check(r.returncode == 0, f"`{' '.join(args)}` exited {r.returncode}:\n"
+          f"{r.stdout[-2000:]}\n{r.stderr[-3000:]}")
+    return dt, r
+
+
+def _result_line(text, tag):
+    lines = [ln for ln in text.splitlines() if ln.startswith(tag + " ")]
+    check(lines, f"no {tag} line in:\n{text[-3000:]}")
+    return json.loads(lines[-1][len(tag) + 1:])
+
+
+def phase_cli_jobs():
+    import socket
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.util import state
+
+    smi = _smi_line()
+    t_phase = time.perf_counter()
+    rec = {"card": smi}
+    tmp = tempfile.mkdtemp(prefix="cli-jobs-")
+    os.environ["RAY_TPU_TORCH_CLUSTER_FILE"] = os.path.join(
+        tmp, "ray_current_cluster.json")
+    before = set(_runtime_procs())
+    want = _job_forward()           # this process's own run of the job
+    check(want["launches"]["flash_fwd"] == _dag_cfg().n_layers,
+          f"in-process job forward launched {want['launches']}")
+    server = None
+    stopped = False
+    try:
+        # start: the head answers a ping when the CLI returns
+        port = _free_port()
+        start_s, r = _cli("start", "--head", "--num-cpus", "4", "--port",
+                          str(port))
+        check("started" in r.stdout, r.stdout)
+        t0 = time.perf_counter()
+        info = rt.init(address="auto")
+        rec["init_auto_s"] = time.perf_counter() - t0
+        check(info["control_address"] == f"127.0.0.1:{port}", info)
+        nodes = state.list_nodes()
+        gpus = [n["total"].get("GPU", 0) for n in nodes]
+        check(len(nodes) == 1 and gpus == [torch.cuda.device_count()],
+              f"the CLI head offers GPU {gpus}, torch sees "
+              f"{torch.cuda.device_count()} cards")
+        rec["start_head_s"] = start_s
+        log(f"[cli-jobs] `start --head --num-cpus 4` {start_s:.2f} s to a "
+            f"head answering pings (GPU {gpus[0]:g} by default); "
+            f"init(address='auto') {rec['init_auto_s']:.3f} s")
+
+        # a job: its driver runs a GPU task, the CLI waits for SUCCEEDED
+        script = os.path.join(tmp, "job_forward.py")
+        with open(script, "w") as f:
+            f.write(_JOB_SCRIPT.format(root=str(ROOT)))
+        submit_s, r = _cli("job", "submit", "--timeout", "600", "--",
+                           sys.executable, script)
+        check("SUCCEEDED" in r.stdout, f"the job did not succeed:\n"
+              f"{r.stdout[-3000:]}")
+        sid = r.stdout.split("submitted job ", 1)[1].split()[0]
+        _, logs = _cli("job", "logs", sid)
+        got = _result_line(logs.stdout, "JOB_RESULT")
+        check(want["sha256"] in logs.stdout and got["sha256"]
+              == want["sha256"], f"the job's checksum {got['sha256']} != "
+              f"this process's {want['sha256']}")
+        check(got["launches"]["flash_fwd"] == _dag_cfg().n_layers,
+              f"the job's GPU task launched {got['launches']}")
+        check(got["device"].startswith("cuda"), got)
+        rec["job"] = {"submission_id": sid, "submit_to_succeeded_s":
+                      submit_s, "gpu_task_s": got["task_s"],
+                      "gpu_worker_age_at_task_s": got["worker_age_s"],
+                      "launches": got["launches"], "sha256": got["sha256"]}
+        log(f"[cli-jobs] `job submit` to SUCCEEDED {submit_s:.2f} s; the "
+            f"job's num_gpus=1 task {got['task_s']:.2f} s from its "
+            f"driver (its GPU worker {got['worker_age_s']:.2f} s old when "
+            f"the task began); flash_fwd {got['launches']['flash_fwd']}; "
+            f"`job logs` hold this process's checksum "
+            f"{want['sha256'][:16]}")
+
+        # client mode: a ClientServer in its own process, a client process
+        # that sees the card
+        cport = _free_port()
+        env = dict(os.environ, PYTHONPATH=str(ROOT))
+        server = subprocess.Popen(
+            [sys.executable, "-m", "ray_tpu_torch.util.client.server",
+             "--control", info["control_address"], "--port", str(cport)],
+            env=env, cwd=str(ROOT), stdout=subprocess.DEVNULL,
+            stderr=open(os.path.join(tmp, "client_server.log"), "w"))
+        client = os.path.join(tmp, "client.py")
+        with open(client, "w") as f:
+            f.write(_CLIENT_SCRIPT.format(
+                root=str(ROOT),
+                address=f"ray-tpu-torch://127.0.0.1:{cport}"))
+        deadline = time.monotonic() + 60
+        while True:        # the server listens once its driver connected
+            try:
+                socket.create_connection(("127.0.0.1", cport), 1).close()
+                break
+            except OSError:
+                check(time.monotonic() < deadline and server.poll() is None,
+                      "the client server never listened")
+                time.sleep(0.2)
+        t0 = time.perf_counter()
+        c = subprocess.run([sys.executable, client], capture_output=True,
+                           text=True, timeout=900, env=env, cwd=str(ROOT))
+        client_s = time.perf_counter() - t0
+        check(c.returncode == 0, f"the client exited {c.returncode}:\n"
+              f"{c.stderr[-3000:]}")
+        cl = _result_line(c.stdout, "CLIENT_RESULT")
+        check(cl["client"] and cl["device"].startswith("cuda")
+              and cl["sha256"] == cl["actor_sha256"] and cl["equal_own"],
+              f"the client's CUDA result: {cl}")
+        with open(f"/proc/{server.pid}/maps") as f:
+            maps = f.read()
+        server_torch = "libtorch" in maps
+        check(not _holds_card(server.pid) and not server_torch,
+              f"the client server holds the card ({_holds_card(server.pid)})"
+              f" or loaded torch ({server_torch})")
+        noop = rt.remote(_noop)
+        for _ in range(20):
+            rt.get(noop.remote(), timeout=60)
+        t0 = time.perf_counter()
+        for _ in range(CLIENT_RTT_CALLS):
+            rt.get(noop.remote(), timeout=60)
+        driver_rtt = (time.perf_counter() - t0) / CLIENT_RTT_CALLS * 1e6
+        rec["client"] = {**cl, "process_s": client_s,
+                         "driver_rtt_us": driver_rtt,
+                         "server_loaded_torch": server_torch}
+        log(f"[cli-jobs] client (init {cl['init_s']:.3f} s) drove a "
+            f"num_gpus=1 actor: its bf16 {list(CLIENT_TENSOR)} result "
+            f"arrived on the client's card, bitwise; the server process "
+            f"loaded no torch and holds no card; trivial task round trip "
+            f"{cl['rtt_us']:.0f} us through the client, {driver_rtt:.0f} "
+            f"us from this driver")
+
+        # the timeline holds the job's GPU task
+        events = json.loads(rt.timeline())
+        gpu = [e for e in events if e.get("ph") == "X"
+               and e.get("name", "").endswith("_job_forward")]
+        check(gpu, "the timeline has no event of the job's GPU task")
+        rec["timeline"] = {"events": len(events),
+                           "gpu_task_ms": gpu[0]["dur"] / 1e3}
+        log(f"[cli-jobs] timeline(): {len(events)} events, the GPU task's "
+            f"X event {gpu[0]['dur'] / 1e3:.1f} ms")
+    finally:
+        rt.shutdown()
+        if server is not None:
+            server.terminate()
+            server.wait(timeout=60)
+        try:
+            _, r = _cli("stop", timeout=120)
+            stopped = "stopped" in r.stdout
+        finally:
+            os.environ.pop("RAY_TPU_TORCH_CLUSTER_FILE", None)
+    check(stopped, "`stop` did not stop the daemons")
+    mine = lambda: {p: c for p, c in _runtime_procs().items()  # noqa: E731
+                    if p not in before}
+    _wait_for(lambda: not mine(), 60,
+              f"daemons outlived `stop`: {mine()}")
+    check(not _card_holders(before), f"runtime processes hold the card "
+          f"after stop: {_card_holders(before)}")
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"[cli-jobs] `stop` ended every daemon; none holds the card; phase "
+        f"{rec['seconds']:.1f} s ({smi})")
+    return rec
+
+
 def _kernel_entry(k, case, launches_by_path, **extra):
     # the main path: a step through the trainer on Data-fed batches (K1-K6;
     # K7 runs there only with the fused hop forced, and its entry says so)
@@ -4559,7 +5386,7 @@ def _kernel_entry(k, case, launches_by_path, **extra):
 
 PHASES = ("kernels", "forward", "serve", "serve-bench", "parity", "train",
           "kernels-quantize", "kernels-fused", "dp-train", "runtime",
-          "serve-app", "train-app", "data-train")
+          "serve-app", "train-app", "data-train", "dag", "cli-jobs")
 
 
 def main(argv=None):
@@ -4638,6 +5465,14 @@ def main(argv=None):
         # after train-app: its GPU workers come and go on the card too
         torch.cuda.empty_cache()
         report["data_train"] = phase_data_train()
+    if "dag" in phases:
+        # after data-train: its stage actors come and go on the card
+        torch.cuda.empty_cache()
+        report["dag"] = phase_dag()
+    if "cli-jobs" in phases:
+        # last: the CLI-started cluster's GPU workers come and go too
+        torch.cuda.empty_cache()
+        report["cli_jobs"] = phase_cli_jobs()
 
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps(report, indent=1))
@@ -4673,7 +5508,13 @@ def main(argv=None):
                     report["train_app"]["run"]["launches_per_step"][name],
                 # the same step on batches Data read, split and staged
                 "data_train_step":
-                    report["data_train"]["launches_per_step"][name]}
+                    report["data_train"]["launches_per_step"][name],
+                # one iteration of the compiled DAG's GPU stage A
+                "dag_stage_forward": report["dag"]["pipeline"][
+                    "launches_per_iteration"][name],
+                # the GPU task of a job submitted through the CLI
+                "job_task_forward":
+                    report["cli_jobs"]["job"]["launches"][name]}
 
     k1 = report["kernels"][0]
     bwd = report["kernels_bwd"][0]

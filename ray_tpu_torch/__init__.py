@@ -28,8 +28,15 @@ Layout mirrors ``ray_tpu``:
     (``accelerators``), tensor-aware serialization;
   * ``native`` — the C++ scheduler and shm arena, built with g++ at first
     use into ``_build/native/``;
-  * ``util.tracing``, ``dag.dag_node`` (``.bind``), ``elastic.preemption``
-    — the runtime's copies of the reference's modules of those names;
+  * ``util.tracing``, ``elastic.preemption`` — the runtime's copies of
+    the reference's modules of those names;
+  * ``dag`` — ``.bind``, interpreted and compiled DAGs over shared-memory
+    ring channels that carry CUDA tensors as raw bytes, the allreduce
+    inside a compiled graph;
+  * ``scripts.cli`` (``python -m ray_tpu_torch``), ``job``, ``util.state``,
+    ``util.client``, ``experimental.internal_kv`` — the CLI-started
+    cluster, job submission, the state API and ``timeline()``, client
+    mode;
   * ``ops.layers`` / ``ops.attention`` — layer math and cross-entropy,
     attention + the flash-attention kernels' plain versions, their
     autograd ``Function`` and dispatcher;
@@ -77,6 +84,8 @@ _owned_cluster = None
 # (the reference's is RAY_TPU_ADDRESS: the two runtimes never attach to
 # each other's clusters)
 ADDRESS_ENV = "RAY_TPU_TORCH_ADDRESS"
+# init()'s client-mode scheme (the reference's is ray-tpu://)
+CLIENT_SCHEME = "ray-tpu-torch://"
 
 # torch-backed exports, resolved on first use
 _LAZY = {
@@ -117,7 +126,12 @@ def init(address: Optional[str] = None, *, num_cpus: Optional[float] = None,
     single-node cluster: a control-plane process and one raylet, which
     offers ``num_gpus`` cards (default: the cards this host shows,
     ``_private/accelerators.num_gpus``).  ``address="host:port"`` joins a
-    running control plane of this runtime.
+    running control plane of this runtime; ``address="auto"`` joins the
+    one ``python -m ray_tpu_torch start --head`` started on this host (its
+    cluster file, ``/tmp/ray_tpu_torch/ray_current_cluster.json`` or
+    ``RAY_TPU_TORCH_CLUSTER_FILE``); ``"ray-tpu-torch://host:port"``
+    connects this process as a client of a ``ClientServer``
+    (``util/client``), which drives the cluster on its behalf.
     """
     global _core, _owned_cluster
     with _lock:
@@ -128,11 +142,29 @@ def init(address: Optional[str] = None, *, num_cpus: Optional[float] = None,
                                "ignore_reinit_error=True to allow")
         if address is None and os.environ.get(ADDRESS_ENV):
             address = os.environ[ADDRESS_ENV]
-        if address and (address == "auto" or "://" in address):
-            raise NotImplementedError(
-                f"address={address!r}: client mode and the CLI-started "
-                f"cluster are not ported yet (ROADMAP A.4d); pass "
-                f"'host:port' of a running control plane, or no address")
+        if address and address.startswith(CLIENT_SCHEME):
+            # remote-driver client mode (reference: ray.init("ray://...")
+            # through python/ray/util/client/)
+            from ._private import core as core_mod
+            from .util.client import ClientCore
+
+            cc = ClientCore(address)
+            _core = cc
+            core_mod._current_core = cc
+            atexit.register(shutdown)
+            return {"control_address": "%s:%s" % cc._server_control_addr,
+                    "job_id": cc.job_id, "client": True}
+        if address == "auto":
+            # connect to the CLI-started cluster (reference: address="auto"
+            # reading /tmp/ray/ray_current_cluster)
+            from .scripts.cli import read_cluster_file
+
+            info = read_cluster_file()
+            if info is None:
+                raise ConnectionError(
+                    "address='auto' but no running cluster found (start "
+                    "one with `python -m ray_tpu_torch start --head`)")
+            address = info["control_address"]
         if _system_config:
             # typed flag overrides, inherited by every daemon this init
             # spawns (reference: _system_config through ray.init)
@@ -257,6 +289,15 @@ def nodes() -> List[Dict[str, Any]]:
     return _require().control.call("get_nodes", {})
 
 
+def timeline(filename: Optional[str] = None) -> Optional[str]:
+    """Export the task timeline as Chrome trace JSON (reference:
+    ray.timeline, python/ray/_private/worker.py)."""
+    from .util.state import timeline as _timeline
+
+    _require().task_events.flush()
+    return _timeline(filename)
+
+
 class profile:
     """Span context manager feeding the task-event buffer (reference:
     ray._private.profiling / TaskEventBuffer profile events)."""
@@ -280,7 +321,8 @@ class profile:
 __all__ = [
     "init", "shutdown", "is_initialized", "put", "get", "wait", "remote",
     "kill", "cancel", "get_actor", "cluster_resources",
-    "available_resources", "nodes", "profile", "connection_info",
+    "available_resources", "nodes", "timeline", "profile",
+    "connection_info",
     "ObjectRef", "ObjectRefGenerator", "ActorHandle", "ActorClass",
     "RemoteFunction",
     "RayTpuError", "TaskError", "ActorDiedError", "WorkerCrashedError",

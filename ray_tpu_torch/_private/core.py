@@ -384,9 +384,13 @@ class CoreWorker:
     def __init__(self, control_addr, raylet_addr=None, mode: str = "driver",
                  job: Optional[str] = None, worker_id: Optional[str] = None,
                  node_id: Optional[str] = None, store_root: Optional[str] = None,
-                 namespace: Optional[str] = None, log_to_driver: bool = True):
+                 namespace: Optional[str] = None, log_to_driver: bool = True,
+                 keep_device_stand_ins: bool = False):
         global _current_core
         self.mode = mode
+        # a core that only passes values on (the client server's) keeps a
+        # tensor staged from a card as its stand-in when it loads a result
+        self.keep_device_stand_ins = keep_device_stand_ins
         self.log_to_driver = log_to_driver and mode == "driver"
         self.namespace = (namespace
                           or os.environ.get("RAY_TPU_TORCH_NAMESPACE")
@@ -1010,7 +1014,8 @@ class CoreWorker:
         if got is None:
             return self._recover_object(oid, entry, deadline)
         meta, bufs = got
-        return serialization.loads_oob(meta, bufs)
+        return serialization.loads_oob(
+            meta, bufs, keep_stand_ins=self.keep_device_stand_ins)
 
     def _pull_then_get(self, oid, entry, deadline):
         if self.raylet is None or self.store is None:
@@ -1070,7 +1075,8 @@ class CoreWorker:
         kind = r["kind"]
         if kind == "inline":
             meta, bufs = r["meta"], [memoryview(b) for b in r["bufs"]]
-            return serialization.loads_oob(meta, bufs)
+            return serialization.loads_oob(
+                meta, bufs, keep_stand_ins=self.keep_device_stand_ins)
         if kind == "shm":
             entry = ObjectEntry()
             entry.shm_node = r["node_id"]
@@ -2178,7 +2184,8 @@ class CoreWorker:
             meta, bufs = payload
             try:
                 e.value = serialization.loads_oob(
-                    meta, [memoryview(b) for b in bufs])
+                    meta, [memoryview(b) for b in bufs],
+                    keep_stand_ins=self.keep_device_stand_ins)
                 e.has_value = True
             except BaseException as ex:
                 e.error = ex

@@ -17,7 +17,10 @@ rides pickle 5's out-of-band path, and restored by the receiver:
     ``uint8``);
   * non-contiguous tensors arrive contiguous, and a tensor that requires
     grad arrives detached (a leaf with ``requires_grad=False``: autograd
-    graphs never cross processes).
+    graphs never cross processes);
+  * a load that only passes values on (the client server's) keeps a
+    tensor staged from a card as its host-side stand-in, which is
+    serialized again as such (``keep_stand_ins=True``).
 
 torch is looked up in ``sys.modules``, never imported at load: a process
 that never held a tensor never pays torch's import.  Large device-to-
@@ -31,6 +34,7 @@ works (reference: reference_count.h borrower protocol).
 
 from __future__ import annotations
 
+import contextvars
 import io
 import pickle
 import sys
@@ -98,6 +102,26 @@ def _receiving_device(torch) -> str:
     return "cuda" if torch.cuda.is_available() else "cpu"
 
 
+# A load that only passes values through (the client server's) keeps a
+# tensor staged from a card as its stand-in: it is serialized again as
+# what it was and comes back to life in the process that finally reads it,
+# while this one imports no torch for it and opens no CUDA context.  Set
+# for the length of that one load, so that every other load in the process
+# (other threads, a driver beside the server) restores as usual.
+_keeping_stand_ins = contextvars.ContextVar("keeping_stand_ins",
+                                            default=False)
+
+
+def _load(thunk: Callable[[], Any], keep_stand_ins: bool) -> Any:
+    if not keep_stand_ins:
+        return thunk()
+    token = _keeping_stand_ins.set(True)
+    try:
+        return thunk()
+    finally:
+        _keeping_stand_ins.reset(token)
+
+
 def _stage_tensor(t) -> _TensorStandIn:
     """Host copy of ``t`` (one D2H copy for a CUDA tensor)."""
     torch = _torch()
@@ -135,6 +159,21 @@ def _restore_tensor(stand_in: _TensorStandIn):
     if bits is not None:
         t = t.view(getattr(torch, stand_in.dtype))
     return t if dev == "cpu" else t.to(dev)
+
+
+def _restore_stand_in(np_value, dtype: str, device_type: str,
+                      placement=None):
+    """Unpickle a tensor: its stand-in in a load that keeps them (for a
+    tensor staged from a card), else the tensor."""
+    stand_in = _TensorStandIn(np_value, dtype, device_type, placement)
+    if device_type != "cpu" and _keeping_stand_ins.get():
+        return stand_in
+    return _restore_tensor(stand_in)
+
+
+def _reduce_stand_in(s: _TensorStandIn):
+    return (_restore_stand_in,
+            (s.np_value, s.dtype, s.device_type, s.placement))
 
 
 def holds_cuda_tensor(value, _depth: int = 0) -> bool:
@@ -175,9 +214,11 @@ class _Pickler(cloudpickle.Pickler):
     def reducer_override(self, obj):
         if _ref_type is not None and type(obj) is _ref_type:
             return (_deserialize_marker, (_ref_to_marker(obj),))
+        if type(obj) is _TensorStandIn:
+            return _reduce_stand_in(obj)
         torch = _torch()
         if torch is not None and isinstance(obj, torch.Tensor):
-            return (_restore_tensor, (_stage_tensor(obj),))
+            return _reduce_stand_in(_stage_tensor(obj))
         # delegate to cloudpickle's own override (functions/classes by value)
         return super().reducer_override(obj)
 
@@ -215,8 +256,10 @@ def dumps_oob(value: Any) -> Tuple[bytes, List[pickle.PickleBuffer]]:
     return f.getvalue(), buffers
 
 
-def loads_oob(meta: bytes, buffers: List[memoryview]) -> Any:
-    return pickle.loads(meta, buffers=buffers)
+def loads_oob(meta: bytes, buffers: List[memoryview], *,
+              keep_stand_ins: bool = False) -> Any:
+    """``keep_stand_ins``: a tensor staged from a card stays its stand-in."""
+    return _load(lambda: pickle.loads(meta, buffers=buffers), keep_stand_ins)
 
 
 def dumps_inline(value: Any) -> bytes:
@@ -320,10 +363,10 @@ def _loads_args_small(blob: bytes):
     return conv, {}
 
 
-def loads_inline(blob: bytes) -> Any:
+def loads_inline(blob: bytes, *, keep_stand_ins: bool = False) -> Any:
     if blob[:1] == _SMALL_PREFIX:
         return _loads_args_small(blob)
-    return pickle.loads(blob)
+    return _load(lambda: pickle.loads(blob), keep_stand_ins)
 
 
 def value_nbytes_estimate(meta: bytes, buffers) -> int:

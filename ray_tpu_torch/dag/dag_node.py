@@ -2,12 +2,11 @@
 
 Reference: python/ray/dag/ (dag_node.py, class_node.py, input_node.py) —
 ``actor.method.bind(x)`` builds a node; ``dag.execute(v)`` runs it
-interpreted (one actor task per node per call).
+interpreted (one actor task per node per call); ``experimental_compile()``
+returns a CompiledDAG with persistent per-actor exec loops over
+shared-memory channels (compiled_dag.py).
 
-The port's copy of ``ray_tpu/dag/dag_node.py``, for ``.bind``.  Compiled
-graphs (the reference's ``experimental_compile()`` over shared-memory
-channels, and the collective nodes that run inside them) come with the
-channel port (ROADMAP A.4c).
+The port's copy of ``ray_tpu/dag/dag_node.py``.
 """
 
 from __future__ import annotations
@@ -57,9 +56,10 @@ class DAGNode:
 
     def experimental_compile(self, *, buffer_size_bytes: int = 1 << 20,
                              nslots: int = 4):
-        raise NotImplementedError(
-            "compiled DAGs run over the shared-memory channels, which are "
-            "not ported yet (ROADMAP A.4c); use execute()")
+        from .compiled_dag import CompiledDAG
+
+        return CompiledDAG(self, buffer_size_bytes=buffer_size_bytes,
+                           nslots=nslots)
 
 
 def _resolve(arg: Any, values: Dict[int, Any], input_args: Tuple) -> Any:
@@ -159,3 +159,42 @@ class MultiOutputNode(DAGNode):
 
     def __repr__(self):
         return f"MultiOutputNode({len(self.outputs)})"
+
+
+class CollectiveOutputNode(DAGNode):
+    """One participant's output of a cross-actor collective inside a
+    compiled DAG (reference: dag/collective_node.py:19,93 — aDAG
+    allreduce over NCCL channels; here the reduction data plane is the
+    shm channel mesh between the participating actors).
+
+    Built via :func:`ray_tpu_torch.dag.allreduce_bind`; each contributor
+    (a ClassMethodNode) yields one CollectiveOutputNode carrying the
+    reduced value on that contributor's actor."""
+
+    def __init__(self, contributor: "ClassMethodNode",
+                 group: List["ClassMethodNode"], op: str):
+        super().__init__()
+        self.contributor = contributor
+        self.group = group
+        self.op = op
+        self.handle = contributor.handle
+
+    def _upstream(self):
+        return list(self.group)
+
+    def _exec_interpreted(self, values, input_args):
+        # interpreted mode: materialize every contribution at the driver
+        # and reduce (compiled mode reduces inside the actors)
+        import ray_tpu_torch
+
+        from .collective import REDUCERS
+
+        vals = [values[c._id] for c in self.group]
+        vals = [ray_tpu_torch.get(v)
+                if isinstance(v, ray_tpu_torch.ObjectRef) else v
+                for v in vals]
+        return REDUCERS[self.op](vals)
+
+    def __repr__(self):
+        return (f"CollectiveOutputNode({self.op}@"
+                f"{self.handle._class_name}#{self._id})")

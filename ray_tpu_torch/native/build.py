@@ -60,6 +60,19 @@ def build_extension(name: str, sources: list, extra_flags: list = ()) -> str:
         timeout=120)
 
 
+def build_sanitized_selftest() -> str:
+    """Build the ASAN+UBSAN self-test binary (reference: the C++ tests'
+    bazel asan/tsan configs in .bazelrc); returns the binary path.
+    Rebuilds when any native source is newer."""
+    sources = ["selftest.cc", "shm_arena.cc", "shm_channel.cc", "sched.cc"]
+    return _compile(
+        os.path.join(_BUILD_DIR, "native_selftest_san"),
+        [os.path.join(_SRC_DIR, s) for s in sources],
+        ["-std=c++17", "-g", "-O1", "-fno-omit-frame-pointer",
+         "-fsanitize=address,undefined", "-fno-sanitize-recover=all"],
+        timeout=300)
+
+
 def load_library(name: str, sources: list) -> ctypes.CDLL:
     """Build (if needed) and dlopen a native component; cached per-process."""
     with _lock:
@@ -70,3 +83,13 @@ def load_library(name: str, sources: list) -> ctypes.CDLL:
         _cache[name] = lib
         return lib
 
+
+if __name__ == "__main__":
+    import sys
+
+    if "--sanitize" in sys.argv:
+        path = build_sanitized_selftest()
+        print(path)
+        rc = subprocess.run([path, "/tmp"]).returncode
+        sys.exit(rc)
+    print("usage: python -m ray_tpu_torch.native.build --sanitize")

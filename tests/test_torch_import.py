@@ -1,5 +1,7 @@
 """The PyTorch port stands alone: importing it loads neither JAX nor any
-module of the JAX package, its runtime modules load no torch either, its
+module of the JAX package, its runtime modules load no torch either (nor
+do its compiled DAGs, its CLI, jobs, state API and client mode, even
+while a DAG channel carries values that are not tensors), its
 entry points refuse to fall back to the CPU silently (an NCCL collective
 group with no card raises), the kv collective backend runs on the port's
 own runtime, its Train layer (``ray_tpu_torch.train``, with elastic and
@@ -274,3 +276,70 @@ def test_data_modules_load_no_torch_and_no_jax():
     have = {p.stem for p in (PORT / "data").glob("*.py")}
     assert have == set(DATA_MODULES)
     assert have == {p.stem for p in (REPO / "ray_tpu" / "data").glob("*.py")}
+
+
+_CLI_PROBE = r"""
+import sys, tempfile, os
+import ray_tpu_torch.dag as dag
+import ray_tpu_torch.dag.channel
+import ray_tpu_torch.dag.collective
+import ray_tpu_torch.dag.compiled_dag
+import ray_tpu_torch.dag.dag_node
+import ray_tpu_torch.experimental
+import ray_tpu_torch.experimental.internal_kv
+import ray_tpu_torch.job
+import ray_tpu_torch.job.job_manager
+import ray_tpu_torch.scripts.cli as cli
+import ray_tpu_torch.util.client
+import ray_tpu_torch.util.client.client_core
+import ray_tpu_torch.util.client.server
+import ray_tpu_torch.util.state
+import ray_tpu_torch.util.state.api
+import numpy as np
+for name in dag.__all__:
+    getattr(dag, name)
+# a channel carrying values that are not tensors loads no torch
+path = os.path.join(tempfile.mkdtemp(), "chan")
+c = dag.Channel(path, nslots=2)
+c.write({"a": np.arange(4)})
+assert c.read(timeout_s=10)[1]["a"].sum() == 6
+c.release()
+cli.build_parser().parse_args(["status"])
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "ray_tpu", "torch"))
+assert not bad, bad
+print("ok")
+"""
+
+CLI_MODULES = {
+    "dag": ("__init__", "channel", "collective", "compiled_dag",
+            "dag_node"),
+    "experimental": ("__init__", "internal_kv"),
+    "job": ("__init__", "job_manager"),
+    "scripts": ("__init__", "cli"),
+    "util/client": ("__init__", "client_core", "server"),
+    "util/state": ("__init__", "api"),
+}
+
+
+def test_dag_cli_job_state_client_load_no_torch_and_no_jax():
+    """A compiled DAG's exec loop runs in any actor, the CLI, the job
+    supervisor and the client server in processes that compute nothing:
+    none of their modules loads torch, JAX or the JAX package, and a DAG
+    channel loads torch only for a tensor."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", _CLI_PROBE], cwd="/",
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+    for pkg, mods in CLI_MODULES.items():
+        have = {p.stem for p in (PORT / pkg).glob("*.py")}
+        assert have == set(mods), (pkg, have)
+    # the CLI's own process loads no torch either
+    cli = subprocess.run(
+        [sys.executable, "-c", "import sys, runpy; sys.argv = ['x', "
+         "'config']; runpy.run_module('ray_tpu_torch', run_name="
+         "'__main__'); assert 'torch' not in sys.modules, 'torch'"],
+        cwd="/", env=env, capture_output=True, text=True, timeout=120)
+    assert cli.returncode == 0, cli.stderr

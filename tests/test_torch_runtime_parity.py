@@ -126,6 +126,35 @@ out = {
     "ref_sessions": os.listdir("/dev/shm/ray_tpu"),
     "port_sessions": os.listdir("/dev/shm/ray_tpu_torch"),
 }
+
+# a compiled DAG in each runtime: each keeps its channels under its own
+# session
+from ray_tpu.dag import InputNode as RefInput
+from ray_tpu_torch.dag import InputNode as PortInput
+
+@ray_tpu.remote
+class RefStage:
+    def f(self, x):
+        return x + 1
+
+@ray_tpu_torch.remote
+class PortStage:
+    def f(self, x):
+        return x + 2
+
+with RefInput() as i:
+    ref_dag = RefStage.remote().f.bind(i).experimental_compile()
+with PortInput() as i:
+    port_dag = PortStage.remote().f.bind(i).experimental_compile()
+out["dag"] = [ref_dag.execute(1).get(timeout=60),
+              port_dag.execute(1).get(timeout=60),
+              ref_dag._chan_dir, port_dag._chan_dir]
+ref_dag.teardown()
+port_dag.teardown()
+import ray_tpu.scripts.cli as ref_cli
+import ray_tpu_torch.scripts.cli as port_cli
+out["cluster_files"] = [ref_cli.CLUSTER_FILE, port_cli.cluster_file(),
+                        port_cli.CLUSTER_FILE_ENV]
 ray_tpu_torch.shutdown()
 ray_tpu.shutdown()
 del os.environ["RAY_TPU_ADDRESS"]
@@ -146,8 +175,9 @@ print("RESULT " + json.dumps(out))
 
 def test_two_runtimes_on_one_host_stay_apart():
     env = dict(os.environ, PYTHONPATH=str(REPO), JAX_PLATFORMS="cpu")
-    env.pop("RAY_TPU_ADDRESS", None)
-    env.pop("RAY_TPU_TORCH_ADDRESS", None)
+    for var in ("RAY_TPU_ADDRESS", "RAY_TPU_TORCH_ADDRESS",
+                "RAY_TPU_CLUSTER_FILE", "RAY_TPU_TORCH_CLUSTER_FILE"):
+        env.pop(var, None)
     out = subprocess.run([sys.executable, "-c", _TWO_RUNTIMES], cwd="/",
                          env=env, capture_output=True, text=True,
                          timeout=150)
@@ -166,6 +196,16 @@ def test_two_runtimes_on_one_host_stay_apart():
     ref_addr, port_addr, ref_nodes, port_nodes = r["reverse"]
     assert ref_addr != port_addr
     assert not set(ref_nodes) & set(port_nodes)
+    # compiled DAGs' shm channels live under each runtime's own root
+    ref_out, port_out, ref_chans, port_chans = r["dag"]
+    assert (ref_out, port_out) == (2, 3)
+    assert ref_chans.startswith("/dev/shm/ray_tpu/session-")
+    assert port_chans.startswith("/dev/shm/ray_tpu_torch/session-")
+    # and the CLI-started clusters write their own cluster files
+    ref_file, port_file, port_env = r["cluster_files"]
+    assert ref_file != port_file
+    assert port_file == "/tmp/ray_tpu_torch/ray_current_cluster.json"
+    assert port_env == "RAY_TPU_TORCH_CLUSTER_FILE"
 
 
 def test_native_builds_and_session_roots_are_apart():

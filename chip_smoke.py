@@ -120,16 +120,20 @@ Phases, each of which must pass (any failure exits non-zero):
                 (== plain sum, int8 == the codec, broadcast, no keys
                 left); no runtime process outlives shutdown or holds the
                 card.
- 14. serve-app — Serve on the port's runtime:
+ 14. serve-app — Serve on the port's runtime, the bf16 replica at
+                GPT-2-small's width and 3 of its 12 layers (the run's
+                time limit):
                 build_llm_app("gpt2_small") on a GPU replica
-                (ray_actor_options={"num_gpus": 1}; paged, bf16, seed 0),
+                (ray_actor_options={"num_gpus": 1}; paged, bf16, seed 0,
+                the weights made on the replica by a params_loader),
                 the controller, proxies and stream ingress on CPU workers;
                 phase serve's 12 prompts concurrently through the handle
-                == the in-process engine's completions, bitwise; a stream
+                == the in-process engine's completions at the same depth,
+                bitwise; a stream
                 through the handle and a request through the RPC ingress
                 (HTTP and its -stream route where aiohttp imports) ==
                 batched; a 1000-position prompt, whose prefill outlasts
-                the replica's stall window (serve_engine_stall_s 4 s
+                the replica's stall window (serve_engine_stall_s 2 s
                 here), == the in-process engine with no replica
                 restarted; two f32 replicas at num_gpus=0.5 on the one
                 card, a sampled stream whose replica is killed after 3
@@ -221,6 +225,27 @@ Phases, each of which must pass (any failure exits non-zero):
                 answers, init("auto"), submit to SUCCEEDED with the GPU
                 worker's age at its task, a trivial task's round trip
                 through the client against this driver's.
+ 19. autoscale — the autoscaler on GPU nodes: init(num_cpus=2,
+                num_gpus=0), a head offering no card; a StandardAutoscaler
+                over a LocalNodeProvider with one node type gpu1 {CPU 2,
+                GPU 1} (min 0, max 1, idle timeout 2 s), driven by a
+                Monitor thread every 0.5 s.  A num_gpus=1 task pends, the
+                autoscaler launches the GPU node, and the task's [1, 1024]
+                bf16 forward (K1 12) == this process's, bitwise; a
+                util.ActorPool of two num_gpus=0.5 GPT-2-small actors on
+                that node: map over 8 [8, 1024] batches in submit order
+                and map_unordered, every result == this process's forward,
+                bitwise, K1 12 per forward; a pool actor puts 4 bf16 CUDA
+                tensors into a util.Queue and this driver gets them on its
+                card, bitwise, the queue actor loading no torch; the actors
+                killed, the idle node is terminated (one termination) and
+                no process holds the card.  Then `up` with a local-provider
+                config whose worker type offers {GPU: 1}, `status`, `down`
+                (where yaml imports).  Times: demand to the node
+                registered, submit to result with the GPU worker's age,
+                ms per pool item against the forward in this process, the
+                queue hand-off, kill to termination, termination to the
+                card free.
 
     python3 chip_smoke.py --phases dp-train
     python3 chip_smoke.py --phases runtime
@@ -228,6 +253,7 @@ Phases, each of which must pass (any failure exits non-zero):
     python3 chip_smoke.py --phases train-app
     python3 chip_smoke.py --phases data-train
     python3 chip_smoke.py --phases dag,cli-jobs
+    python3 chip_smoke.py --phases autoscale
 
 runs the device and build phases and the named ones only (a development
 aid; with no arguments every phase runs).
@@ -900,7 +926,7 @@ def _serve_prompts(vocab):
     return prompts, max_new
 
 
-def phase_serve(params, cfg):
+def phase_serve(params, cfg, tag="serve"):
     import torch
 
     from ray_tpu_torch.models import gpt
@@ -960,15 +986,15 @@ def phase_serve(params, cfg):
                      if k != "active_request_ids"}}
     # a smoke reading that shows the path runs, not a serving metric: the
     # request mix is made up and one run of 12 requests is noisy
-    log(f"[serve] smoke reading: {len(prompts)} requests, {generated} tokens in "
+    log(f"[{tag}] smoke reading: {len(prompts)} requests, {generated} tokens in "
         f"{wall:.2f} s = {rec['tokens_per_s']:.1f} tokens/s; TTFT p50 "
         f"{stats['ttft_p50_s']:.3f} s p99 {stats['ttft_p99_s']:.3f} s; "
         f"flash_fwd launches {launches['flash_fwd']} (decode attention "
         f"is plain tensor math)")
-    log(f"[serve] time: prefill {prefill_s:.2f} s over "
+    log(f"[{tag}] time: prefill {prefill_s:.2f} s over "
         f"{stats['prefills']} prompts, decode {decode_s:.2f} s over "
         f"{stats['steps']} steps ({rec['decode_ms_per_step']:.2f} ms/step)")
-    log(f"[serve] engine_stats {json.dumps(rec['stats'])}")
+    log(f"[{tag}] engine_stats {json.dumps(rec['stats'])}")
     return rec
 
 
@@ -3462,10 +3488,32 @@ SERVE_APP_RESUME_PROMPT = [3, 14, 15, 92, 6, 5]
 SERVE_APP_RESUME = (10, 0.7, 5, 8)
 SERVE_APP_KILL_AFTER = 3
 SERVE_APP_RELEASE_S = 30.0      # after serve.shutdown, no worker holds the card
-# a prompt near GPT-2-small's 1024 context (8.5-12 s on the card): its
-# prefill outlasts the replica's stall window, and must not fail a probe
+# a prompt near GPT-2-small's 1024 context: its prefill outlasts the
+# replica's stall window, and must not fail a probe
 SERVE_APP_LONG = (1000, 8)      # prompt positions, new tokens
-SERVE_APP_STALL_S = 4.0         # the bf16 replica's serve_engine_stall_s
+SERVE_APP_STALL_S = 2.0         # the bf16 replica's serve_engine_stall_s
+# the depth of the bf16 replica and of the in-process engine it is held
+# to: GPT-2-small's width with 3 of its 12 layers (the chip_smoke run's
+# time limit; the serve and serve-bench phases keep all 12).  The resume's
+# f32 replicas keep 12: at 6 a 10-token stream finished before the kill
+# after its third token landed
+SERVE_APP_LAYERS = 3
+
+
+def _serve_app_cfg():
+    from ray_tpu_torch.models import gpt
+
+    return dataclasses.replace(gpt.GPTConfig.gpt2_small(),
+                               n_layers=SERVE_APP_LAYERS)
+
+
+def _serve_app_params():
+    """The replica's params_loader: the phase's config and its seed-0
+    weights, made on the replica."""
+    from ray_tpu_torch.models import gpt
+
+    cfg = _serve_app_cfg()
+    return cfg, gpt.init(cfg, seed=SEED)
 
 
 def _long_request(cfg):
@@ -3526,7 +3574,7 @@ def _http_post(url, body):
         return r.read().decode()
 
 
-def phase_serve_app(serve_rec=None):
+def phase_serve_app():
     import importlib.util
     import threading
 
@@ -3540,27 +3588,28 @@ def phase_serve_app(serve_rec=None):
 
     smi = _smi_line()
     t_phase = time.perf_counter()
-    cfg = gpt.GPTConfig.gpt2_small()
+    cfg = _serve_app_cfg()
     prompts, max_new = _serve_prompts(cfg.vocab_size)
-    if serve_rec is None:
-        # the driver's in-process paged engine on the same prompts and
-        # weights (seed 0), on this card: what the replica is held against
-        params = gpt.init(cfg, seed=SEED)
-        serve_rec = phase_serve(params, cfg)
-        del params
-        torch.cuda.empty_cache()
+    # the driver's in-process paged engine on the same prompts and weights
+    # (seed 0), on this card: what the replica is held against
+    params = gpt.init(cfg, seed=SEED)
+    serve_rec = phase_serve(params, cfg, tag="serve-app")
+    del params
+    torch.cuda.empty_cache()
     want = serve_rec["completions"]
     long_body, long_want, long_ref_s = _long_request(cfg)
     rec = {"card": smi}
     before = set(_runtime_procs())
     rt.init(num_cpus=4)
     try:
-        # 1. deploy GPT-2-small (bf16, random weights from seed 0) on a
-        # GPU replica, paged engine, with its -stream companion app
+        # 1. deploy GPT-2-small's width at the phase's depth (bf16, random
+        # weights from seed 0) on a GPU replica, paged engine, with its
+        # -stream companion app
         t0 = time.perf_counter()
         h = build_llm_app(
             "gpt2_small", name="llm", route_prefix="/llm",
             deployment_options={"ray_actor_options": {"num_gpus": 1}},
+            params_loader=_serve_app_params,
             max_seq=SERVE_MAX_SEQ, engine="paged",
             engine_kwargs={"stall_s": SERVE_APP_STALL_S})
         rec["running_s"] = time.perf_counter() - t0
@@ -5369,6 +5418,356 @@ def phase_cli_jobs():
     return rec
 
 
+# ---------------------------------------------------------------------------
+# autoscale: the autoscaler on the port's runtime (after cli-jobs).  The head
+# offers no card, so a num_gpus=1 task pends until a StandardAutoscaler over
+# a LocalNodeProvider, driven by a Monitor thread, launches the one GPU node
+# type; a util.ActorPool of two num_gpus=0.5 GPT-2-small actors on that node
+# fans token batches out, one of them hands CUDA tensors to this driver
+# through a util.Queue, and once the actors are gone the node idles out and
+# is terminated, which frees the card.  Then `up`/`down` where yaml imports.
+
+AUTOSCALE_TOKENS = (1, 1024)     # the autoscaled task's forward
+POOL_TOKENS = (8, 1024)          # one ActorPool item, as the dag phase's
+POOL_ITEMS = 8
+QUEUE_TENSOR = (1024, 1024)      # bf16, one Queue item
+QUEUE_SEEDS = (21, 22, 23, 24)
+AUTOSCALE_IDLE_S = 2.0           # the GPU node type's idle timeout
+AUTOSCALE_TICK_S = 0.5           # the Monitor's interval
+# As in the dag and runtime phases, the task's and the actors' logits are
+# held bitwise against this process's forward: the same code and kernels
+# on the same card.
+
+
+def _autoscaled_forward():
+    """The GPU task on the autoscaled node: GPT-2-small's [1, 1024] bf16
+    forward (seed-0 weights, seeded tokens), the last position's logits
+    (on the card), K1's launches in the task, the worker's age and its
+    node."""
+    import torch
+
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.ops import _kernels
+
+    age = _proc_age_s()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _dag_cfg()
+    params = gpt.init(cfg, seed=SEED, device="cuda")
+    tokens = _dag_tokens(AUTOSCALE_TOKENS, SEED + 5)
+    _kernels.reset_launch_counts()
+    last = _last_logits(params, cfg, tokens)
+    _sync()
+    return {"last": last, "launches": _kernels.launch_counts(),
+            "worker_age_s": age, "pid": os.getpid(),
+            "node_id": os.environ.get("RAY_TPU_TORCH_NODE_ID")}
+
+
+def _queue_tensor(seed):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(QUEUE_TENSOR, generator=g, device="cuda",
+                       dtype=torch.bfloat16)
+
+
+class _PoolStage(_DagStage):
+    """A pool actor: the dag phase's stage A (GPT-2-small, seed 0, on a
+    share of the card), its node, and the producer of the queue hand-off."""
+
+    def node(self):
+        return os.environ.get("RAY_TPU_TORCH_NODE_ID")
+
+    def put_to_queue(self, q, seeds):
+        for s in seeds:
+            q.put(_queue_tensor(s))
+        return len(seeds)
+
+
+def _digest(t):
+    import hashlib
+
+    import torch
+
+    return hashlib.sha256(t.view(torch.int16).cpu().numpy()
+                          .tobytes()).hexdigest()
+
+
+_UP_CONFIG = """\
+cluster_name: smoke-up
+provider:
+  type: local
+  port: 0
+head_node:
+  resources: {CPU: 1}
+worker_nodes:
+  count: 1
+  resources: {CPU: 1, GPU: 1}
+"""
+
+
+def _autoscale_up_down(before):
+    """`up` with a local-provider config whose worker type offers the
+    card, `status` of what came up, then `down`."""
+    tmp = tempfile.mkdtemp(prefix="autoscale-up-")
+    cfg_path = os.path.join(tmp, "cluster.yaml")
+    with open(cfg_path, "w") as f:
+        f.write(_UP_CONFIG)
+    os.environ["RAY_TPU_TORCH_CLUSTER_FILE"] = os.path.join(
+        tmp, "ray_current_cluster.json")
+    stopped = False
+    try:
+        up_s, r = _cli("up", cfg_path, timeout=300)
+        check("(1 head + 1 workers)" in r.stdout, r.stdout)
+        with open(os.environ["RAY_TPU_TORCH_CLUSTER_FILE"]) as f:
+            address = json.load(f)["control_address"]
+        _, st = _cli("status", "--address", address)
+        check("2 alive" in st.stdout and "'GPU': 1.0" in st.stdout,
+              f"`up`'s cluster: {st.stdout}")
+    finally:
+        try:
+            down_s, r = _cli("down", timeout=120)
+            stopped = "stopped" in r.stdout
+        finally:
+            os.environ.pop("RAY_TPU_TORCH_CLUSTER_FILE", None)
+    check(stopped, "`down` did not stop the daemons")
+    mine = lambda: {p: c for p, c in _runtime_procs().items()  # noqa: E731
+                    if p not in before}
+    _wait_for(lambda: not mine(), 60, f"daemons outlived `down`: {mine()}")
+    return {"ran": True, "up_s": up_s, "down_s": down_s}
+
+
+def phase_autoscale():
+    import importlib.util
+    import threading
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.autoscaler import (LocalNodeProvider, Monitor,
+                                          StandardAutoscaler)
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.util import ActorPool, Queue, state
+
+    smi = _smi_line()
+    t_phase = time.perf_counter()
+    cfg = _dag_cfg()
+    rec = {"card": smi}
+    # this process's own runs of what the task and the pool compute
+    params = gpt.init(cfg, seed=SEED, device="cuda")
+    want_task = _last_logits(params, cfg, _dag_tokens(AUTOSCALE_TOKENS,
+                                                      SEED + 5))
+    batches = [_dag_tokens(POOL_TOKENS, SEED + 10 + i)
+               for i in range(POOL_ITEMS)]
+    want_pool = [_last_logits(params, cfg, t) for t in batches]
+    local = _chain_ms(lambda: _last_logits(params, cfg, batches[0]), 10)
+    before = set(_runtime_procs())
+    provider = monitor = thread = None
+    t0 = time.perf_counter()
+    info = rt.init(num_cpus=2, num_gpus=0)
+    rec["head_up_s"] = time.perf_counter() - t0
+    try:
+        res = rt.cluster_resources()
+        check(not res.get("GPU"), f"the head offers a card: {res}")
+        provider = LocalNodeProvider(
+            {"control_address": info["control_address"]}, "smoke")
+        autoscaler = StandardAutoscaler(
+            {"max_workers": 1, "idle_timeout_minutes": AUTOSCALE_IDLE_S / 60,
+             "available_node_types": {
+                 "gpu1": {"resources": {"CPU": 2.0, "GPU": 1.0},
+                          "min_workers": 0, "max_workers": 1}}},
+            provider, rt._require().control)
+        monitor = Monitor(autoscaler, interval_s=AUTOSCALE_TICK_S)
+        thread = threading.Thread(target=monitor.run, daemon=True,
+                                  name="autoscaler-monitor")
+        thread.start()
+
+        # 1. a num_gpus=1 task pends; the autoscaler launches the GPU node
+        head_nodes = {n["node_id"] for n in rt.nodes()}
+        task = rt.remote(num_gpus=1)(_autoscaled_forward)
+        t_submit = time.perf_counter()
+        ref = task.remote()
+        gpu_node = None
+        while gpu_node is None:
+            check(time.perf_counter() - t_submit < 120,
+                  f"no GPU node registered within 120 s of the demand "
+                  f"(launches {autoscaler.num_launches})")
+            gpu_node = next((n["node_id"] for n in rt.nodes()
+                             if n["node_id"] not in head_nodes
+                             and n["state"] == "ALIVE"
+                             and n["total"].get("GPU") == 1.0), None)
+            time.sleep(0.05)
+        registered_s = time.perf_counter() - t_submit
+        out = rt.get(ref, timeout=600)
+        result_s = time.perf_counter() - t_submit
+        # the pool's actors are asked for at once: the node idles out
+        # AUTOSCALE_IDLE_S after its last lease
+        stage = rt.remote(num_gpus=0.5)(_PoolStage)
+        t0 = time.perf_counter()
+        actors = [stage.remote(True) for _ in range(2)]
+        check(out["node_id"] == gpu_node and out["last"].is_cuda
+              and torch.equal(out["last"], want_task),
+              f"the autoscaled task ran on {out['node_id']} (the GPU node "
+              f"{gpu_node}); its logits on {out['last'].device} are not "
+              f"this process's, bitwise")
+        check(out["launches"]["flash_fwd"] == cfg.n_layers,
+              f"the autoscaled task launched {out['launches']}")
+        check(autoscaler.num_launches == 1
+              and provider.non_terminated_nodes({}) == [gpu_node],
+              f"launches {autoscaler.num_launches}, provider nodes "
+              f"{provider.non_terminated_nodes({})}")
+        rec["task"] = {"demand_to_registered_s": registered_s,
+                       "submit_to_result_s": result_s,
+                       "gpu_worker_age_at_task_s": out["worker_age_s"],
+                       "launches": out["launches"], "bitwise": True}
+        log(f"[autoscale] head without a card up in {rec['head_up_s']:.2f} "
+            f"s; a num_gpus=1 task's demand -> the autoscaler's GPU node "
+            f"registered {registered_s:.2f} s; submit -> result "
+            f"{result_s:.2f} s (the GPU worker {out['worker_age_s']:.2f} s "
+            f"old at its task); flash_fwd {out['launches']['flash_fwd']}; "
+            f"the last logits == this process's, bitwise, on its card "
+            f"({smi})")
+
+        # 2. an ActorPool of two num_gpus=0.5 actors on that node
+        ready = rt.get([a.ready.remote() for a in actors], timeout=300)
+        rec["actors_up_s"] = time.perf_counter() - t0
+        nodes = rt.get([a.node.remote() for a in actors], timeout=60)
+        check(all(r["sees_card"] for r in ready) and nodes == [gpu_node] * 2
+              and ready[0]["pid"] != ready[1]["pid"],
+              f"pool actors {ready} on nodes {nodes}")
+        # one forward each first: an actor's first call loads its libraries
+        rt.get([a.last_logits.remote(batches[0]) for a in actors],
+               timeout=300)
+        rt.get([a.reset_counts.remote() for a in actors], timeout=60)
+        pool = ActorPool(actors)
+        t0 = time.perf_counter()
+        got = list(pool.map(lambda a, t: a.last_logits.remote(t), batches))
+        map_s = time.perf_counter() - t0
+        for i, (g, w) in enumerate(zip(got, want_pool)):
+            check(g.is_cuda and torch.equal(g, w),
+                  f"pool.map item {i} on {g.device} is not this process's "
+                  f"forward of batch {i}, bitwise (submit order)")
+        t0 = time.perf_counter()
+        unordered = list(pool.map_unordered(
+            lambda a, t: a.last_logits.remote(t), batches))
+        unordered_s = time.perf_counter() - t0
+        check(sorted(_digest(u) for u in unordered)
+              == sorted(_digest(w) for w in want_pool),
+              "map_unordered did not return the same set of results")
+        counts = rt.get([a.counts.remote() for a in actors], timeout=60)
+        forwards = 2 * POOL_ITEMS
+        total = {k: sum(c[k] for c in counts) for k in counts[0]}
+        check(total["flash_fwd"] == forwards * cfg.n_layers
+              and all(v == 0 for k, v in total.items() if k != "flash_fwd"),
+              f"the pool's actors launched {total} over {forwards} "
+              f"forwards")
+        rec["pool"] = {"actors_up_s": rec["actors_up_s"],
+                       "map_ms_per_item": map_s / POOL_ITEMS * 1e3,
+                       "map_unordered_ms_per_item":
+                           unordered_s / POOL_ITEMS * 1e3,
+                       "in_process_ms": local,
+                       "launches_per_forward": {k: v // forwards
+                                                for k, v in total.items()},
+                       "launches_by_actor": counts, "bitwise": True}
+        log(f"[autoscale] ActorPool of 2 num_gpus=0.5 GPT-2-small actors on "
+            f"the GPU node (up in {rec['actors_up_s']:.2f} s): map over "
+            f"{POOL_ITEMS} [8, 1024] batches in submit order, each == this "
+            f"process's forward, bitwise, {rec['pool']['map_ms_per_item']:.2f}"
+            f" ms per item; map_unordered the same set, "
+            f"{rec['pool']['map_unordered_ms_per_item']:.2f} ms per item; "
+            f"the forward in this process {local['mean_ms']:.2f} ms "
+            f"(min {local['min_ms']:.2f}); flash_fwd 12 per forward in the "
+            f"actors ({[c['flash_fwd'] for c in counts]}) ({smi})")
+
+        # 3. a queue hand-off: a pool actor puts CUDA tensors, this driver
+        # gets them on its card; the queue actor holds stand-ins
+        q = Queue()
+        t0 = time.perf_counter()
+        n = rt.get(actors[0].put_to_queue.remote(q, list(QUEUE_SEEDS)),
+                   timeout=300)
+        items = [q.get(timeout=60) for _ in range(n)]
+        queue_s = time.perf_counter() - t0
+        for s, t in zip(QUEUE_SEEDS, items):
+            check(t.is_cuda and t.dtype == torch.bfloat16
+                  and torch.equal(t, _queue_tensor(s)),
+                  f"queue item (seed {s}) arrived on {t.device} as "
+                  f"{t.dtype}, not bitwise the producer's on this card")
+        (qw,) = [w for w in state.list_workers()
+                 if w["actor_id"] == q.actor._actor_id]
+        with open(f"/proc/{qw['pid']}/maps") as f:
+            queue_torch = "libtorch" in f.read()
+        check(not queue_torch and not _holds_card(qw["pid"]),
+              f"the queue actor loaded torch ({queue_torch}) or holds the "
+              f"card ({_holds_card(qw['pid'])})")
+        q.shutdown()
+        rec["queue"] = {"items": n, "shape": list(QUEUE_TENSOR),
+                        "dtype": "bfloat16", "seconds": queue_s,
+                        "landed_on": str(items[0].device),
+                        "queue_actor_loaded_torch": queue_torch,
+                        "bitwise": True}
+        log(f"[autoscale] util.Queue: a pool actor put {n} bf16 "
+            f"{list(QUEUE_TENSOR)} CUDA tensors, this driver got them on "
+            f"its card, bitwise, in {queue_s:.3f} s; the queue actor kept "
+            f"their stand-ins (no torch loaded, no card held)")
+
+        # 4. scale-down: the actors go, the node idles out, the card frees
+        for a in actors:
+            rt.kill(a)
+        t0 = time.perf_counter()
+        _wait_for(lambda: autoscaler.num_terminations >= 1, 120,
+                  "the idle GPU node was not terminated within 120 s")
+        idle_s = time.perf_counter() - t0
+        check(autoscaler.num_terminations == 1
+              and autoscaler.num_launches == 1
+              and provider.non_terminated_nodes({}) == [],
+              f"terminations {autoscaler.num_terminations}, launches "
+              f"{autoscaler.num_launches}, nodes "
+              f"{provider.non_terminated_nodes({})}")
+        t0 = time.perf_counter()
+        _wait_for(lambda: not _card_holders(before), 60,
+                  f"processes hold the card after the node's termination: "
+                  f"{_card_holders(before)}")
+        free_s = time.perf_counter() - t0
+        rec["scale_down"] = {"kill_to_terminated_s": idle_s,
+                             "idle_timeout_s": AUTOSCALE_IDLE_S,
+                             "terminated_to_card_free_s": free_s,
+                             "terminations": autoscaler.num_terminations}
+        log(f"[autoscale] actors killed -> idle node terminated "
+            f"{idle_s:.2f} s (idle timeout {AUTOSCALE_IDLE_S:g} s, ticks "
+            f"{AUTOSCALE_TICK_S:g} s); terminated -> no process holds the "
+            f"card {free_s:.2f} s ({smi})")
+    finally:
+        if monitor is not None:
+            monitor.stop()
+            thread.join(timeout=30)
+        if provider is not None:
+            provider.shutdown()
+        rt.shutdown()
+    mine = lambda: {p: c for p, c in _runtime_procs().items()  # noqa: E731
+                    if p not in before}
+    _wait_for(lambda: not mine(), 60,
+              f"runtime processes outlived shutdown: {mine()}")
+    check(not _card_holders(before), f"runtime processes hold the card "
+          f"after shutdown: {_card_holders(before)}")
+    del params
+
+    # 5. `up` / `down` where yaml imports
+    if importlib.util.find_spec("yaml") is not None:
+        rec["up_down"] = _autoscale_up_down(before)
+        log(f"[autoscale] `up` (local provider, worker type {{GPU: 1}}) "
+            f"{rec['up_down']['up_s']:.2f} s to a head + GPU worker node "
+            f"that `status` lists; `down` {rec['up_down']['down_s']:.2f} s,"
+            f" every daemon gone")
+    else:
+        rec["up_down"] = {"ran": False}
+        log("[autoscale] `up`/`down` skipped: yaml does not import")
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"[autoscale] ran: autoscaler, pool, queue, scale-down, "
+        f"{'up/down' if rec['up_down']['ran'] else 'no up/down'}; phase "
+        f"{rec['seconds']:.1f} s ({smi})")
+    return rec
+
+
 def _kernel_entry(k, case, launches_by_path, **extra):
     # the main path: a step through the trainer on Data-fed batches (K1-K6;
     # K7 runs there only with the fused hop forced, and its entry says so)
@@ -5386,7 +5785,8 @@ def _kernel_entry(k, case, launches_by_path, **extra):
 
 PHASES = ("kernels", "forward", "serve", "serve-bench", "parity", "train",
           "kernels-quantize", "kernels-fused", "dp-train", "runtime",
-          "serve-app", "train-app", "data-train", "dag", "cli-jobs")
+          "serve-app", "train-app", "data-train", "dag", "cli-jobs",
+          "autoscale")
 
 
 def main(argv=None):
@@ -5456,7 +5856,7 @@ def main(argv=None):
     if "serve-app" in phases:
         # last, for the same reason: its replicas come and go on the card
         torch.cuda.empty_cache()
-        report["serve_app"] = phase_serve_app(report.get("serve"))
+        report["serve_app"] = phase_serve_app()
     if "train-app" in phases:
         # last as well: its GPU workers come and go on the card
         torch.cuda.empty_cache()
@@ -5473,6 +5873,10 @@ def main(argv=None):
         # last: the CLI-started cluster's GPU workers come and go too
         torch.cuda.empty_cache()
         report["cli_jobs"] = phase_cli_jobs()
+    if "autoscale" in phases:
+        # last: the autoscaled node's GPU workers come and go too
+        torch.cuda.empty_cache()
+        report["autoscale"] = phase_autoscale()
 
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps(report, indent=1))
@@ -5514,7 +5918,13 @@ def main(argv=None):
                     "launches_per_iteration"][name],
                 # the GPU task of a job submitted through the CLI
                 "job_task_forward":
-                    report["cli_jobs"]["job"]["launches"][name]}
+                    report["cli_jobs"]["job"]["launches"][name],
+                # the num_gpus=1 task on the node the autoscaler launched
+                "autoscaled_task_forward":
+                    report["autoscale"]["task"]["launches"][name],
+                # one forward in an actor of the GPU ActorPool
+                "actor_pool_forward": report["autoscale"]["pool"][
+                    "launches_per_forward"][name]}
 
     k1 = report["kernels"][0]
     bwd = report["kernels_bwd"][0]

@@ -1815,6 +1815,7 @@ class CoreWorker:
             shares[addr] = shares.get(addr, 0) + 1
         got_any = False
         canceled = False
+        spilled = False
         for addr, share in shares.items():
             raylet_addr = self.raylet_addr
             raylet_cli = self.raylet
@@ -1865,6 +1866,11 @@ class CoreWorker:
                 if r and r.get("canceled"):
                     canceled = True
                     continue
+                if r and r.get("spillback"):
+                    # queued where it can never run, and a node that can
+                    # run it has joined: pick again
+                    spilled = True
+                    continue
                 raise RuntimeError(f"lease request failed: {r}")
             if r.get("mux") and self._mux_enabled \
                     and addr in (None, self.raylet_addr):
@@ -1898,6 +1904,8 @@ class CoreWorker:
                 got_any = True
         if got_any:
             return "ok"
+        if spilled:
+            return "reprobe"
         return "canceled" if canceled else "ok"
 
     def _push_task(self, lw: LeasedWorker, rec: TaskRecord, pool: SchedPool):
@@ -3558,7 +3566,8 @@ class CoreWorker:
         return ("inline", (meta, [b.raw().tobytes() for b in bufs]))
 
     def resolve_args(self, spec: TaskSpec):
-        args, kwargs = serialization.loads_inline(spec.args_blob)
+        args, kwargs = serialization.loads_inline(
+            spec.args_blob, keep_stand_ins=self.keep_device_stand_ins)
         args = [self.get(a) if isinstance(a, ObjectRef) else a for a in args]
         kwargs = {k: self.get(v) if isinstance(v, ObjectRef) else v
                   for k, v in kwargs.items()}

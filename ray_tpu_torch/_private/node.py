@@ -39,6 +39,8 @@ from .shm_store import ShmObjectStore
 logger = logging.getLogger(__name__)
 
 LEASE_GRANT_TICK_S = 0.01
+# how often a lease this node can never grant looks for a node that can
+INFEASIBLE_RECHECK_S = 1.0
 WORKER_SPAWN_HARD_CAP_FACTOR = 10
 # submit multiplexer: how recently a client must have submitted to count
 # as a concurrent submitter, and how long a relay worker may sit idle
@@ -110,6 +112,7 @@ class Raylet:
         # lessee core conns, for on-demand idle-lease reclaim pushes
         self.client_conns: Dict[str, Any] = {}
         self._last_reclaim_push = 0.0
+        self._last_infeasible_check = 0.0
         # multi-client submit multiplexer (relay): once >=2 distinct
         # external clients submit within MUX_WINDOW_S, eligible plain
         # tasks arrive as framed mux_push_tasks notifies and are
@@ -947,6 +950,7 @@ class Raylet:
         while not self._stop.is_set():
             time.sleep(LEASE_GRANT_TICK_S)
             self._try_grant()
+            self._spill_infeasible()
             try:
                 self._mux_tick()
             except Exception:
@@ -1074,6 +1078,44 @@ class Raylet:
                 })
         if starved:
             self._request_idle_reclaim()
+
+    def _spill_infeasible(self):
+        """A lease whose demand exceeds this node's total waits here only
+        as autoscaler demand (``pending_demands``).  Once another node
+        could grant it now (one the autoscaler launched, say), hand it
+        back to its owner with ``spillback``, and the owner picks again.
+        Without this the request waits out the owner's 120 s lease
+        deadline, as it does in the reference's raylet (ROADMAP §C)."""
+        now = time.monotonic()
+        if now - self._last_infeasible_check < INFEASIBLE_RECHECK_S:
+            return
+        self._last_infeasible_check = now
+        with self.lock:
+            stuck = [pl for pl in self.pending_leases
+                     if pl.bundle is None and not fits(self.total, pl.demand)]
+        if not stuck or self.control is None:
+            return
+        try:
+            nodes = self.control.call("get_nodes", {}, timeout=5.0)
+        except Exception:
+            return
+        avail = [normalize_resources(n["available"]) for n in nodes
+                 if n["state"] == "ALIVE" and n["node_id"] != self.node_id]
+        spill = [pl for pl in stuck
+                 if any(fits(a, pl.demand) for a in avail)]
+        if not spill:
+            return
+        gone = {id(pl) for pl in spill}
+        with self.lock:
+            # a lease canceled since the scan is resolved already
+            taken = [pl for pl in self.pending_leases if id(pl) in gone]
+            self.pending_leases = deque(pl for pl in self.pending_leases
+                                        if id(pl) not in gone)
+        for pl in taken:
+            try:
+                pl.deferred.resolve({"ok": False, "spillback": True})
+            except Exception:
+                pass
 
     def _request_idle_reclaim(self):
         """A queued lease can't be served: ask every known lessee core to

@@ -6,10 +6,11 @@ python/ray/scripts/scripts.py — start :626, stop :1102, status, submit
 python/ray/util/state/state_cli.py).  The port's copy of
 ``ray_tpu/scripts/cli.py``: ``start --head`` offers ``--num-gpus`` cards
 (default: the cards this host shows, ``accelerators.num_gpus``) as
-"GPU", and ``job submit`` is ``submit``.  ``up``/``down`` (the
-autoscaler) and ``debug`` come with ROADMAP A.4d-ii; ``timeline --job``,
-``trace``, ``remediations`` and ``device-stats`` with A.5; ``analyze``
-with A.9: each exits non-zero naming its item.
+"GPU", ``job submit`` is ``submit``, and ``up`` launches a cluster
+from a YAML config through the port's node providers (a worker type
+with ``{GPU: n}`` offers cards).  ``timeline --job``, ``trace``,
+``remediations`` and ``device-stats`` come with ROADMAP A.5 and
+``analyze`` with A.9: each exits non-zero naming its item.
 
 Run as ``python -m ray_tpu_torch <command>``.  Cluster bookkeeping: the
 head writes ``/tmp/ray_tpu_torch/ray_current_cluster.json``
@@ -145,11 +146,110 @@ def cmd_config(args):
     print(describe())
 
 
+def cmd_debug(args):
+    """Attach to an active remote breakpoint (reference: `ray debug` /
+    util/rpdb.py)."""
+    from .._private.protocol import Client
+    from ..util import rpdb
+
+    address = _resolve_address(args) if args.address is None \
+        else args.address
+    host, port = address.rsplit(":", 1)
+    control = Client((host, int(port)), name="cli-debug")
+    try:
+        bps = rpdb.list_breakpoints(control)
+        if not bps:
+            print("no active breakpoints")
+            return
+        for i, bp in enumerate(bps):
+            print(f"[{i}] {bp['id']} pid={bp['pid']} "
+                  f"worker={bp.get('worker_id', '?')[:12]}")
+        idx = args.index if args.index is not None else 0
+        bp = bps[idx]
+        print(f"attaching to {bp['id']} — pdb commands go through; "
+              f"'c' continues the task and detaches")
+        rpdb.attach(bp["addr"])
+    finally:
+        control.close()
+
+
+def cmd_up(args):
+    """Launch a cluster from a YAML config (reference: `ray up`,
+    scripts.py:1337 + autoscaler/_private/commands.py), driving the
+    configured node provider."""
+    import yaml
+
+    from .._private.bootstrap import Cluster, _spawn, _wait_ping
+    from ..autoscaler.node_provider import make_node_provider
+
+    with open(args.config) as f:
+        cfg = yaml.safe_load(f) or {}
+    name = cfg.get("cluster_name", "default")
+    provider_cfg = dict(cfg.get("provider") or {"type": "local"})
+    head_cfg = cfg.get("head_node") or {}
+    worker_cfg = cfg.get("worker_nodes") or {}
+    n_workers = int(worker_cfg.get("count", cfg.get("min_workers", 0)))
+
+    # 1. control plane
+    host = provider_cfg.get("head_ip", "127.0.0.1")
+    port = int(provider_cfg.get("port", args.port or DEFAULT_PORT))
+    if port == 0:
+        from .._private.bootstrap import free_port
+
+        port = free_port()
+    cluster = Cluster(session_name=f"up-{name}-{int(time.time())}")
+    cluster.control_proc = _spawn(
+        [sys.executable, "-m", "ray_tpu_torch._private.control",
+         "--host", host, "--port", str(port)],
+        os.path.join(cluster.log_dir, "control.log"))
+    cluster.control_addr = (host, port)
+    _wait_ping(cluster.control_addr, what="control plane")
+    control_address = f"{host}:{port}"
+    provider_cfg["control_address"] = control_address
+
+    # 2. head + worker nodes through the provider
+    provider = make_node_provider(provider_cfg, name)
+    head_ids = provider.create_node(
+        {"resources": head_cfg.get("resources"),
+         "labels": {**(head_cfg.get("labels") or {}),
+                    "node-type": "head"}},
+        {"ray-node-type": "head"}, 1)
+    worker_ids = []
+    if n_workers:
+        worker_ids = provider.create_node(
+            {"resources": worker_cfg.get("resources"),
+             "labels": {**(worker_cfg.get("labels") or {}),
+                        "node-type": "worker"}},
+            {"ray-node-type": "worker"}, n_workers)
+
+    pids = []
+    for nid in head_ids + worker_ids:
+        h = getattr(provider, "_nodes", {}).get(nid, {}).get("handle")
+        if h is not None and getattr(h, "proc", None) is not None:
+            pids.append(h.proc.pid)
+    _write_cluster_file({
+        "control_address": control_address,
+        "cluster_name": name,
+        "session_dir": cluster.session_dir,
+        "control_pid": cluster.control_proc.pid,
+        "raylet_pids": pids,
+    })
+    print(f"cluster {name!r} up at {control_address} "
+          f"(1 head + {len(worker_ids)} workers)")
+    print(f"  connect: ray_tpu_torch.init(address='{control_address}')")
+
+
+def cmd_down(args):
+    """Tear down a cluster started with `up` (reference: `ray down`)."""
+    info = read_cluster_file()
+    if info is None:
+        print("no running cluster")
+        return
+    cmd_stop(args)
+
+
 # subcommands the port does not have yet: name -> (ROADMAP item, what)
 _NOT_PORTED = {
-    "up": ("A.4d-ii", "the autoscaler"),
-    "down": ("A.4d-ii", "the autoscaler"),
-    "debug": ("A.4d-ii", "the remote debugger, rpdb"),
     "trace": ("A.5", "the span collector's trace assembly"),
     "remediations": ("A.5", "the elastic remediation log"),
     "device-stats": ("A.5", "the device telemetry"),
@@ -464,6 +564,21 @@ def build_parser() -> argparse.ArgumentParser:
 
     sp = sub.add_parser("config", help="print the resolved flag table")
     sp.set_defaults(fn=cmd_config)
+
+    sp = sub.add_parser("debug", help="attach to a remote breakpoint")
+    sp.add_argument("--address", default=None)
+    sp.add_argument("--index", type=int, default=None,
+                    help="breakpoint index (default: first)")
+    sp.set_defaults(fn=cmd_debug)
+
+    sp = sub.add_parser("up", help="launch a cluster from a YAML config")
+    sp.add_argument("config", help="cluster YAML (cluster_name, provider, "
+                                   "head_node, worker_nodes)")
+    sp.add_argument("--port", type=int, default=None)
+    sp.set_defaults(fn=cmd_up)
+
+    sp = sub.add_parser("down", help="tear down the cluster from `up`")
+    sp.set_defaults(fn=cmd_down)
 
     sp = sub.add_parser("stop", help="stop the local cluster")
     sp.set_defaults(fn=cmd_stop)

@@ -1,22 +1,28 @@
-"""Runtime utilities of the port: ``tracing``, placement groups and the
-scheduling strategies, the state API (``state``) and client mode
-(``client``), the runtime's copies of ``ray_tpu/util/tracing.py``,
-``placement_group.py``, ``scheduling_strategies.py``, ``state/`` and
-``client/``.  The rest of ``ray_tpu.util`` (actor pools, queues, rpdb,
-metrics) comes with the slices that need it (ROADMAP A.4d-ii, A.5)."""
+"""Runtime utilities of the port, the counterpart of ``ray_tpu.util``
+(reference: python/ray/util/): placement groups and the scheduling
+strategies, ActorPool, Queue, the state API (``state``), client mode
+(``client``), ``tracing``, and the modules imported by name: ``rpdb``,
+``multiprocessing``, ``joblib``, ``iter``, ``dask`` and ``spark``.
+``metrics`` comes with ROADMAP A.5."""
 
+from .actor_pool import ActorPool
 from .placement_group import (PlacementGroup, get_placement_group,
                               placement_group, placement_group_table,
                               remove_placement_group)
+from .queue import Empty, Full, Queue
 from .scheduling_strategies import (NodeAffinitySchedulingStrategy,
                                     NodeLabelSchedulingStrategy,
                                     PlacementGroupSchedulingStrategy)
 
 __all__ = [
+    "ActorPool",
+    "Empty",
+    "Full",
     "NodeAffinitySchedulingStrategy",
     "NodeLabelSchedulingStrategy",
     "PlacementGroup",
     "PlacementGroupSchedulingStrategy",
+    "Queue",
     "get_placement_group",
     "placement_group",
     "placement_group_table",

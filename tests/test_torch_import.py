@@ -5,9 +5,10 @@ while a DAG channel carries values that are not tensors), its
 entry points refuse to fall back to the CPU silently (an NCCL collective
 group with no card raises), the kv collective backend runs on the port's
 own runtime, its Train layer (``ray_tpu_torch.train``, with elastic and
-the placement groups) and its Data library (``ray_tpu_torch.data``) load
-neither torch nor the JAX package, and its sources call no library
-attention and no torch.compile."""
+the placement groups), its Data library (``ray_tpu_torch.data``), its
+autoscaler and the rest of ``util`` load neither torch nor the JAX
+package, and its sources call no library attention and no
+torch.compile."""
 
 import os
 import re
@@ -314,7 +315,7 @@ print("ok")
 CLI_MODULES = {
     "dag": ("__init__", "channel", "collective", "compiled_dag",
             "dag_node"),
-    "experimental": ("__init__", "internal_kv"),
+    "experimental": ("__init__", "internal_kv", "tqdm_ray"),
     "job": ("__init__", "job_manager"),
     "scripts": ("__init__", "cli"),
     "util/client": ("__init__", "client_core", "server"),
@@ -343,3 +344,62 @@ def test_dag_cli_job_state_client_load_no_torch_and_no_jax():
          "'__main__'); assert 'torch' not in sys.modules, 'torch'"],
         cwd="/", env=env, capture_output=True, text=True, timeout=120)
     assert cli.returncode == 0, cli.stderr
+
+
+_AUTOSCALER_PROBE = r"""
+import sys
+import ray_tpu_torch.autoscaler as autoscaler
+import ray_tpu_torch.autoscaler.autoscaler
+import ray_tpu_torch.autoscaler.node_provider
+import ray_tpu_torch.autoscaler.v2
+import ray_tpu_torch.util as util
+import ray_tpu_torch.util.actor_pool
+import ray_tpu_torch.util.dask
+import ray_tpu_torch.util.iter
+import ray_tpu_torch.util.joblib
+import ray_tpu_torch.util.multiprocessing
+import ray_tpu_torch.util.queue
+import ray_tpu_torch.util.rpdb
+import ray_tpu_torch.util.spark
+import ray_tpu_torch.experimental.tqdm_ray
+import ray_tpu_torch._private.swarm
+for mod in (autoscaler, util):
+    for name in mod.__all__:
+        getattr(mod, name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "ray_tpu", "torch",
+                                    "yaml", "joblib", "kubernetes"))
+assert not bad, bad
+print("ok")
+"""
+
+AUTOSCALER_MODULES = {
+    "autoscaler": ("__init__", "autoscaler", "node_provider", "v2"),
+    "util": ("__init__", "actor_pool", "dask", "iter", "joblib",
+             "multiprocessing", "placement_group", "queue", "rpdb",
+             "scheduling_strategies", "spark", "tracing"),
+}
+
+
+def test_autoscaler_and_util_load_no_torch_and_no_jax():
+    """The autoscaler's monitor, the queue actor, pool and shard actors and
+    the spark shim run in processes that compute nothing on a card: none
+    of the autoscaler's modules, nor the rest of ``util``,
+    ``experimental.tqdm_ray`` and the swarm, loads torch, JAX, the JAX
+    package or an optional package (yaml, joblib, kubernetes) at import;
+    each directory holds the reference's modules (``util.metrics`` comes
+    with ROADMAP A.5)."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", _AUTOSCALER_PROBE],
+                         cwd="/", env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+    for pkg, mods in AUTOSCALER_MODULES.items():
+        have = {p.stem for p in (PORT / pkg).glob("*.py")}
+        assert have == set(mods), (pkg, have)
+        ref = {p.stem for p in (REPO / "ray_tpu" / pkg).glob("*.py")}
+        assert have <= ref, (pkg, have - ref)
+    assert set(AUTOSCALER_MODULES["util"]) == \
+        {p.stem for p in (REPO / "ray_tpu" / "util").glob("*.py")} \
+        - {"metrics"}

@@ -186,9 +186,6 @@ def test_cli_start_status_stop(cluster_file):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (("up", "cluster.yaml"), "A.4d-ii"),
-    (("down",), "A.4d-ii"),
-    (("debug",), "A.4d-ii"),
     (("timeline", "--job", "trial"), "A.5"),
     (("trace", "--summary"), "A.5"),
     (("remediations", "trial"), "A.5"),

@@ -33,7 +33,8 @@ Phases, each of which must pass (any failure exits non-zero):
                 requests (prompts 8-200 tokens, shared prefixes so prefix
                 sharing and copy-on-write run): tokens/s, TTFT, stats.
   6. serve-bench — bench.py's bench_serve and bench_serve_chaos in
-                process at GPT-2-small (bf16, max_seq 1024) on the
+                process at GPT-2-small's width and 3 of its 12 layers
+                (the run's time limit; bf16, max_seq 1024) on the
                 reference's Zipf trace of 48 requests (prompts 4-24,
                 generations 4-40, token ids below 200): static
                 micro-batching (serve.batch over generate_batch, one warm
@@ -246,6 +247,38 @@ Phases, each of which must pass (any failure exits non-zero):
                 ms per pool item against the forward in this process, the
                 queue hand-off, kill to termination, termination to the
                 card free.
+ 20. observe  — the flight recorder, device telemetry, metrics and the
+                dashboard on a cluster with the card: init(num_cpus=4)
+                with every process tracing
+                (RAY_TPU_TORCH_TRACE_SAMPLE=1.0), the dashboard's head in
+                its own process (python -m ray_tpu_torch.dashboard.head);
+                a num_gpus=1 actor's [1, 1024] bf16 forward as one
+                StepTimer step, its worker's device snapshot flushed:
+                GET /api/device/stats and `device-stats` show that
+                worker, its census within CENSUS_MARGIN of its
+                torch.cuda.memory_allocated, its ledger's kernels.build
+                events (flash_fwd.cu among them); a job POSTed to
+                /api/jobs reaches SUCCEEDED over REST; /metrics carries
+                the engine's (ray_tpu_serve_*) and the recorder's
+                (ray_tpu_train_step_phase_seconds) series; `trace
+                --summary` renders a traced task from a fresh driver; the
+                dashboard's process maps no libtorch and holds no card.
+
+The flight recorder rides the paths above too: in serve (and serve-app's
+in-process engine) the engine's Prometheus series move by exactly the
+run's tokens, TTFTs and request outcomes, and the device census's owner
+report of its pages equals the page allocator; in gpt-sync
+mesh_allreduce(profile=True) of the flattened gradient is bitwise the
+unprofiled call, launches K4 twice and K6 and K5 once, fills its
+quantize / transfer / dequantize buckets within the call's wall time and
+writes the step's Chrome trace (collective.* sub-phase slices) to
+chip_smoke_out/gpt_timeline.json; in train-app (the recorder on by
+default) every report carries its step record and phases, the runs'
+goodput covers the run and the restart, the autoscaler's LoadMetrics
+reads the running run's goodput, `timeline --job` writes a valid Chrome
+trace with every rank's steps (chip_smoke_out/train_app_timeline.json),
+and the worker measures the recorder's pieces: a collective record, a
+step's start and end, a flush, a device census.
 
     python3 chip_smoke.py --phases dp-train
     python3 chip_smoke.py --phases runtime
@@ -254,6 +287,7 @@ Phases, each of which must pass (any failure exits non-zero):
     python3 chip_smoke.py --phases data-train
     python3 chip_smoke.py --phases dag,cli-jobs
     python3 chip_smoke.py --phases autoscale
+    python3 chip_smoke.py --phases serve,train-app,observe
 
 runs the device and build phases and the named ones only (a development
 aid; with no arguments every phase runs).
@@ -926,6 +960,59 @@ def _serve_prompts(vocab):
     return prompts, max_new
 
 
+def _serve_series():
+    """This process's engine series (the reference's names): generated
+    tokens, TTFT observations, request outcomes."""
+    from ray_tpu_torch.util.metrics import _registry
+
+    out = {"tokens": 0.0, "ttft_count": 0, "ttft_sum": 0.0, "outcomes": {}}
+    for m in _registry.snapshot():
+        for key, val in m["series"].items():
+            tags = json.loads(key)
+            if m["name"] == "ray_tpu_serve_tokens_total":
+                out["tokens"] += val
+            elif m["name"] == "ray_tpu_serve_ttft_seconds":
+                out["ttft_count"] += val[2]
+                out["ttft_sum"] += val[1]
+            elif m["name"] == "ray_tpu_serve_requests_total":
+                o = tags["outcome"]
+                out["outcomes"][o] = out["outcomes"].get(o, 0.0) + val
+    return out
+
+
+def _engine_series_checks(before, after, generated, requests):
+    """The engine's series moved by exactly this run: tokens == the
+    tokens generated, one TTFT observation and one ``ok`` outcome per
+    request, and no rejection or error."""
+    delta = {o: after["outcomes"].get(o, 0.0) - before["outcomes"].get(o, 0.0)
+             for o in set(after["outcomes"]) | set(before["outcomes"])}
+    tokens = after["tokens"] - before["tokens"]
+    ttfts = after["ttft_count"] - before["ttft_count"]
+    check(tokens == generated, f"ray_tpu_serve_tokens_total moved by "
+          f"{tokens}, the engine generated {generated}")
+    check(ttfts == requests, f"the TTFT histogram counted {ttfts} of "
+          f"{requests} requests")
+    check(delta.get("ok", 0) == requests and sum(delta.values()) == requests,
+          f"ray_tpu_serve_requests_total moved by {delta} for {requests} "
+          f"requests")
+    return {"tokens": tokens, "ttft_count": ttfts, "outcomes": delta}
+
+
+def _census_pages(eng):
+    """The device census's owner report of ``eng`` against its page
+    allocator: free and used pages equal."""
+    from ray_tpu_torch.telemetry import device as devtel
+
+    snap = devtel.get_census().census()
+    rep = snap["owners"][eng._census_tag]
+    occ = eng._alloc.occupancy()
+    check(rep["pages"]["free"] == occ["free"] == eng._alloc.free_pages
+          and rep["pages"]["used"] == occ["used"],
+          f"census pages {rep['pages']} != the allocator's {occ}")
+    return {"pages": rep["pages"], "live_bytes": snap["live"]["total_bytes"],
+            "allocator": snap["live"]["allocator"]}
+
+
 def phase_serve(params, cfg, tag="serve"):
     import torch
 
@@ -935,6 +1022,7 @@ def phase_serve(params, cfg, tag="serve"):
 
     prompts, max_new = _serve_prompts(cfg.vocab_size)
     _kernels.reset_launch_counts()
+    series0 = _serve_series()
     eng = ContinuousEngine(gpt, cfg, params, cache="paged", max_slots=8,
                            page_size=16)
     try:
@@ -951,6 +1039,7 @@ def phase_serve(params, cfg, tag="serve"):
         stats = eng.engine_stats()
         ring = eng.phase_ring()
         check(eng.check_health(), "engine unhealthy")
+        census = _census_pages(eng)
     finally:
         eng.stop()
     launches = _kernels.launch_counts()
@@ -968,6 +1057,8 @@ def phase_serve(params, cfg, tag="serve"):
     check(stats["free_pages"] == stats["num_pages"] - 1,
           "pages leaked after the run")
     generated = sum(len(r["completion"]) for r in results)
+    series = _engine_series_checks(series0, _serve_series(), generated,
+                                   len(prompts))
     # where the engine's time went: prefill (token-by-token, as in the
     # reference) vs batched decode steps, from the per-iteration ring
     prefill_s = sum(r["prefill_s"] for r in ring)
@@ -979,6 +1070,7 @@ def phase_serve(params, cfg, tag="serve"):
            "ttft_p50_s": stats["ttft_p50_s"],
            "ttft_p99_s": stats["ttft_p99_s"],
            "flash_launches": launches["flash_fwd"],
+           "series": series, "census": census,
            # what phase serve-app holds its replica against
            "completions": [r["completion"] for r in results],
            "latencies_s": [done_at[i] - t0 for i in range(len(prompts))],
@@ -995,6 +1087,11 @@ def phase_serve(params, cfg, tag="serve"):
         f"{stats['prefills']} prompts, decode {decode_s:.2f} s over "
         f"{stats['steps']} steps ({rec['decode_ms_per_step']:.2f} ms/step)")
     log(f"[{tag}] engine_stats {json.dumps(rec['stats'])}")
+    log(f"[{tag}] engine series exact: ray_tpu_serve_tokens_total "
+        f"+{series['tokens']:g} == {generated} generated, TTFT count "
+        f"+{series['ttft_count']} == {len(prompts)} requests, "
+        f"requests_total {series['outcomes']}; census owner pages "
+        f"{census['pages']} == the allocator's free/used")
     return rec
 
 
@@ -1013,6 +1110,8 @@ SERVE_MAX_SEQ = 1024            # GPT-2-small's own
 SERVE_TRACE_VOCAB = 200         # token ids below 200, as the reference's
 SERVE_MIN_AVAILABILITY = 0.99   # bench.py _serve_only_main's gate
 SERVE_SPEEDUP_TARGET = 1.5      # the reference warns below this
+# the run's time limit: serve-bench's model keeps GPT-2-small's width at
+# serve-app's depth (SERVE_APP_LAYERS, below); phase serve keeps all 12
 
 
 def _serve_trace(n_req: int, vocab: int):
@@ -1046,7 +1145,7 @@ def _bench_static(prompts, gen_lens):
 
     # the class an LLMServer replica serves, with its default batching
     srv = _server_class()(preset="gpt2_small", max_seq=SERVE_MAX_SEQ,
-                          engine="static")
+                          params_loader=_serve_app_params, engine="static")
 
     async def drive():
         async def one(i):
@@ -1075,7 +1174,7 @@ def _bench_continuous(prompts, gen_lens):
 
     n = len(prompts)
     srv = _LLMServerImpl(preset="gpt2_small", max_seq=SERVE_MAX_SEQ,
-                         engine="paged",
+                         params_loader=_serve_app_params, engine="paged",
                          engine_kwargs={"queue_cap": 4 * n,
                                         "shed_queue_depth": 4 * n})
     eng = srv._get_engine()
@@ -1117,8 +1216,7 @@ def _bench_chaos():
     from ray_tpu_torch.models import gpt
     from ray_tpu_torch.serve import ContinuousEngine
 
-    cfg = gpt.GPTConfig.gpt2_small()
-    params = gpt.init(cfg, seed=SEED)
+    cfg, params = _serve_app_params()
     n = SERVE_CHAOS_REQUESTS
     engines = [ContinuousEngine(gpt, cfg, params, cache="paged", max_slots=4,
                                 page_size=8, queue_cap=4 * n,
@@ -1186,6 +1284,7 @@ def phase_serve_bench():
     launches = _kernels.launch_counts()
     speedup = cont["tokens_per_s"] / static["tokens_per_s"]
     rec = {"card": smi, "arch": "gpt2_small", "dtype": "bfloat16",
+           "layers": SERVE_APP_LAYERS,
            "max_seq": SERVE_MAX_SEQ, "n_requests": n,
            "trace": "bench.py _serve_trace: zipf(1.5) gen lengths 4..40, "
                     "zipf(1.4) prompt lengths 4..24, token ids < 200",
@@ -2666,11 +2765,82 @@ def _dp_sync_checks(state, leaves, cfg, batch, group, predicted_fused):
             "fused_launches": fused_launches}
 
 
+PROFILED_LAUNCHES = {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
+                     "quantize": 2, "dequantize": 1,
+                     "dequantize_accumulate": 1, "fused_reduce_scatter": 0}
+GPT_TIMELINE = ROOT / "chip_smoke_out" / "gpt_timeline.json"
+
+
+def _gpt_sync_profiled(flat, pg, mono, world):
+    """mesh_allreduce(op="mean", compression="int8", profile=True) of the
+    flattened gradient under a StepTimer: bitwise the unprofiled staged
+    call, K4 x2 / K6 x1 / K5 x1, the three buckets > 0 with their sum
+    within the call's wall time, and the step's Chrome trace (with its
+    collective.* sub-phase slices) in chip_smoke_out/gpt_timeline.json."""
+    import torch
+
+    from ray_tpu_torch.collective import nccl_group
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.telemetry import (StepTimer, chrome_trace, recorder,
+                                         validate_chrome_trace)
+
+    timer = StepTimer(ring_size=8, trial="gpt-sync")
+    recorder.set_current_timer(timer)
+    try:
+        _kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        timer.step_start(0)
+        t0 = time.perf_counter()
+        got = nccl_group.mesh_allreduce(flat, pg, op="mean",
+                                        compression="int8", profile=True)
+        wall = time.perf_counter() - t0
+        rec = timer.step_end(0, fence=got)
+        launches = _kernels.launch_counts()
+        # the buckets of three more calls, for their spread
+        more = []
+        for step in range(1, 4):
+            timer.step_start(step)
+            nccl_group.mesh_allreduce(flat, pg, op="mean",
+                                      compression="int8", profile=True)
+            more.append(timer.step_end(step)["phases"])
+    finally:
+        recorder.set_current_timer(None)
+    check(torch.equal(got, mono), f"the profiled int8 allreduce differs "
+          f"from the unprofiled one in {(got != mono).sum().item()} "
+          f"elements")
+    check(launches == PROFILED_LAUNCHES, f"profiled allreduce launches "
+          f"{launches}, expected {PROFILED_LAUNCHES}")
+    stages = {b: rec["phases"].get(f"collective.{b}", 0.0)
+              for b in ("quantize", "transfer", "dequantize")}
+    check(all(v > 0 for v in stages.values()), f"profiled buckets {stages}")
+    check(sum(stages.values()) <= wall, f"profiled buckets sum to "
+          f"{sum(stages.values()):.6f} s > the call's {wall:.6f} s")
+    snap = dict(timer.snapshot(), worker_id="gpt-sync-rank0")
+    trace = chrome_trace([snap])
+    check(validate_chrome_trace(trace), "gpt-sync's Chrome trace is invalid")
+    subs = sorted({e["name"] for e in trace["traceEvents"]
+                   if e.get("ph") == "X"
+                   and e["name"].startswith("collective.")})
+    check(subs == ["collective.dequantize", "collective.quantize",
+                   "collective.transfer"],
+          f"gpt-sync's trace lacks collective.* sub-phase slices: {subs}")
+    GPT_TIMELINE.parent.mkdir(parents=True, exist_ok=True)
+    GPT_TIMELINE.write_text(json.dumps(trace))
+    return {"world": world, "wall_ms": wall * 1e3,
+            "buckets_ms": {k: v * 1e3 for k, v in stages.items()},
+            "buckets_ms_more": [{b: ph.get(f"collective.{b}", 0.0) * 1e3
+                                 for b in stages} for ph in more],
+            "collective_ms": rec["phases"]["collective"] * 1e3,
+            "launches": launches, "trace_slices": subs,
+            "timeline": str(GPT_TIMELINE.relative_to(ROOT))}
+
+
 def _gpt_sync(grads, group_handle):
     """mesh_allreduce(op="mean") of the flattened gradient, fp32 against
-    int8 (auto chunks) against int8 with the fused hop (K7, impl="fused"):
-    times, error, chunked == chunks=1 bitwise, fused == staged bitwise,
-    K7's device ms beside the fused allreduce's."""
+    int8 (auto chunks) against int8 with the fused hop (K7, impl="fused")
+    and against the profiled int8 call (``_gpt_sync_profiled``): times,
+    error, chunked == chunks=1 bitwise, fused == staged bitwise, profiled
+    == unprofiled bitwise, K7's device ms beside the fused allreduce's."""
     import torch
 
     from ray_tpu_torch.collective import nccl_group
@@ -2728,8 +2898,10 @@ def _gpt_sync(grads, group_handle):
               warmup=1)}
     prof = _dp_profile(run(compression="int8", impl="fused"), n=1)
     group_handle.peers.check()
+    profiled = _gpt_sync_profiled(flat, pg, mono, world)
     sub = _dp_chunk_sub(flat.numel(), world)
     return {"n": flat.numel(), "chunks": auto, "ms": ms,
+            "profiled": profiled,
             "rel_err_int8_vs_fp32": rel, "launches_int8": launches,
             "launches_int8_fused": fused_launches,
             "fused_device_ms": {
@@ -2908,6 +3080,17 @@ def phase_dp_train():
         f"{gs['ms']['int8_chunks1']:.3f} ms; rel err int8 vs fp32 "
         f"{gs['rel_err_int8_vs_fp32']:.4g} (limit {SYNC_RTOL}); chunked == "
         f"chunks=1 bitwise; launches {gs['launches_int8']}")
+    pr = gs["profiled"]
+    log(f"[gpt-sync] profile=True (world {pr['world']}): == unprofiled "
+        f"bitwise; wall {pr['wall_ms']:.3f} ms, buckets "
+        + ", ".join(f"{b} {ms:.3f}" for b, ms in pr["buckets_ms"].items())
+        + f" ms (sum {sum(pr['buckets_ms'].values()):.3f}); later calls "
+        + "; ".join(", ".join(f"{ms:.3f}" for ms in m.values())
+                    for m in pr["buckets_ms_more"])
+        + f"; launches per profiled call K4 {pr['launches']['quantize']}, "
+        f"K6 {pr['launches']['dequantize_accumulate']}, K5 "
+        f"{pr['launches']['dequantize']}; trace slices "
+        f"{pr['trace_slices']} in {pr['timeline']}")
     log(f"[gpt-sync] int8 with the fused hop (impl='fused', K7 x "
         f"{gs['chunks']}): {gs['ms']['int8_fused']:.3f} ms, chunks=1 "
         f"{gs['ms']['int8_fused_chunks1']:.3f} ms; == staged bitwise; K7 "
@@ -3987,10 +4170,21 @@ def _train_app_loop(config):
     from ray_tpu_torch.models import gpt, training
     from ray_tpu_torch.ops import _kernels
     from ray_tpu_torch.parallel import GradientSynchronizer, sharding
+    from ray_tpu_torch.telemetry import recorder
     from ray_tpu_torch.train.torch import get_device
 
     t_start = time.time()
     torch.backends.cuda.matmul.allow_tf32 = False
+    # count the flight recorder's collective records (the group API's
+    # _record_op reaches it through the module attribute)
+    calls = [0]
+    record_collective = recorder.record_collective
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return record_collective(*a, **kw)
+
+    recorder.record_collective = counted
     ctx = train.get_context()
     rank, world = ctx.get_world_rank(), ctx.get_world_size()
     device = get_device()
@@ -4082,6 +4276,10 @@ def _train_app_loop(config):
                        "t_ready": t_ready, "prev_report_s": report_s}
             if feed is not None:
                 metrics.update(feed.record(step, step_tokens))
+            metrics["collective_records"] = calls[0]
+            calls[0] = 0
+            if step == config["steps"] and recorder.current_timer():
+                metrics["recorder"] = _recorder_costs(recorder, device)
             ckpt_dir = None
             if step == config["ckpt_step"] or step == config["steps"]:
                 metrics["digest"] = _param_digest(names, leaves)
@@ -4106,8 +4304,52 @@ def _train_app_loop(config):
         if feed is not None:
             feed.close(config["out_dir"])
     finally:
+        recorder.record_collective = record_collective
         if own_group:
             col.destroy_collective_group(group)
+
+
+def _recorder_costs(recorder, device, n=200):
+    """What the flight recorder costs a trainer worker, piece by piece:
+    one collective record (us), a step's start and end (us), a forced KV
+    flush of the ring and the device snapshot (ms), and one device-memory
+    census (ms) with what it found beside the allocator's count."""
+    import torch
+
+    from ray_tpu_torch.telemetry import device as devtel
+
+    t0 = time.perf_counter()
+    for _ in range(n):
+        recorder.record_collective("cost-probe", 1e-3, 4096.0, 1100.0)
+    record_us = (time.perf_counter() - t0) / n * 1e6
+    probe = recorder.StepTimer(ring_size=8)
+    t0 = time.perf_counter()
+    for i in range(n):
+        probe.step_start(i)
+        probe.step_end()
+    step_us = (time.perf_counter() - t0) / n * 1e6
+    census_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        live = devtel.get_census().census()["live"]
+        census_ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    flushed = recorder.flush_snapshot(recorder.current_timer(), force=True)
+    flush_ms = (time.perf_counter() - t0) * 1e3
+    return {"record_collective_us": record_us, "step_start_end_us": step_us,
+            "census_ms": census_ms, "census_walk_s": live["walk_s"],
+            "census_total_bytes": live["total_bytes"],
+            "census_count": live["count"],
+            "allocated_bytes": torch.cuda.memory_allocated(device)
+            if device.type == "cuda" else 0,
+            "flush_ms": flush_ms, "flushed": flushed}
+
+
+class _Reports(list):
+    """(arrival time, rank-0 metrics) per report, and what the
+    autoscaler's LoadMetrics read for the run while it ran."""
+
+    train_goodput = None
 
 
 class _TrainAppResults:
@@ -4115,10 +4357,19 @@ class _TrainAppResults:
     time of its arrival."""
 
     def __init__(self):
-        self.results = []
+        self.results = _Reports()
 
     def on_trial_result(self, trial, metrics):
         self.results.append((time.time(), dict(metrics)))
+        if self.results.train_goodput is None and \
+                metrics.get("step") == TRAIN_APP_CKPT_STEP:
+            # the autoscaler's view of the running run (its v2 goodput
+            # policy scales on it)
+            from ray_tpu_torch._private.api import current_core
+            from ray_tpu_torch.autoscaler.autoscaler import LoadMetrics
+
+            self.results.train_goodput = LoadMetrics(
+                current_core().control)._train_goodput()
 
     def on_trial_complete(self, trial):
         pass
@@ -4176,6 +4427,76 @@ def _train_app_fit(name, storage, world, use_gpu=True, datasets=None,
         run_config=RunConfig(name=name, storage_path=storage,
                              callbacks=[cb], **run_kw)).fit()
     return t0, time.time(), result, cb.results
+
+
+TRAIN_APP_TIMELINE = ROOT / "chip_smoke_out" / "train_app_timeline.json"
+
+
+def _run_state(trial):
+    from ray_tpu_torch._private.api import current_core
+
+    raw = current_core().control.call(
+        "kv_get", {"ns": "train", "key": trial}, timeout=10.0)
+    check(raw is not None, f"no run state for {trial} in KV ns 'train'")
+    return json.loads(raw)
+
+
+def _train_app_telemetry(steps, got, world, trial):
+    """The flight recorder of the uninterrupted run (on by default):
+    every report's step record and phases, the run's goodput, the
+    autoscaler's view of it while it ran, and ``python -m ray_tpu_torch
+    timeline --job`` as a valid Chrome trace with every rank's steps."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.telemetry import validate_chrome_trace
+
+    for m in steps:
+        tel = m.get("telemetry")
+        check(tel is not None, f"train-app step {m['step']} reported no "
+              f"telemetry record")
+        ph = tel["phases"]
+        want = {"collective", "compute"}
+        if m["step"] == TRAIN_APP_CKPT_STEP:
+            want.add("checkpoint")
+        check(want <= set(ph), f"train-app step {m['step']}: phases "
+              f"{sorted(ph)} lack {sorted(want - set(ph))}")
+        check(tel["step"] == m["step"] - 1 and tel["rank"] == 0,
+              f"step record {tel['step']}/{tel['rank']} for step "
+              f"{m['step']}")
+        check(m["collective_records"] > 0, f"step {m['step']}: no "
+              f"collective reached the recorder")
+    state = _run_state(trial)
+    gp = state["telemetry"]["goodput"]
+    check(state["status"] == "FINISHED" and 0 < gp["goodput"] <= 1
+          and gp["seconds"]["productive"] > 0, f"train-app goodput {gp}")
+    check(trial in (got.train_goodput or {}), f"the autoscaler's "
+          f"LoadMetrics saw no goodput of the running run: "
+          f"{got.train_goodput}")
+    addr = rt.connection_info()["control_address"]
+    TRAIN_APP_TIMELINE.parent.mkdir(parents=True, exist_ok=True)
+    out = subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch", "timeline", "--job", trial,
+         "--address", addr, "-o", str(TRAIN_APP_TIMELINE)],
+        cwd=str(ROOT), capture_output=True, text=True, timeout=120)
+    check(out.returncode == 0, f"timeline --job failed: {out.stderr[-2000:]}")
+    trace = json.loads(TRAIN_APP_TIMELINE.read_text())
+    check(validate_chrome_trace(trace), "timeline --job wrote an invalid "
+          "Chrome trace")
+    ranks = {}
+    for e in trace["traceEvents"]:
+        if e.get("ph") == "X" and str(e.get("name", "")).startswith("step "):
+            ranks.setdefault(e["pid"], set()).add(e["args"]["step"])
+    check(sorted(ranks) == list(range(world))
+          and all(v >= set(range(TRAIN_APP_STEPS)) for v in ranks.values()),
+          f"timeline --job holds steps {ranks} for world {world}")
+    cost = steps[-1]["recorder"]
+    return {"phases_per_step": [m["telemetry"]["phases"] for m in steps],
+            "collective_records_per_step": [m["collective_records"]
+                                             for m in steps],
+            "goodput": gp, "train_goodput_while_running": got.train_goodput,
+            "timeline": {"path": str(TRAIN_APP_TIMELINE.relative_to(ROOT)),
+                         "events": len(trace["traceEvents"]),
+                         "stdout": out.stdout.strip()},
+            "recorder_costs": cost}
 
 
 def phase_train_app(dp_rec=None):
@@ -4253,6 +4574,8 @@ def phase_train_app(dp_rec=None):
                          for r, _, fs in os.walk(result.checkpoint.path)
                          for f in fs)
         del saved
+        rec["telemetry"] = _train_app_telemetry(steps, got, world,
+                                                "train-app_00000")
         later = steps[1:]
         step_ms = sum(m["step_ms"] for m in later) / len(later)
         reports = [m["prev_report_s"] for m in steps
@@ -4297,6 +4620,28 @@ def phase_train_app(dp_rec=None):
             f"{1e3 * r['report_s_mean']:.2f} ms per step; checkpoint "
             f"{ckpt_bytes / 1e9:.2f} GB saved in {r['ckpt_save_s']:.2f} s, "
             f"== the step-3 params ({smi})")
+        t = rec["telemetry"]
+        c = t["recorder_costs"]
+        per_step = (c["record_collective_us"] * max(
+            t["collective_records_per_step"]) + c["step_start_end_us"]) / 1e3
+        t["recorder_ms_per_step"] = per_step
+        log(f"[train-app] flight recorder (on by default): every report "
+            f"carries its step record, phases {sorted(t['phases_per_step'][1])}"
+            f" (step {TRAIN_APP_CKPT_STEP} also checkpoint); "
+            f"{max(t['collective_records_per_step'])} collective records a "
+            f"step at {c['record_collective_us']:.1f} us each, a step's "
+            f"start+end {c['step_start_end_us']:.1f} us: "
+            f"{per_step:.3f} ms of the worker's {step_ms:.2f} ms step; a "
+            f"forced flush (ring + device snapshot) {c['flush_ms']:.2f} ms; "
+            f"one device census {min(c['census_ms']):.2f} ms "
+            f"(runs {[round(x, 2) for x in c['census_ms']]}; at most one "
+            f"per {2.0:g} s flush interval: "
+            f"{min(c['census_ms']) / 2000.0:.2%} of a second) found "
+            f"{c['census_total_bytes'] / 1e9:.3f} GB in {c['census_count']} "
+            f"storages, the allocator {c['allocated_bytes'] / 1e9:.3f} GB; "
+            f"goodput {t['goodput']['goodput']:.4f}; LoadMetrics saw "
+            f"{t['train_goodput_while_running']}; {t['timeline']['stdout']}"
+            f" ({smi})")
         shutil.rmtree(os.path.join(storage, "train-app"), ignore_errors=True)
 
         # 2. the restart: the first gang dies after step 4; the trainer
@@ -4327,6 +4672,14 @@ def phase_train_app(dp_rec=None):
             check(m["launches"] == predicted, f"resumed step {m['step']} "
                   f"launched {m['launches']}")
         t_dead = first[-1][0]
+        gp = _run_state("train-app-restart_00000")["telemetry"]["goodput"]
+        check(gp["seconds"]["recovering"] > 0 and gp["goodput"] < 1
+              and gp["seconds"]["productive"] > 0,
+              f"the restart run's goodput does not cover the restart: {gp}")
+        rec["restart_goodput"] = gp
+        log(f"[train-app] restart run goodput {gp['goodput']:.4f}: "
+            f"productive {gp['seconds']['productive']:.2f} s, recovering "
+            f"{gp['seconds']['recovering']:.2f} s")
         rec["restart"] = {
             "steps": seq, "resumed_losses": got_after,
             "resume_to_ready_s": after[0][1]["t_ready"] - t_dead,
@@ -5768,6 +6121,280 @@ def phase_autoscale():
     return rec
 
 
+# ---------------------------------------------------------------------------
+# observe: what the flight recorder, the device telemetry, the metrics and
+# the dashboard show of a cluster on the card.  A head (this process's
+# cluster, every process traced), the dashboard's head process beside it,
+# a num_gpus=1 actor's [1, 1024] bf16 forward timed by a StepTimer whose
+# worker flushes its device snapshot; then /api/device/stats and
+# `device-stats` show that worker, its census against its allocator and
+# its kernels.build events; a job over REST; /metrics; `trace --summary`.
+
+OBSERVE_TOKENS = (1, 1024)
+# the census counts the storages Python reaches; the allocator also counts
+# what only C++ holds and rounds every block up (to 512 bytes, or 2 MiB
+# for large ones): |allocated - census| <= 5% of allocated + 64 MiB
+CENSUS_MARGIN = (0.05, 64 << 20)
+OBSERVE_JOB_MARK = "OBSERVE-REST-JOB"
+
+_OBSERVE_TRACED = """\
+import sys
+sys.path.insert(0, {root!r})
+import ray_tpu_torch as rt
+import chip_smoke
+rt.init(address={address!r})
+assert rt.get(rt.remote(chip_smoke._noop).remote(), timeout=120) is None
+rt.shutdown()
+print("TRACED ok", flush=True)
+"""
+
+
+class _ObserveActor:
+    """The GPU actor: GPT-2-small's [1, 1024] bf16 forward (seed-0
+    weights) as one step of a StepTimer (its compute phase fenced on the
+    logits), then its worker's device snapshot and metrics flushed."""
+
+    def run(self):
+        import torch
+
+        from ray_tpu_torch._private.core import current_core
+        from ray_tpu_torch.models import gpt
+        from ray_tpu_torch.ops import _kernels
+        from ray_tpu_torch.telemetry import StepTimer
+        from ray_tpu_torch.telemetry import device as devtel
+        from ray_tpu_torch.util.metrics import _registry
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cfg = _dag_cfg()
+        self.params = gpt.init(cfg, seed=SEED, device="cuda")
+        tokens = _dag_tokens(OBSERVE_TOKENS, SEED + 6)
+        _kernels.reset_launch_counts()
+        timer = StepTimer(trial="observe")
+        timer.step_start(0)
+        with timer.phase("compute") as ph:
+            self.last = ph.fence(_last_logits(self.params, cfg, tokens))
+        step = timer.step_end(0)
+        torch.cuda.synchronize()
+        allocated = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        flushed = devtel.flush_device_snapshot(force=True)
+        flush_ms = (time.perf_counter() - t0) * 1e3
+        _registry.flush()
+        return {"worker_id": current_core().worker_id, "pid": os.getpid(),
+                "allocated_bytes": allocated, "flushed": flushed,
+                "flush_ms": flush_ms, "step": step,
+                "launches": _kernels.launch_counts()}
+
+
+def _observe_engine():
+    """Two requests through a paged engine in this process (serve-app's
+    depth): the engine series /metrics must carry."""
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.serve import ContinuousEngine
+
+    cfg = _serve_app_cfg()
+    eng = ContinuousEngine(gpt, cfg, gpt.init(cfg, seed=SEED),
+                           cache="paged", max_slots=2, page_size=16)
+    try:
+        before = _serve_series()
+        seqs = [eng.submit(list(range(3, 40 + 8 * i)), max_new_tokens=4)
+                for i in range(2)]
+        gen = sum(len(eng.collect(q, timeout=600)["completion"])
+                  for q in seqs)
+    finally:
+        eng.stop()
+    return _engine_series_checks(before, _serve_series(), gen, 2)
+
+
+def _http(url, body=None, timeout=60):
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data,
+                                 method="GET" if body is None else "POST",
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.read().decode()
+
+
+def phase_observe():
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.util.metrics import _registry
+
+    smi = _smi_line()
+    t_phase = time.perf_counter()
+    rec = {"card": smi}
+    before = set(_runtime_procs())
+    tmp = tempfile.mkdtemp(prefix="observe-")
+    # every process of the cluster samples every trace
+    env_before = os.environ.get("RAY_TPU_TORCH_TRACE_SAMPLE")
+    os.environ["RAY_TPU_TORCH_TRACE_SAMPLE"] = "1.0"
+    rt.init(num_cpus=4)
+    dash = None
+    try:
+        addr = rt.connection_info()["control_address"]
+        port = _free_port()
+        url = f"http://127.0.0.1:{port}"
+        t0 = time.perf_counter()
+        dash = subprocess.Popen(
+            [sys.executable, "-m", "ray_tpu_torch.dashboard.head",
+             "--control", addr, "--port", str(port)],
+            env=dict(os.environ, PYTHONPATH=str(ROOT)), cwd=str(ROOT),
+            stdout=subprocess.DEVNULL,
+            stderr=open(os.path.join(tmp, "dashboard.log"), "w"))
+        deadline = time.monotonic() + 60
+        while True:
+            try:
+                if _http(url + "/healthz", timeout=2) == "success":
+                    break
+            except OSError:
+                pass
+            check(time.monotonic() < deadline and dash.poll() is None,
+                  "the dashboard never answered /healthz")
+            time.sleep(0.1)
+        rec["dashboard_up_s"] = time.perf_counter() - t0
+
+        # the GPU actor: a forward under the recorder, its snapshot flushed
+        t0 = time.perf_counter()
+        actor = rt.remote(num_gpus=1)(_ObserveActor).remote()
+        got = rt.get(actor.run.remote(), timeout=600)
+        rec["actor_s"] = time.perf_counter() - t0
+        check(got["flushed"], "the actor's worker did not flush its device "
+              "snapshot")
+        check(got["launches"]["flash_fwd"] == _dag_cfg().n_layers,
+              f"the actor's forward launched {got['launches']}")
+        wid = got["worker_id"]
+        rec["engine_series"] = _observe_engine()
+        _registry.flush()
+
+        stats = json.loads(_http(url + "/api/device/stats"))
+        check(wid in stats["workers"], f"/api/device/stats lacks the GPU "
+              f"worker {wid}: {sorted(stats['workers'])}")
+        w = stats["workers"][wid]
+        live = w["memory"]["live"]
+        census, alloc = live["total_bytes"], got["allocated_bytes"]
+        margin = CENSUS_MARGIN[0] * alloc + CENSUS_MARGIN[1]
+        check(abs(alloc - census) <= margin, f"the census found {census} "
+              f"bytes, the actor's allocator {alloc} (margin {margin:.0f})")
+        builds = [r for r in w["ledger"]["records"]
+                  if r["program"] == "kernels.build"]
+        sources = sorted({r["signature"][0]["value"] for r in builds})
+        check("flash_fwd.cu" in sources, f"the worker's ledger shows "
+              f"kernels.build events for {sources}")
+        _, r = _cli("device-stats", "--address", addr)
+        check(f"worker {wid[:16]}" in r.stdout
+              and "kernels.build" in r.stdout,
+              f"device-stats does not show the GPU worker:\n"
+              f"{r.stdout[-2000:]}")
+        rec["device"] = {"worker_id": wid, "census_bytes": census,
+                         "allocated_bytes": alloc, "margin_bytes": margin,
+                         "census_count": live["count"],
+                         "walk_s": live["walk_s"],
+                         "allocator": live["allocator"],
+                         "kernels_build": [
+                             {"source": r["signature"][0]["value"],
+                              "cached": r["signature"][2]["value"],
+                              "call_s": r["call_s"]} for r in builds],
+                         "flush_ms": got["flush_ms"],
+                         "programs": sorted(w["ledger"]["programs"]),
+                         "step": got["step"],
+                         "step_launches": got["launches"]}
+        log(f"[observe] the GPU actor's [1, 1024] bf16 forward "
+            f"({got['step']['dur'] * 1e3:.2f} ms as a recorder step, "
+            f"compute phase fenced on the logits); its worker flushed its "
+            f"device snapshot in {got['flush_ms']:.2f} ms; "
+            f"/api/device/stats and `device-stats` show it: census "
+            f"{census / 2**20:.1f} MiB in {live['count']} storages (walk "
+            f"{live['walk_s'] * 1e3:.2f} ms) against the allocator's "
+            f"{alloc / 2**20:.1f} MiB (margin {margin / 2**20:.1f} MiB); "
+            f"kernels.build {sources}; dashboard up in "
+            f"{rec['dashboard_up_s']:.2f} s")
+
+        # a job over REST reaches SUCCEEDED
+        t0 = time.perf_counter()
+        sid = json.loads(_http(url + "/api/jobs", {
+            "entrypoint": f"{sys.executable} -c "
+                          f"\"print('{OBSERVE_JOB_MARK}')\""}))[
+                              "submission_id"]
+        deadline = time.monotonic() + 300
+        while True:
+            info = json.loads(_http(f"{url}/api/jobs/{sid}"))
+            if info["status"] in ("SUCCEEDED", "FAILED", "STOPPED"):
+                break
+            check(time.monotonic() < deadline, f"REST job {sid}: {info}")
+            time.sleep(0.2)
+        logs = json.loads(_http(f"{url}/api/jobs/{sid}/logs"))["logs"]
+        check(info["status"] == "SUCCEEDED" and OBSERVE_JOB_MARK in logs,
+              f"REST job {sid} ended {info['status']}: {logs[-1000:]}")
+        rec["rest_job"] = {"submission_id": sid,
+                           "submit_to_succeeded_s": time.perf_counter() - t0}
+
+        # /metrics carries the engine's and the recorder's series
+        metrics = _http(url + "/metrics")
+        for name in ("ray_tpu_serve_tokens_total",
+                     "ray_tpu_serve_ttft_seconds",
+                     "ray_tpu_train_step_phase_seconds",
+                     "ray_tpu_hbm_live_bytes"):
+            check(name in metrics, f"/metrics lacks {name}")
+
+        # a traced task from a fresh driver; `trace --summary` renders it
+        script = os.path.join(tmp, "traced.py")
+        with open(script, "w") as f:
+            f.write(_OBSERVE_TRACED.format(root=str(ROOT), address=addr))
+        t = subprocess.run([sys.executable, script], capture_output=True,
+                           text=True, timeout=300, cwd=str(ROOT),
+                           env=dict(os.environ, PYTHONPATH=str(ROOT)))
+        check(t.returncode == 0 and "TRACED ok" in t.stdout,
+              f"the traced driver failed: {t.stderr[-2000:]}")
+        deadline = time.monotonic() + 60
+        while True:
+            _, r = _cli("trace", "--summary", "--address", addr)
+            head = r.stdout.splitlines()[0] if r.stdout else ""
+            n = int(head.split()[0]) if head[:1].isdigit() else 0
+            if n >= 1 and "task" in r.stdout:
+                break
+            check(time.monotonic() < deadline, f"`trace --summary` shows "
+                  f"no traced task:\n{r.stdout[-2000:]}")
+            time.sleep(0.5)
+        rec["trace_summary"] = r.stdout.strip().splitlines()[:12]
+
+        # the dashboard's process loaded no torch and holds no card
+        with open(f"/proc/{dash.pid}/maps") as f:
+            dash_torch = "libtorch" in f.read()
+        check(not dash_torch and not _holds_card(dash.pid),
+              f"the dashboard process loaded torch ({dash_torch}) or holds "
+              f"the card ({_holds_card(dash.pid)})")
+        rec["dashboard_loaded_torch"] = dash_torch
+        rt.kill(actor)
+        log(f"[observe] REST job {sid} SUCCEEDED in "
+            f"{rec['rest_job']['submit_to_succeeded_s']:.2f} s; /metrics "
+            f"carries ray_tpu_serve_* and ray_tpu_train_step_phase_seconds; "
+            f"`trace --summary`: {rec['trace_summary'][0]}; the dashboard "
+            f"process holds no libtorch and no card ({smi})")
+    finally:
+        if dash is not None:
+            dash.terminate()
+            try:
+                dash.wait(10)
+            except subprocess.TimeoutExpired:
+                dash.kill()
+                dash.wait(10)
+        rt.shutdown()
+        if env_before is None:
+            os.environ.pop("RAY_TPU_TORCH_TRACE_SAMPLE", None)
+        else:
+            os.environ["RAY_TPU_TORCH_TRACE_SAMPLE"] = env_before
+    mine = lambda: {p: c for p, c in _runtime_procs().items()  # noqa: E731
+                    if p not in before}
+    _wait_for(lambda: not mine(), 60,
+              f"runtime processes outlived shutdown: {mine()}")
+    check(not _card_holders(before), f"runtime processes hold the card "
+          f"after shutdown: {_card_holders(before)}")
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"[observe] phase {rec['seconds']:.1f} s")
+    return rec
+
+
 def _kernel_entry(k, case, launches_by_path, **extra):
     # the main path: a step through the trainer on Data-fed batches (K1-K6;
     # K7 runs there only with the fused hop forced, and its entry says so)
@@ -5786,7 +6413,7 @@ def _kernel_entry(k, case, launches_by_path, **extra):
 PHASES = ("kernels", "forward", "serve", "serve-bench", "parity", "train",
           "kernels-quantize", "kernels-fused", "dp-train", "runtime",
           "serve-app", "train-app", "data-train", "dag", "cli-jobs",
-          "autoscale")
+          "autoscale", "observe")
 
 
 def main(argv=None):
@@ -5877,6 +6504,10 @@ def main(argv=None):
         # last: the autoscaled node's GPU workers come and go too
         torch.cuda.empty_cache()
         report["autoscale"] = phase_autoscale()
+    if "observe" in phases:
+        # last: the dashboard's head and a GPU actor come and go too
+        torch.cuda.empty_cache()
+        report["observe"] = phase_observe()
 
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps(report, indent=1))
@@ -5901,6 +6532,10 @@ def main(argv=None):
                 "dp_train_step": dp_launches[name],
                 "dp_train_step_fused_hop": dp_fused_launches[name],
                 "gpt_sync_fused": gs_fused_launches[name],
+                # one mesh_allreduce(profile=True) of the flattened
+                # gradient: six fenced stages
+                "gpt_sync_profiled":
+                    report["gpt_sync"]["profiled"]["launches"][name],
                 # K1-K3 inside a GPU worker of the port's runtime
                 "runtime_actor_forward":
                     report["runtime"]["forward"]["actor_launches"][name],
@@ -5924,7 +6559,10 @@ def main(argv=None):
                     report["autoscale"]["task"]["launches"][name],
                 # one forward in an actor of the GPU ActorPool
                 "actor_pool_forward": report["autoscale"]["pool"][
-                    "launches_per_forward"][name]}
+                    "launches_per_forward"][name],
+                # the observe phase's GPU actor, its forward a recorder step
+                "observe_actor_forward": report["observe"]["device"][
+                    "step_launches"][name]}
 
     k1 = report["kernels"][0]
     bwd = report["kernels_bwd"][0]

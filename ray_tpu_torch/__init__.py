@@ -55,7 +55,12 @@ Layout mirrors ``ray_tpu``:
     control-plane KV, the rank-local collectives with their
     int8-compressed paths, the compression config and codec;
   * ``parallel.sharding`` — ``GradientSynchronizer``, the bucketed,
-    error-feedback gradient sync of data-parallel training.
+    error-feedback gradient sync of data-parallel training;
+  * ``telemetry``, ``util.metrics``, ``dashboard`` — the training
+    flight recorder (phase-timed steps with CUDA-event fences, goodput,
+    stragglers, Chrome traces), the device census and program ledger,
+    the Prometheus registry and the dashboard's HTTP head; none of them
+    loads torch at import.
 """
 
 from __future__ import annotations
@@ -63,6 +68,7 @@ from __future__ import annotations
 import atexit
 import logging
 import os
+import sys
 import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence
@@ -75,6 +81,8 @@ from ._private.common import (ActorDiedError, GetTimeoutError, ObjectLostError,
 from ._private.core import CoreWorker, ObjectRef, ObjectRefGenerator
 
 logger = logging.getLogger(__name__)
+
+__version__ = "0.1.0"
 
 _lock = threading.RLock()
 _core: Optional[CoreWorker] = None
@@ -207,6 +215,10 @@ def init(address: Optional[str] = None, *, num_cpus: Optional[float] = None,
                            namespace=namespace, log_to_driver=log_to_driver,
                            node_id=node_id, store_root=store_root)
         atexit.register(shutdown)
+        # metrics created before a previous shutdown() flush again
+        _metrics = sys.modules.get("ray_tpu_torch.util.metrics")
+        if _metrics is not None:
+            _metrics._registry.restart_if_needed()
         if _tracing_startup_hook:
             # run locally + register in KV so every worker applies it
             # (reference: ray.init(_tracing_startup_hook=...))
@@ -242,6 +254,11 @@ def shutdown() -> None:
 
         if core_mod._current_core is core:
             core_mod._current_core = None
+    # the metrics flusher must stop AT shutdown, not race it (it would
+    # otherwise wake after teardown and trip on the dead core)
+    _metrics = sys.modules.get("ray_tpu_torch.util.metrics")
+    if _metrics is not None:
+        _metrics._registry.stop()
     if cluster is not None:
         cluster.shutdown()
 

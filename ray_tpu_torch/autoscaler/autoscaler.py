@@ -16,8 +16,8 @@ resource_demand_scheduler.py):
 
 The port's copy of ``ray_tpu/autoscaler/autoscaler.py``: the schedulable
 unit is a provider's GPU group (tag ``node-group``) where the reference's
-is a TPU slice (``tpu-slice``), and ``train_goodput`` stays empty until
-the trainer publishes telemetry (ROADMAP A.5, §C).
+is a TPU slice (``tpu-slice``); ``train_goodput`` reads the goodput the
+port's trainer publishes with its run state (KV namespace ``train``).
 """
 
 from __future__ import annotations

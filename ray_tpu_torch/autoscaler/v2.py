@@ -19,8 +19,8 @@ The cloud layer is the same NodeProvider interface as v1; the demand
 scheduler is reused from v1 (ResourceDemandScheduler).
 
 The port's copy of ``ray_tpu/autoscaler/v2.py``; the goodput policy
-reads ``train_goodput``, which stays empty until the port's trainer
-publishes telemetry (ROADMAP A.5, §C).
+reads ``train_goodput``, which the port's trainer fills (its run state in
+KV namespace ``train`` carries ``telemetry.goodput``).
 """
 
 from __future__ import annotations

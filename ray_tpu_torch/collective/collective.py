@@ -35,8 +35,11 @@ The first store group a process initializes becomes
 ``torch.distributed``'s default group; a later one over the same members
 is a subgroup of it.  Tensors stay on the group's device: every call
 returns new tensors there (the reference returns numpy arrays; the kv
-backend returns CPU tensors), and the flight-recorder hooks
-(``_record_op``) wait for the tracing slice (ROADMAP A.5).
+backend returns CPU tensors).  Every op reports its time and its logical
+and wire bytes to the flight recorder (``_record_op``, where the
+reference reports); the kv backend's compressed allreduce also times its
+codec and mailbox stages as the ``quantize``/``transfer``/``dequantize``
+breakdown.
 """
 
 from __future__ import annotations
@@ -58,6 +61,7 @@ from ray_tpu_torch.collective import nccl_group, peer_memory
 from ray_tpu_torch.collective.compression import (CompressionConfig,
                                                   compress_array,
                                                   decompress_array,
+                                                  wire_ratio,
                                                   resolve_compression,
                                                   result_block_size)
 from ray_tpu_torch.util import tracing
@@ -100,6 +104,39 @@ _groups: Dict[str, GroupHandle] = {}
 _NS = "collective"
 # how long a kv member waits for the others (the reference's deadline)
 _KV_TIMEOUT_S = 120.0
+
+
+def _record_op(op: str, t0: float, x=None,
+               cc: Optional[CompressionConfig] = None,
+               breakdown: Optional[Dict[str, float]] = None,
+               elapsed: Optional[float] = None):
+    """Feed the flight recorder (telemetry.recorder): op latency into the
+    current step's "collective" phase + Prometheus series, logical vs
+    wire bytes so compression savings are visible in production.
+    `breakdown` carries measured quantize/transfer/dequantize sub-phase
+    seconds when the caller timed its stages; `elapsed` overrides the
+    t0-derived duration (async ops report issue+finish time, not the
+    caller's overlap window).  ``x`` is a numpy array or a tensor."""
+    try:
+        from ray_tpu_torch.telemetry import recorder as _rec
+
+        payload, wire = 0.0, None
+        if x is not None:
+            n = x.numel() if isinstance(x, torch.Tensor) else x.size
+            itemsize = x.element_size() if isinstance(x, torch.Tensor) \
+                else x.itemsize
+            payload = float(n * itemsize)
+            if cc is not None:
+                wire = payload * wire_ratio(n, cc,
+                                            baseline_itemsize=itemsize)
+        dur = elapsed if elapsed is not None else time.perf_counter() - t0
+        _rec.record_collective(op, dur, payload, wire, breakdown=breakdown)
+    except Exception:
+        pass
+
+
+def _new_breakdown() -> Dict[str, float]:
+    return {"quantize": 0.0, "transfer": 0.0, "dequantize": 0.0}
 
 
 def _kv():
@@ -247,32 +284,45 @@ def _rng_for(g: GroupHandle, cc: CompressionConfig, rank: int):
 
 
 def _kv_issue(g: GroupHandle, x: np.ndarray, op: str,
-              cc: Optional[CompressionConfig]) -> Callable[[], torch.Tensor]:
+              cc: Optional[CompressionConfig], bd: Dict[str, float]
+              ) -> Callable[[], torch.Tensor]:
     """Publish this rank's (possibly quantized) contribution now and
     return the reduce/fetch half (reference: collective.py:366-462).
     Keys are pinned to the epoch captured here: an async op finishes
     after later ops have bumped ``g.op_idx``.  Rank 0 reduces; with
     compression it dequantizes every contribution, sums in f32 and
     republishes a requantized result at the finer result block, so every
-    rank lands on the same quantized value."""
+    rank lands on the same quantized value.  With compression, ``bd``
+    collects the codec's (quantize, dequantize) and the mailbox's
+    (transfer) seconds, stage by stage, as the reference's
+    (collective.py:366-413)."""
     idx = g.op_idx
     tag = "qar" if cc is not None else "ar"
 
     def key(rank: int) -> str:
         return f"{g.name}/{idx}/{tag}/{rank}"
 
+    def timed(stage: str, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        bd[stage] += time.perf_counter() - t
+        return out
+
     if cc is not None:
-        payload = compress_array(x, cc, _rng_for(g, cc, g.rank))
-        _kv_put(key(g.rank), pickle.dumps(payload, protocol=5))
+        payload = timed("quantize", compress_array, x, cc,
+                        _rng_for(g, cc, g.rank))
+        timed("transfer", _kv_put, key(g.rank),
+              pickle.dumps(payload, protocol=5))
     else:
         _kv_put(key(g.rank), pickle.dumps(x, protocol=5))
 
     def finish() -> torch.Tensor:
         if g.rank != 0:
-            got = pickle.loads(_kv_get(key(-1)))
             if cc is None:
-                return _from_numpy(got)
-            return _from_numpy(decompress_array(got).astype(x.dtype))
+                return _from_numpy(pickle.loads(_kv_get(key(-1))))
+            got = pickle.loads(timed("transfer", _kv_get, key(-1)))
+            return _from_numpy(timed("dequantize", decompress_array,
+                                     got).astype(x.dtype))
         if cc is None:
             parts = [x] + [pickle.loads(_kv_get(key(r)))
                            for r in range(1, g.world_size)]
@@ -281,15 +331,19 @@ def _kv_issue(g: GroupHandle, x: np.ndarray, op: str,
             return _from_numpy(acc)
         acc = np.zeros(x.shape, np.float32)
         for r in range(g.world_size):
-            acc += decompress_array(
-                pickle.loads(_kv_get(key(r)))).astype(np.float32)
+            raw = timed("transfer", _kv_get, key(r))
+            acc += timed("dequantize", decompress_array,
+                         pickle.loads(raw)).astype(np.float32)
         if op == "mean":
             acc /= g.world_size
         rcc = dataclasses.replace(cc, block_size=result_block_size(
             cc.block_size))
-        result = compress_array(acc, rcc, _rng_for(g, cc, g.world_size))
-        _kv_put(key(-1), pickle.dumps(result, protocol=5))
-        return _from_numpy(decompress_array(result).astype(x.dtype))
+        result = timed("quantize", compress_array, acc, rcc,
+                       _rng_for(g, cc, g.world_size))
+        timed("transfer", _kv_put, key(-1),
+              pickle.dumps(result, protocol=5))
+        return _from_numpy(timed("dequantize", decompress_array,
+                                 result).astype(x.dtype))
 
     return finish
 
@@ -412,13 +466,17 @@ def barrier(group_name: str = "default") -> None:
     """All members rendezvous (reference: collective.py:298)."""
     g = get_group_handle(group_name)
     g.op_idx += 1
-    if g.backend == "kv":
-        _kv_put(g._key("bar", g.rank), b"1")
-        for r in range(g.world_size):
-            _kv_get(g._key("bar", r))
-        return
-    kw = {"device_ids": [g.device.index]} if g.backend == "nccl" else {}
-    dist.barrier(group=g.pg, **kw)
+    t0 = time.perf_counter()
+    try:
+        if g.backend == "kv":
+            _kv_put(g._key("bar", g.rank), b"1")
+            for r in range(g.world_size):
+                _kv_get(g._key("bar", r))
+            return
+        kw = {"device_ids": [g.device.index]} if g.backend == "nccl" else {}
+        dist.barrier(group=g.pg, **kw)
+    finally:
+        _record_op("barrier", t0)
 
 
 def _resolve_op_compression(x: torch.Tensor, op: str,
@@ -488,23 +546,37 @@ def allreduce_async(tensor, group_name: str = "default", op: str = "sum",
     The op index (the stochastic seed) is captured at issue.  With NCCL
     the whole quantized path is enqueued on the card's streams at issue
     and nothing on the host waits for it; an uncompressed allreduce is
-    issued with ``async_op`` and awaited at ``result()``."""
+    issued with ``async_op`` and awaited at ``result()``.  Telemetry
+    records issue + finish time — not the caller's overlap window — with
+    the kv backend's stage breakdown."""
     g = get_group_handle(group_name)
     g.op_idx += 1
-    if g.backend == "kv":
-        _check_op(op)
-        x = _on_group(g, tensor)
-        cc = _resolve_op_compression(x, op, compression)
-        return AllreduceHandle(_kv_issue(g, _to_numpy(x), op, cc))
-    x = _on_group(g, tensor)
     _check_op(op)
+    x = _on_group(g, tensor)
     cc = _resolve_op_compression(x, op, compression)
-    if cc is not None:
-        out = nccl_group.mesh_allreduce(x, g.pg, op=op, compression=cc,
-                                        seed=g.op_idx, impl="auto")
-        return AllreduceHandle(lambda: out)
-    _, finish = nccl_group._allreduce(x, g.pg, op, async_op=True)
-    return AllreduceHandle(finish)
+    t0 = time.perf_counter()
+    bd = None
+    if g.backend == "kv":
+        bd = _new_breakdown()
+        finish = _kv_issue(g, _to_numpy(x), op, cc, bd)
+    elif cc is not None:
+        out, _ = nccl_group._mesh_allreduce(x, g.pg, op, cc, g.op_idx,
+                                            "auto")
+
+        def finish():  # enqueued on the card at issue
+            return out
+    else:
+        _, finish = nccl_group._allreduce(x, g.pg, op, async_op=True)
+    issued = time.perf_counter() - t0
+
+    def done() -> torch.Tensor:
+        t1 = time.perf_counter()
+        res = finish()
+        _record_op("allreduce", t0, x, cc, breakdown=bd,
+                   elapsed=issued + time.perf_counter() - t1)
+        return res
+
+    return AllreduceHandle(done)
 
 
 def allgather(tensor, group_name: str = "default",
@@ -515,26 +587,28 @@ def allgather(tensor, group_name: str = "default",
     travels as int8 blocks + scales (lossy)."""
     g = get_group_handle(group_name)
     g.op_idx += 1
-    if g.backend == "kv":
-        t = _on_group(g, tensor)
-        cc = (_resolve_op_compression(t, "sum", compression)
-              if compression is not None else None)
-        x = _to_numpy(t)
-        if cc is not None:
-            payload = compress_array(x, cc, _rng_for(g, cc, g.rank))
-            _kv_put(g._key("qag", g.rank), pickle.dumps(payload, protocol=5))
-            return [_from_numpy(decompress_array(pickle.loads(
-                _kv_get(g._key("qag", r)))).astype(x.dtype))
-                for r in range(g.world_size)]
-        _kv_put(g._key("ag", g.rank), pickle.dumps(x, protocol=5))
-        return [_from_numpy(pickle.loads(_kv_get(g._key("ag", r))))
-                for r in range(g.world_size)]
-    x = _on_group(g, tensor)
-    cc = (_resolve_op_compression(x, "sum", compression)
+    t = _on_group(g, tensor)
+    cc = (_resolve_op_compression(t, "sum", compression)
           if compression is not None else None)
-    full = nccl_group.mesh_allgather(x.reshape((1,) + tuple(x.shape)), g.pg,
-                                     compression=cc, seed=g.op_idx)
-    return list(full.unbind(0))
+    t0 = time.perf_counter()
+    try:
+        if g.backend == "kv":
+            x = _to_numpy(t)
+            if cc is not None:
+                payload = compress_array(x, cc, _rng_for(g, cc, g.rank))
+                _kv_put(g._key("qag", g.rank),
+                        pickle.dumps(payload, protocol=5))
+                return [_from_numpy(decompress_array(pickle.loads(
+                    _kv_get(g._key("qag", r)))).astype(x.dtype))
+                    for r in range(g.world_size)]
+            _kv_put(g._key("ag", g.rank), pickle.dumps(x, protocol=5))
+            return [_from_numpy(pickle.loads(_kv_get(g._key("ag", r))))
+                    for r in range(g.world_size)]
+        full = nccl_group._allgather(t.reshape((1,) + tuple(t.shape)),
+                                     g.pg, cc, g.op_idx)
+        return list(full.unbind(0))
+    finally:
+        _record_op("allgather", t0, t, cc)
 
 
 def reducescatter(tensor, group_name: str = "default", op: str = "sum",
@@ -557,19 +631,25 @@ def broadcast(tensor, src_rank: int = 0,
     the kv backend reads only root's, so other ranks may pass None."""
     g = get_group_handle(group_name)
     g.op_idx += 1
-    if g.backend == "kv":
-        if g.rank == src_rank:
-            x = _to_numpy(_on_group(g, tensor))
-            _kv_put(g._key("bc", src_rank), pickle.dumps(x, protocol=5))
-            return _from_numpy(x.copy())
-        return _from_numpy(pickle.loads(_kv_get(g._key("bc", src_rank))))
-    if tensor is None:
-        raise TypeError(
-            "broadcast is an SPMD op: every rank must pass a tensor of "
-            "root's shape and dtype (non-root values are ignored); got "
-            "None — pass e.g. torch.empty_like(root's tensor)")
-    return nccl_group.mesh_broadcast(_on_group(g, tensor), g.pg,
-                                     root=src_rank)
+    t0 = time.perf_counter()
+    x = None
+    try:
+        if g.backend == "kv":
+            if g.rank == src_rank:
+                x = _to_numpy(_on_group(g, tensor))
+                _kv_put(g._key("bc", src_rank), pickle.dumps(x, protocol=5))
+                return _from_numpy(x.copy())
+            x = pickle.loads(_kv_get(g._key("bc", src_rank)))
+            return _from_numpy(x)
+        if tensor is None:
+            raise TypeError(
+                "broadcast is an SPMD op: every rank must pass a tensor of "
+                "root's shape and dtype (non-root values are ignored); got "
+                "None — pass e.g. torch.empty_like(root's tensor)")
+        x = _on_group(g, tensor)
+        return nccl_group.mesh_broadcast(x, g.pg, root=src_rank)
+    finally:
+        _record_op("broadcast", t0, x)
 
 
 def send(tensor, dst_rank: int, group_name: str = "default") -> None:

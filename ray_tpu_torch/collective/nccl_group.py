@@ -35,14 +35,22 @@ map each other's memory); ``impl="fused_plain"`` runs K7's plain version
 ``fused_interpret`` runs its kernel through the interpreter.  Both phase-1
 paths give the same bits.
 
-Not ported: ``profile=True`` (the fenced stage programs and their
-flight-recorder breakdown; ROADMAP A.5).  It raises
-``NotImplementedError``.
+Every public collective reports its dispatch time and its payload and
+wire bytes to the flight recorder (``_record_mesh_op``; no fence, as in
+the reference: waiting here would serialize the very overlap the
+pipeline buys), and the bodies run through the program ledger
+(``telemetry/device.py``) as the reference's compiled programs do.
+``mesh_allreduce(profile=True)`` runs the quantized path as six fenced
+stages instead — K4 quantize, ``all_to_all``, K6 dequantize-accumulate,
+K4 requantize, ``all_gather``, K5 stitch — and charges them to the
+``quantize``, ``transfer`` and ``dequantize`` sub-phases of the current
+step's ``collective`` phase (``_q_allreduce_profiled``).
 """
 
 from __future__ import annotations
 
 import os
+import time
 from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -52,17 +60,44 @@ from ray_tpu_torch.collective.compression import (CompressionConfig,
                                                   auto_pipeline_chunks,
                                                   chunk_layout,
                                                   parse_compression,
-                                                  result_block_size)
+                                                  result_block_size,
+                                                  wire_ratio)
 from ray_tpu_torch.collective import peer_memory
 from ray_tpu_torch.ops.quantize import (dequantize_accumulate,
                                         dequantize_blockwise,
                                         fused_reduce_scatter,
                                         fused_rs_vmem_bytes, padded_len,
                                         quantize_blockwise, reciprocal)
+from ray_tpu_torch.telemetry import device as _devtel
+from ray_tpu_torch.telemetry.recorder import _fence
+from ray_tpu_torch.util import tracing
 
 Group = Optional[dist.ProcessGroup]
 _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "mean": dist.ReduceOp.SUM,
                "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
+
+
+def _record_mesh_op(op: str, t0: float, x: torch.Tensor,
+                    cc: Optional[CompressionConfig],
+                    breakdown: Optional[dict] = None) -> None:
+    """Report dispatch time + byte counters to the flight recorder
+    (reference: ``xla_group.py:40-60``).  Dispatch-side only — no forced
+    fence here: the card's time lands in the step's fenced total
+    instead.  ``breakdown`` carries measured quantize/transfer/
+    dequantize sub-phase seconds when the caller ran the staged
+    (fenced) profiling path."""
+    try:
+        from ray_tpu_torch.telemetry import recorder as _rec
+
+        nbytes = float(x.numel() * x.element_size())
+        wire = None
+        if nbytes and cc is not None:
+            wire = nbytes * wire_ratio(x.numel(), cc,
+                                       baseline_itemsize=x.element_size())
+        _rec.record_collective(op, time.perf_counter() - t0, nbytes, wire,
+                               breakdown=breakdown)
+    except Exception:
+        pass
 
 
 def _world_rank(group: Group) -> Tuple[int, int]:
@@ -93,12 +128,7 @@ _IMPLS = ("auto", "plain", "fused", "fused_plain")
 _FUSED_RS_VMEM_CAP = 8 << 20
 
 
-def _check_impl(impl: str, profile: bool) -> None:
-    if profile:
-        raise NotImplementedError(
-            "profile=True (the fenced stage programs that report quantize/"
-            "transfer/dequantize seconds to the flight recorder) is not "
-            "ported; it comes with the tracing slice, ROADMAP A.5")
+def _check_impl(impl: str) -> None:
     if impl not in _IMPLS:
         raise ValueError(
             f"unknown impl {impl!r} (the port has 'auto': the Hopper "
@@ -156,18 +186,41 @@ def mesh_allreduce(x: torch.Tensor, group: Group = None, op: str = "sum",
     kernels' plain versions on any device; ``"fused"`` forces K7 for the
     reduce-scatter hop (raising where the group has no peer memory),
     ``"fused_plain"`` its plain version; "auto" picks K7 where the
-    reference's rule does.  ``seed`` feeds stochastic rounding."""
-    _check_impl(impl, profile)
+    reference's rule does.  ``seed`` feeds stochastic rounding.
+
+    profile=True runs the same numerics as six fenced stages and
+    reports measured quantize/transfer/dequantize sub-phase seconds to
+    the flight recorder — attribution mode for bench/debug; the
+    pipelined path stays the default because the fences serialize the
+    very overlap the pipeline buys."""
+    t0 = time.perf_counter()
+    cc = parse_compression(compression)
+    with tracing.span("collective.mesh_allreduce",
+                      world=dist.get_world_size(group),
+                      op=op, compressed=cc is not None):
+        out, breakdown = _mesh_allreduce(x, group, op, cc, seed, impl,
+                                         profile)
+    _record_mesh_op("mesh_allreduce", t0, x, cc, breakdown)
+    return out
+
+
+def _mesh_allreduce(x: torch.Tensor, group: Group, op: str,
+                    cc: Optional[CompressionConfig], seed: int, impl: str,
+                    profile: bool = False):
+    """mesh_allreduce without its flight-recorder report (the group API,
+    ``collective.allreduce``, reports its own): (result, breakdown)."""
+    _check_impl(impl)
     if op not in _REDUCE_OPS:
         raise ValueError(f"unknown reduce op {op!r}")
-    cc = parse_compression(compression)
     if cc is None:
-        return _allreduce(x, group, op)
+        return _allreduce(x, group, op), None
     if op not in ("sum", "mean"):
         raise ValueError(f"compressed allreduce supports op in "
                          f"('sum', 'mean'), got {op!r}")
+    if profile:
+        return _q_allreduce_profiled(x, int(seed), group, op, cc)
     return _q_allreduce(x, int(seed), group, op, cc.block_size,
-                        cc.stochastic, resolve_chunks(cc, x), impl)
+                        cc.stochastic, resolve_chunks(cc, x), impl), None
 
 
 def _allreduce(x: torch.Tensor, group: Group, op: str,
@@ -316,6 +369,62 @@ def _q_allreduce(x: torch.Tensor, seed: int, group: Group, op: str,
     return out2d.reshape(-1)[:n].reshape(shape).to(dtype)
 
 
+def _q_allreduce_profiled(x: torch.Tensor, seed: int, group: Group, op: str,
+                          cc: CompressionConfig):
+    """Run the quantized allreduce as six fenced stages and return
+    (result, {"quantize", "transfer", "dequantize"} seconds) (reference:
+    ``xla_group.py:441-484``).  Bit-identical to ``_q_allreduce`` at one
+    chunk with the staged phase 1 for deterministic rounding, hence to
+    every unprofiled call; ``impl`` plays no part — attribution always
+    runs the staged kernels (K7 fuses three stages into one launch and
+    cannot be split for timing)."""
+    block, stochastic = cc.block_size, cc.stochastic
+    world, idx = _world_rank(group)
+    rblock = result_block_size(block)
+    shape, dtype = x.shape, x.dtype
+    flat = x.reshape(-1).to(torch.float32)
+    n = flat.numel()
+    total = padded_len(n, world * block)
+    if total != n:
+        flat = torch.cat([flat, flat.new_zeros(total - n)])
+    sub = total // world
+    mean_scale = reciprocal(world) if op == "mean" else None
+    times = {"quantize": 0.0, "transfer": 0.0, "dequantize": 0.0}
+
+    def run(bucket, fn, *a, **kw):
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        _fence(out)
+        times[bucket] += time.perf_counter() - t
+        return out
+
+    def exchange(q, s):
+        qx, sx, works = _exchange(q, s, group)
+        _wait(works)
+        return qx, sx
+
+    def gather(q, s):
+        qg, sg, works = _gather(q, s, world, group)
+        _wait(works)
+        return qg, sg
+
+    _fence(flat)
+    q, s = run("quantize", quantize_blockwise, flat.view(world, sub), block,
+               stochastic=stochastic, seed=seed * world + idx,
+               reciprocal_scale=True)
+    qx, sx = run("transfer", exchange, q, s)
+    red = run("dequantize", dequantize_accumulate, qx, sx, world, block,
+              scale=mean_scale)
+    q2, s2 = run("quantize", quantize_blockwise, red, rblock,
+                 stochastic=stochastic, seed=seed * world + idx + 1,
+                 reciprocal_scale=True)
+    qg, sg = run("transfer", gather, q2, s2)
+    out = run("dequantize", dequantize_blockwise, qg, sg, (qg.numel(),),
+              torch.float32, rblock)
+    out = out.view(world, -1)[:, :sub].reshape(-1)[:n].reshape(shape)
+    return out.to(dtype), times
+
+
 def mesh_reducescatter(x: torch.Tensor, group: Group = None,
                        compression: Union[None, str,
                                           CompressionConfig] = None,
@@ -326,6 +435,19 @@ def mesh_reducescatter(x: torch.Tensor, group: Group = None,
     reduced chunk, elements [r*N/world, (r+1)*N/world), shaped like x with
     its last dim N/world.  With ``compression``, contributions travel as
     int8 blocks + scales (sum semantics, lossy)."""
+    t0 = time.perf_counter()
+    cc = parse_compression(compression)
+    with tracing.span("collective.mesh_reducescatter",
+                      world=dist.get_world_size(group),
+                      compressed=cc is not None):
+        out = _reducescatter(x, group, cc, seed)
+    _record_mesh_op("mesh_reducescatter", t0, x, cc)
+    return out
+
+
+def _reducescatter(x: torch.Tensor, group: Group,
+                   cc: Optional[CompressionConfig], seed: int
+                   ) -> torch.Tensor:
     world, idx = _world_rank(group)
     row = x.reshape(-1)
     if row.numel() % world:
@@ -333,7 +455,6 @@ def mesh_reducescatter(x: torch.Tensor, group: Group = None,
                          f"elements) divisible by the group size ({world})")
     sub = row.numel() // world
     out_shape = tuple(x.shape[:-1]) + (sub,)
-    cc = parse_compression(compression)
     if cc is None:
         out = row.new_empty(sub)
         dist.reduce_scatter_tensor(out, row.contiguous(), op=dist.ReduceOp.SUM,
@@ -359,9 +480,21 @@ def mesh_allgather(x: torch.Tensor, group: Group = None,
     dim 0, in rank order (reference API: collective.py:423 allgather).
     With ``compression``, shards travel as int8 blocks + scales and are
     dequantized on arrival (lossy; see compression.py)."""
+    t0 = time.perf_counter()
+    cc = parse_compression(compression)
+    with tracing.span("collective.mesh_allgather",
+                      world=dist.get_world_size(group),
+                      compressed=cc is not None):
+        out = _allgather(x, group, cc, seed)
+    _record_mesh_op("mesh_allgather", t0, x, cc)
+    return out
+
+
+def _allgather(x: torch.Tensor, group: Group,
+               cc: Optional[CompressionConfig], seed: int) -> torch.Tensor:
+    """mesh_allgather without its flight-recorder report."""
     world, idx = _world_rank(group)
     out_shape = (world * x.shape[0],) + tuple(x.shape[1:])
-    cc = parse_compression(compression)
     if cc is None:
         out = x.new_empty(out_shape)
         dist.all_gather_into_tensor(out, x.contiguous(), group=group)
@@ -436,3 +569,29 @@ def mesh_all_to_all(x: torch.Tensor, group: Group = None,
     pieces = recv.view((world, -1) + tuple(send.shape[1:]))
     return torch.cat([p.movedim(0, split_axis) for p in pieces.unbind(0)],
                      dim=concat_axis)
+
+
+# -- program-ledger hookup (telemetry/device.py) -------------------------
+# The bodies route through the process ledger, as the reference's
+# compiled collectives do (xla_group.py:678-700): a collective meeting new
+# shapes every few steps shows up as a storm with a cause diff instead of
+# silent step-time jitter.  The stochastic-rounding seed is an input, not
+# part of the signature (the reference traces it).
+
+_allreduce = _devtel.instrument(_allreduce, name="collective.allreduce")
+_q_allreduce = _devtel.instrument(_q_allreduce, name="collective.q_allreduce",
+                                  dynamic_argnames=("seed",))
+_q_allreduce_profiled = _devtel.instrument(
+    _q_allreduce_profiled, name="collective.q_allreduce_profiled",
+    dynamic_argnames=("seed",))
+_reducescatter = _devtel.instrument(
+    _reducescatter, name="collective.reducescatter",
+    dynamic_argnames=("seed",))
+_allgather = _devtel.instrument(_allgather, name="collective.allgather",
+                                dynamic_argnames=("seed",))
+mesh_broadcast = _devtel.instrument(mesh_broadcast,
+                                    name="collective.broadcast")
+mesh_ppermute = _devtel.instrument(mesh_ppermute,
+                                   name="collective.ppermute")
+mesh_all_to_all = _devtel.instrument(mesh_all_to_all,
+                                     name="collective.all_to_all")

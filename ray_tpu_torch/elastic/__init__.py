@@ -12,9 +12,10 @@ copy of ``ray_tpu/elastic``.
   * resume      — shrink-to-fit width selection (goodput-predicted via
     IncarnationHistory) + exact global-batch resplitting, driven by
     BackendExecutor.elastic_recover().
-
-The reference's ``remediation`` (straggler quarantine over the trainer's
-telemetry) comes with the telemetry (ROADMAP A.5).
+  * remediation — RemediationEngine: turns sustained straggler
+    advisories into quarantine+rebalance actions (advisory by default)
+    with hysteresis, rate limits, and measured cause→action→effect
+    records.
 
 User surface: ``JaxConfig(elastic=ElasticConfig(...))`` plus
 ``elastic.snapshot(state, step)`` inside the train loop.
@@ -46,6 +47,9 @@ _EXPORTS = {
     "per_replica_batches": "resume",
     "predict_rate": "resume",
     "shrink_to_fit": "resume",
+    "REMEDIATION_NS": "remediation",
+    "RemediationEngine": "remediation",
+    "fetch_records": "remediation",
 }
 
 __all__ = sorted(_EXPORTS)

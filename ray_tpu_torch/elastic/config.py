@@ -4,9 +4,7 @@ Attached to ``JaxConfig(elastic=ElasticConfig(...))``; consumed by the
 BackendExecutor's supervised restart loop (train/backend_executor.py) and
 by the per-worker EmergencyCheckpointer (elastic/emergency.py).
 
-The port's copy of ``ray_tpu/elastic/config.py``.  The remediation
-fields are kept so configs carry over, but nothing acts on them until
-the remediation engine and the trainer's telemetry come (ROADMAP A.5).
+The port's copy of ``ray_tpu/elastic/config.py``.
 """
 
 from __future__ import annotations
@@ -48,8 +46,7 @@ class ElasticConfig:
         inventory / fetch) — recovery must finish well inside one
         heartbeat-death interval, so no call may block on a dead host.
 
-    Remediation (self-healing; the reference's elastic/remediation.py,
-    ROADMAP A.5 in the port):
+    Remediation (self-healing — see elastic/remediation.py):
 
     remediation_mode: what the RemediationEngine does with sustained
         ``straggler_detected`` advisories.

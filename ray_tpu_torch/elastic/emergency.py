@@ -292,9 +292,8 @@ def _clear_vault() -> bool:
 
 
 def vault_footprint() -> Dict[str, Any]:
-    """Bytes resident in this worker's emergency vault (the reference's
-    device memory census reports it, telemetry/device.py; ROADMAP A.5 in
-    the port)."""
+    """Bytes resident in this worker's emergency vault (the device memory
+    census reports it as its built-in owner, telemetry/device.py)."""
     with _LOCK:
         return {"entries": len(_VAULT),
                 "bytes": sum(len(v) for v in _VAULT.values()),

@@ -11,8 +11,9 @@ them without touching the supervisor.
 
 The port's copy of ``ray_tpu/job/job_manager.py``: the job's driver finds
 its cluster through ``RAY_TPU_TORCH_ADDRESS`` and its id in
-``RAY_TPU_TORCH_SUBMISSION_ID``.  The HTTP mode talks to the dashboard's
-job routes, which come with ROADMAP A.5.
+``RAY_TPU_TORCH_SUBMISSION_ID``.  The HTTP mode
+(``JobSubmissionClient("http://host:port")``) talks to the dashboard's
+job routes (``dashboard/head.py``).
 """
 
 from __future__ import annotations

@@ -10,6 +10,11 @@ optimizer updates the params IN PLACE, the port's form of
 ``donate=True``.  The optimizer's update is plain PyTorch, as XLA
 computed the reference's: no TPU kernel is involved.
 
+Each returned program runs through the program ledger
+(``telemetry/device.py``) under the reference's names (``train.init_state``,
+``train.step``, ``train.eval_step``): a step fed a new batch shape shows
+there as a new signature with its cause.
+
 Meshes (``init_sharded``, ``param_shardings``, ``opt_state_shardings``,
 ``shard_batch``) are not ported: passing ``mesh`` raises.
 """
@@ -22,6 +27,7 @@ import torch
 
 from ray_tpu_torch._device import DeviceLike, resolve_device
 from ray_tpu_torch.models import gpt
+from ray_tpu_torch.telemetry import device as devtel
 
 State = Dict[str, Any]
 # builds the optimizer over the param leaves, in ``param_leaves`` order
@@ -110,7 +116,8 @@ def make_train_step(cfg: gpt.GPTConfig, mesh=None,
         state["step"].add_(1)
         return state, {"loss": loss.detach().float(), "grad_norm": gnorm}
 
-    return init_state, step
+    return (devtel.instrument(init_state, name="train.init_state"),
+            devtel.instrument(step, name="train.step"))
 
 
 def _as_leaves(params: gpt.Params, cfg: gpt.GPTConfig,
@@ -134,4 +141,4 @@ def make_eval_step(cfg: gpt.GPTConfig, mesh=None, *,
     def eval_step(params: gpt.Params, batch: Dict[str, Any]) -> torch.Tensor:
         return gpt.loss_fn(params, batch, cfg, device=dev)
 
-    return eval_step
+    return devtel.instrument(eval_step, name="train.eval_step")

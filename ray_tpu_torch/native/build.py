@@ -5,7 +5,9 @@ use instead — a few hundred ms once per machine — and cache the .so keyed
 by source mtime, so edits rebuild automatically.  The port's copy of
 ``ray_tpu/native/build.py``: its libraries land in
 ``ray_tpu_torch/_build/native/``, apart from the reference's build
-directory, so the two packages never load each other's builds.
+directory, so the two packages never load each other's builds.  Every
+library a process loads is an event of the program ledger's
+``kernels.build`` (``telemetry/device.py``), with the compiler's time.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ import logging
 import os
 import subprocess
 import threading
+import time
+from typing import Optional
 
 logger = logging.getLogger(__name__)
 
@@ -78,10 +82,21 @@ def load_library(name: str, sources: list) -> ctypes.CDLL:
     with _lock:
         if name in _cache:
             return _cache[name]
+        t0 = time.perf_counter()
+        before = _mtime(os.path.join(_BUILD_DIR, f"lib{name}.so"))
         path = build_extension(name, sources)
         lib = ctypes.CDLL(path)
         _cache[name] = lib
+        from ray_tpu_torch.telemetry import device as _devtel
+
+        _devtel.get_ledger().record_build(
+            f"native/{name}", time.perf_counter() - t0, "g++",
+            cached=_mtime(path) == before)
         return lib
+
+
+def _mtime(path: str) -> Optional[float]:
+    return os.path.getmtime(path) if os.path.exists(path) else None
 
 
 if __name__ == "__main__":

@@ -3,7 +3,8 @@
 Each ``csrc/*.cu`` file holds one or more kernels behind a plain C
 interface; it is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 under ``_build/`` (keyed by a hash of its source and flags) at first use,
-and loaded with ctypes.
+and loaded with ctypes; each library a process loads is an event of the
+program ledger's ``kernels.build`` (``telemetry/device.py``).
 A wrapper checks device, dtype, shape and contiguity, allocates the
 outputs with ``torch.empty``, launches on PyTorch's current stream,
 raises if the launch reports an error, and counts its launches.
@@ -193,8 +194,14 @@ def _load(kernel: Kernel) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(kernel.source)
         if lib is None:
-            build([kernel])
+            t0 = time.perf_counter()
+            build_s = build([kernel])[kernel.name]
             lib = ctypes.CDLL(str(kernel.lib_path()))
+            from ray_tpu_torch.telemetry import device as _devtel
+
+            _devtel.get_ledger().record_build(
+                kernel.source, time.perf_counter() - t0, "nvcc",
+                cached=build_s == 0.0)
             lib.rtt_error_string.argtypes = [ctypes.c_int]
             lib.rtt_error_string.restype = ctypes.c_char_p
             _bind(kernel.source, lib)

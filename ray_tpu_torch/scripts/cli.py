@@ -8,9 +8,9 @@ python/ray/util/state/state_cli.py).  The port's copy of
 (default: the cards this host shows, ``accelerators.num_gpus``) as
 "GPU", ``job submit`` is ``submit``, and ``up`` launches a cluster
 from a YAML config through the port's node providers (a worker type
-with ``{GPU: n}`` offers cards).  ``timeline --job``, ``trace``,
-``remediations`` and ``device-stats`` come with ROADMAP A.5 and
-``analyze`` with A.9: each exits non-zero naming its item.
+with ``{GPU: n}`` offers cards), and ``timeline --job`` (or a trial
+name) dumps a training run's flight recorder as a Chrome trace.
+``analyze`` comes with ROADMAP A.9: it exits non-zero naming its item.
 
 Run as ``python -m ray_tpu_torch <command>``.  Cluster bookkeeping: the
 head writes ``/tmp/ray_tpu_torch/ray_current_cluster.json``
@@ -248,11 +248,94 @@ def cmd_down(args):
     cmd_stop(args)
 
 
+
+def cmd_device_stats(args):
+    """Device runtime observability: per-program signature counts with
+    new-signature cause diffs, storm advisories, ``kernels.build``
+    events, and the card memory census / KV-page occupancy per
+    worker."""
+    from ray_tpu_torch.util.state import api as state
+
+    snap = state.device_stats(address=_resolve_address(args))
+    if args.format == "json":
+        print(json.dumps(snap, indent=2, default=str))
+        return
+
+    def _mb(n):
+        return f"{n / (1 << 20):.1f}MB"
+
+    def _cause(cause):
+        if isinstance(cause, dict):
+            note = cause.get("note")
+            cause = cause.get("changes")
+            if not cause:
+                return note or "-"
+        if not cause:
+            return "-"
+        parts = [f"{c.get('arg')}: {c.get('kind')} "
+                 f"{c.get('old')} -> {c.get('new')}" for c in cause[:3]]
+        if len(cause) > 3:
+            parts.append(f"(+{len(cause) - 3} more)")
+        return "; ".join(parts)
+
+    progs = snap.get("programs") or {}
+    print(f"program ledger: {len(snap.get('workers') or {})} "
+          f"worker(s), {snap.get('total_compiles', 0)} new signature(s), "
+          f"{snap.get('total_recompiles', 0)} after a program's first, "
+          f"live on cards {_mb(snap.get('live_bytes', 0))}")
+    if progs:
+        rows = [(name, st["compiles"], st["recompiles"],
+                 st["storm_episodes"], st["workers"],
+                 _cause(st.get("last_cause")))
+                for name, st in sorted(progs.items())]
+        hdr = ("program", "signatures", "new", "storms", "workers",
+               "last new-signature cause")
+        widths = [max(len(str(r[i])) for r in rows + [hdr])
+                  for i in range(len(hdr))]
+        for r in [hdr] + rows:
+            print("  " + "  ".join(str(v).ljust(w)
+                                   for v, w in zip(r, widths)).rstrip())
+    else:
+        print("  (no programs recorded)")
+    advs = snap.get("advisories") or []
+    if advs:
+        print("advisories:")
+        for a in advs[-10:]:
+            kind = a.get("kind", "?")
+            if kind == "recompile_storm":
+                print(f"  [{a.get('worker_id', '?')[:12]}] storm: "
+                      f"{a.get('program')} x{a.get('compiles_in_window')}"
+                      f" in {a.get('window_s')}s — "
+                      f"{_cause(a.get('cause'))}")
+            elif kind == "memory_watermark":
+                print(f"  [{a.get('worker_id', '?')[:12]}] watermark: "
+                      f"live {_mb(a.get('live_bytes', 0))} >= "
+                      f"{_mb(a.get('watermark_bytes', 0))}")
+            else:
+                print(f"  [{a.get('worker_id', '?')[:12]}] {kind}: {a}")
+    for wid, wsnap in sorted((snap.get("workers") or {}).items()):
+        mem = wsnap.get("memory") or {}
+        live = mem.get("live") or {}
+        line = (f"worker {wid[:16]}: live {_mb(live.get('total_bytes', 0))}"
+                f" in {live.get('count', 0)} storage(s)")
+        for card, a in sorted((live.get("allocator") or {}).items()):
+            line += (f"; {card} allocated "
+                     f"{_mb(a.get('allocated_bytes', 0))} reserved "
+                     f"{_mb(a.get('reserved_bytes', 0))}")
+        owners = mem.get("owners") or {}
+        for tag, rep in sorted(owners.items()):
+            pages = rep.get("pages")
+            if isinstance(pages, dict):
+                line += (f"; {tag}: pages free {pages.get('free', 0)} "
+                         f"used {pages.get('used', 0)} "
+                         f"shared {pages.get('shared', 0)} "
+                         f"cow {pages.get('cow', 0)}")
+            elif "bytes" in rep:
+                line += f"; {tag}: {_mb(rep.get('bytes', 0))}"
+        print(line)
+
 # subcommands the port does not have yet: name -> (ROADMAP item, what)
 _NOT_PORTED = {
-    "trace": ("A.5", "the span collector's trace assembly"),
-    "remediations": ("A.5", "the elastic remediation log"),
-    "device-stats": ("A.5", "the device telemetry"),
     "analyze": ("A.9", "the static analyzer"),
 }
 
@@ -422,15 +505,120 @@ def cmd_summary(args):
 
 
 def cmd_timeline(args):
-    if args.trial or args.job:
-        # the training flight recorder's per-step dump reads the device
-        # telemetry
-        raise SystemExit("timeline --job (the training flight recorder) "
-                         "is not ported yet (ROADMAP A.5)")
-    from ..util.state import api as state
+    job = args.trial or args.job
+    if job:
+        # training flight-recorder dump: per-step phase breakdowns from
+        # every worker of one trial, as Chrome trace-event JSON
+        from ray_tpu_torch._private.protocol import Client
+        from ray_tpu_torch.telemetry.timeline import (chrome_trace,
+                                                collect_remediations,
+                                                collect_snapshots)
+
+        address = _resolve_address(args)
+        host, port = address.rsplit(":", 1)
+        control = Client((host, int(port)), name="cli-timeline")
+        try:
+            snaps = collect_snapshots(control, trial=job)
+            rems = collect_remediations(control, trial=job)
+            trace = chrome_trace(snaps, remediations=rems)
+        finally:
+            control.close()
+        with open(args.output, "w") as f:
+            json.dump(trace, f)
+        steps = sum(len(s.get("steps", [])) for s in snaps)
+        print(f"wrote {args.output} ({len(snaps)} workers, {steps} step "
+              f"records, {len(rems)} remediation markers for trial "
+              f"{job!r})")
+        return
+    from ray_tpu_torch.util.state import api as state
 
     state.timeline(args.output, address=_resolve_address(args))
     print(f"wrote {args.output}")
+
+
+def cmd_trace(args):
+    """Reassemble a distributed trace from the control plane's span
+    collector: span tree + critical-path phase/process attribution, or
+    a cross-trace latency summary with --summary."""
+    from ray_tpu_torch._private.protocol import Client
+    from ray_tpu_torch.telemetry import trace_assembly as ta
+
+    address = _resolve_address(args)
+    host, port = address.rsplit(":", 1)
+    control = Client((host, int(port)), name="cli-trace")
+    try:
+        if args.summary or not args.trace_id:
+            summary = ta.summarize(control, job_id=args.job)
+            if args.format == "json":
+                print(json.dumps(summary, indent=2, default=str))
+            else:
+                print(ta.render_summary_text(summary))
+            return
+        spans = ta.fetch_trace(control, args.trace_id)
+        if not spans:
+            ids = ta.list_trace_ids(control)
+            print(f"trace {args.trace_id!r} not found "
+                  f"({len(ids)} trace(s) in the collector"
+                  + (": " + ", ".join(i[:16] + "…" for i in ids[:8])
+                     if ids else "") + ")", file=sys.stderr)
+            raise SystemExit(1)
+        analysis = ta.analyze(spans)
+        if args.output:
+            with open(args.output, "w") as f:
+                json.dump(ta.chrome_trace(spans), f)
+            print(f"wrote {args.output} ({len(spans)} spans)",
+                  file=sys.stderr)
+        if args.format == "json":
+            print(json.dumps(analysis, indent=2, default=str))
+        else:
+            print(ta.render_text(analysis))
+    finally:
+        control.close()
+
+
+def cmd_remediations(args):
+    """List a training run's cause→action→effect self-healing log."""
+    from ray_tpu_torch._private.protocol import Client
+    from ray_tpu_torch.elastic.remediation import fetch_records
+
+    address = _resolve_address(args)
+    host, port = address.rsplit(":", 1)
+    control = Client((host, int(port)), name="cli-remediations")
+    try:
+        records = fetch_records(control, args.job)
+    finally:
+        control.close()
+    if args.format == "json":
+        print(json.dumps(records, indent=2, default=str))
+        return
+    if not records:
+        print(f"no remediation records for trial {args.job!r}")
+        return
+    for rec in records:
+        cause = rec.get("cause") or {}
+        action = rec.get("action") or {}
+        effect = rec.get("effect")
+        dry = " (dry-run)" if action.get("dry_run") else ""
+        print(f"{rec.get('id')}  [{rec.get('mode')}]{dry}")
+        print(f"  cause:  rank {cause.get('rank')} straggling — step "
+              f"{cause.get('step_s')}s vs gang median "
+              f"{cause.get('median_s')}s (x{cause.get('ratio')}), "
+              f"sustained {action.get('confirmed_rounds')} rounds")
+        tgt = f" node {str(action.get('node_id'))[:12]}" \
+            if action.get("node_id") else ""
+        world = f" -> world {action.get('new_world')}" \
+            if action.get("new_world") is not None else ""
+        print(f"  action: {action.get('kind')} rank {action.get('rank')}"
+              f"{tgt} (grace {action.get('grace_s')}s){world}")
+        if effect is None:
+            print("  effect: (not yet measured)")
+        else:
+            verdict = "recovered" if effect.get("recovered") \
+                else "NOT recovered"
+            print(f"  effect: gang median busy {effect.get('post_busy_s')}s "
+                  f"vs baseline {effect.get('baseline_busy_s')}s over "
+                  f"{effect.get('measured_rounds')} rounds — {verdict} "
+                  f"(tolerance {effect.get('tolerance'):.0%})")
 
 
 def cmd_memory(args):
@@ -658,6 +846,42 @@ def build_parser() -> argparse.ArgumentParser:
                     help="include handlers with zero calls")
     sp.add_argument("--format", choices=("text", "json"), default="text")
     sp.set_defaults(fn=cmd_control_stats)
+
+    sp = sub.add_parser(
+        "trace",
+        help="reassemble a distributed trace (span tree + critical-path "
+             "attribution) from the control-plane span collector")
+    sp.add_argument("trace_id", nargs="?", default=None,
+                    help="32-hex trace id (from a span record or "
+                         "trace --summary listing)")
+    sp.add_argument("--summary", action="store_true",
+                    help="aggregate phase attribution across all stored "
+                         "traces instead of showing one")
+    sp.add_argument("--job", default=None,
+                    help="with --summary: only traces touching this job")
+    sp.add_argument("-o", "--output", default=None,
+                    help="also write the trace as Perfetto/Chrome "
+                         "trace-event JSON")
+    sp.add_argument("--address", default=None)
+    sp.add_argument("--format", choices=("text", "json"), default="text")
+    sp.set_defaults(fn=cmd_trace)
+
+    sp = sub.add_parser("remediations",
+                        help="list a run's cause→action→effect "
+                             "self-healing log")
+    sp.add_argument("job", help="trial name")
+    sp.add_argument("--address", default=None)
+    sp.add_argument("--format", choices=("text", "json"), default="text")
+    sp.set_defaults(fn=cmd_remediations)
+
+    sp = sub.add_parser(
+        "device-stats",
+        help="program ledger + device-memory census: per-program "
+             "signature counts, new-signature cause diffs, storm "
+             "advisories, kernel builds, card memory / KV-page occupancy")
+    sp.add_argument("--address", default=None)
+    sp.add_argument("--format", choices=("text", "json"), default="text")
+    sp.set_defaults(fn=cmd_device_stats)
 
     for name in _NOT_PORTED:
         sp = sub.add_parser(name, help="not ported yet: exits non-zero "

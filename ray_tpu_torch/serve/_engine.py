@@ -22,8 +22,11 @@ under ``torch.inference_mode()``, on that thread's current CUDA stream;
 ``submit`` is thread-safe and hands back a ``_Sequence`` whose results
 are consumed as a blocking token iterator or a Future.
 
-Not ported here: the Prometheus series and the device-memory census
-hooks of the reference (they live in its metrics/telemetry packages).
+The engine exports the reference's Prometheus series (``ray_tpu_serve_*``:
+phase seconds, TTFT, tokens, request outcomes, slots, queue depth, free
+pages), reports its page arena to the device-memory census as an owner,
+and runs its prefill and decode programs through the program ledger
+(``telemetry/device.py``).
 """
 
 from __future__ import annotations
@@ -50,6 +53,71 @@ class AdmissionRejected(Exception):
     def __init__(self, msg: str, retry_after_s: float = 1.0):
         super().__init__(msg)
         self.retry_after_s = retry_after_s
+
+
+# ---------------------------------------------------------------------------
+# metrics (lazy, module-cached: strong refs keep them alive across the
+# weakref registry's flush epochs — same pattern as telemetry/recorder)
+
+_metric_lock = threading.Lock()
+_metric_cache: Dict[str, Any] = {}
+
+_PHASE_BOUNDARIES = [0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
+                     0.1, 0.25, 0.5, 1, 2.5]
+_TTFT_BOUNDARIES = [0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1, 2.5,
+                    5, 10, 30]
+
+
+def _metric(key: str, factory):
+    with _metric_lock:
+        m = _metric_cache.get(key)
+        if m is None:
+            try:
+                m = _metric_cache[key] = factory()
+            except Exception:
+                return None
+        return m
+
+
+def _m_phase():
+    from ..util import metrics as mm
+    return _metric("phase", lambda: mm.Histogram(
+        "ray_tpu_serve_step_phase_seconds",
+        description="Engine loop phase durations (swap/prefill/decode)",
+        boundaries=_PHASE_BOUNDARIES, tag_keys=("phase",)))
+
+
+def _m_ttft():
+    from ..util import metrics as mm
+    return _metric("ttft", lambda: mm.Histogram(
+        "ray_tpu_serve_ttft_seconds",
+        description="Time from submit to first streamed token",
+        boundaries=_TTFT_BOUNDARIES))
+
+
+def _m_tokens():
+    from ..util import metrics as mm
+    return _metric("tokens", lambda: mm.Counter(
+        "ray_tpu_serve_tokens_total",
+        description="Generated tokens"))
+
+
+def _m_requests():
+    from ..util import metrics as mm
+    return _metric("requests", lambda: mm.Counter(
+        "ray_tpu_serve_requests_total",
+        description="Engine request outcomes", tag_keys=("outcome",)))
+
+
+def _m_gauge(which: str):
+    from ..util import metrics as mm
+    names = {
+        "active": ("ray_tpu_serve_active_slots", "Occupied decode slots"),
+        "queue": ("ray_tpu_serve_queue_depth", "Waiting (unadmitted) requests"),
+        "free_pages": ("ray_tpu_serve_free_pages", "Free KV-cache pages"),
+    }
+    name, desc = names[which]
+    return _metric(which, lambda: mm.Gauge(name, description=desc))
 
 
 # ---------------------------------------------------------------------------
@@ -231,6 +299,22 @@ class ContinuousEngine:
         self.device = resolve_device(device)
         check_params_on(params, self.device)
         self._gpt = gpt_mod
+        # every engine program routes through the program ledger (the
+        # reference's serve/_engine.py:865): a step meeting new shapes in
+        # steady state shows as a new signature with its cause
+        from ..telemetry import device as devtel
+
+        paged = cache == "paged"
+        self._prefill_fn = devtel.instrument(
+            gpt_mod.paged_prefill if paged else gpt_mod.slot_prefill,
+            name="serve.prefill",
+            # a prompt's length is no new program in eager PyTorch (the
+            # reference buckets it): the chunk, its start and slot count
+            # by type
+            dynamic_argnames=("toks", "start", "slot"))
+        self._decode_fn = devtel.instrument(
+            gpt_mod.paged_decode_step if paged else gpt_mod.slot_decode_step,
+            name="serve.step")
         self._cfg, self._params = cfg, params
         self.cache_mode = cache
         self.max_slots = int(max_slots)
@@ -280,6 +364,15 @@ class ContinuousEngine:
                         "steps": 0, "prefills": 0, "cow_copies": 0,
                         "shared_pages": 0}
 
+        # device-memory census: report this engine's page-arena
+        # occupancy under a per-instance tag (unregistered in stop())
+        self._census_tag = f"serve.engine.{id(self):x}"
+        try:
+            devtel.get_census().register_owner(self._census_tag,
+                                               self._census_report)
+        except Exception:
+            pass
+
     # -- public api ---------------------------------------------------------
 
     def submit(self, tokens: List[int], max_new_tokens: int = 16,
@@ -314,11 +407,17 @@ class ContinuousEngine:
                 raise RuntimeError("engine stopped")
             if self._draining:
                 self._totals["rejected"] += 1
+                m = _m_requests()
+                if m:
+                    m.inc(tags={"outcome": "rejected"})
                 raise AdmissionRejected(
                     "engine draining (replica shutting down)",
                     retry_after_s=self.retry_after_s)
             if len(self._waiting) >= self.queue_cap:
                 self._totals["rejected"] += 1
+                m = _m_requests()
+                if m:
+                    m.inc(tags={"outcome": "rejected"})
                 raise AdmissionRejected(
                     f"waiting queue at capacity ({self.queue_cap})",
                     retry_after_s=self.retry_after_s)
@@ -385,6 +484,29 @@ class ContinuousEngine:
             **self._totals,
         }
 
+    def _census_report(self) -> Dict[str, Any]:
+        """Owner callback for telemetry/device.DeviceMemoryCensus: the
+        ``pages`` sub-dict feeds ``ray_tpu_kv_pages{state=…}`` — free /
+        used are live arena occupancy, shared / cow are the engine's
+        cumulative prefix-sharing totals (the serve bench row's
+        ``shared_pages`` / ``cow_copies``)."""
+        with self._lock:
+            totals = dict(self._totals)
+        rep: Dict[str, Any] = {"cache": self.cache_mode,
+                               "num_pages": self.num_pages,
+                               "max_slots": self.max_slots}
+        if self._alloc is not None:
+            occ = self._alloc.occupancy()
+            rep["pages"] = {
+                "free": occ["free"],
+                "used": occ["used"],
+                "shared": totals["shared_pages"],
+                "cow": totals["cow_copies"],
+                "live_shared": occ["live_shared"],
+            }
+            rep["prefix_keys"] = occ["prefix_keys"]
+        return rep
+
     def phase_ring(self) -> List[Dict[str, float]]:
         with self._lock:
             return list(self._ring)
@@ -441,6 +563,12 @@ class ContinuousEngine:
         return True
 
     def stop(self):
+        try:
+            from ..telemetry import device as _devtel
+
+            _devtel.get_census().unregister_owner(self._census_tag)
+        except Exception:
+            pass
         with self._lock:
             self._stopped = True
             waiting = list(self._waiting)
@@ -512,6 +640,22 @@ class ContinuousEngine:
                "active": stepped, "admitted": admitted, "ts": t2}
         with self._lock:
             self._ring.append(rec)
+            qd = len(self._waiting)
+        m = _m_phase()
+        if m:
+            if admitted:
+                m.observe(max(0.0, rec["swap_s"] - rec["prefill_s"]),
+                          tags={"phase": "swap"})
+                m.observe(rec["prefill_s"], tags={"phase": "prefill"})
+            if stepped:
+                m.observe(rec["decode_s"], tags={"phase": "decode"})
+        for which, val in (("active", stepped),
+                           ("queue", qd),
+                           ("free_pages",
+                            self._alloc.free_pages if self._alloc else 0)):
+            g = _m_gauge(which)
+            if g:
+                g.set(val)
 
     # -- admission ----------------------------------------------------------
 
@@ -593,11 +737,11 @@ class ContinuousEngine:
             chunk = self._tensor(suffix[lo:lo + self.prefill_chunk])
             start = shared_len + lo
             if self._alloc is not None:
-                logits, self._cache = gpt.paged_prefill(
+                logits, self._cache = self._prefill_fn(
                     self._params, self._cache, chunk, ptab, start,
                     self._cfg)
             else:
-                logits, self._cache = gpt.slot_prefill(
+                logits, self._cache = self._prefill_fn(
                     self._params, self._cache, chunk, start, slot,
                     self._cfg)
             with self._lock:
@@ -632,11 +776,11 @@ class ContinuousEngine:
                                keys)
         pos = self._tensor(self._pos)
         if self._alloc is not None:
-            logits, self._cache = gpt.paged_decode_step(
+            logits, self._cache = self._decode_fn(
                 self._params, self._cache, toks, self._tensor(self._ptab),
                 pos, cfg)
         else:
-            logits, self._cache = gpt.slot_decode_step(
+            logits, self._cache = self._decode_fn(
                 self._params, self._cache, toks, pos, cfg)
         self._logits = logits.float()
         toks = toks.cpu().numpy()               # waits for the step
@@ -652,8 +796,12 @@ class ContinuousEngine:
             emitted += 1
             if s.t_first is None:
                 s.t_first = now
+                ttft = now - s.t_submit
                 with self._lock:
-                    self._ttfts.append(now - s.t_submit)
+                    self._ttfts.append(ttft)
+                m = _m_ttft()
+                if m:
+                    m.observe(ttft)
             s.out_q.put(tok)
             self._pos[i] += 1
             if (len(s.generated) >= s.max_new
@@ -662,6 +810,9 @@ class ContinuousEngine:
         self._totals["tokens"] += emitted
         with self._lock:
             self._t_window.append((now, emitted))
+        m = _m_tokens()
+        if m and emitted:
+            m.inc(emitted)
         for i, s in finished:
             self._evict(i, s)
         return len(active)
@@ -682,6 +833,9 @@ class ContinuousEngine:
         if error is not None:
             if not seq.result.done():
                 seq.result.set_exception(error)
+            m = _m_requests()
+            if m:
+                m.inc(tags={"outcome": "error"})
         elif not seq.result.done():
             seq.result.set_result({
                 "tokens": seq.tokens + seq.generated,
@@ -690,6 +844,9 @@ class ContinuousEngine:
                 "ttft_s": (seq.t_first - seq.t_submit)
                 if seq.t_first else None,
             })
+            m = _m_requests()
+            if m:
+                m.inc(tags={"outcome": "ok"})
         seq.out_q.put(self._END)
 
     # -- device state -------------------------------------------------------

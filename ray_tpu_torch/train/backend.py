@@ -228,8 +228,9 @@ class JaxConfig(BackendConfig):
         shrink-to-fit restarts (ray_tpu_torch.elastic.ElasticConfig).
     mesh_shape, pipeline: device meshes and MPMD pipelines, not ported
         yet (ROADMAP A.6): any value but None raises.
-    telemetry: the flight recorder, not ported yet (ROADMAP A.5): None
-        (here: off) and False run; True or a config raises.
+    telemetry: the flight recorder (``ray_tpu_torch.telemetry``): None
+        (the default) and True turn it on, False turns it off; a dict or
+        a ``TelemetryConfig`` sets its knobs, as in the reference.
     """
 
     mode: str = "auto"
@@ -253,11 +254,6 @@ class JaxConfig(BackendConfig):
             raise NotImplementedError(
                 "JaxConfig(pipeline=...): MPMD pipelines are not ported "
                 "yet (ROADMAP A.6)")
-        if self.telemetry is not None and self.telemetry is not False:
-            raise NotImplementedError(
-                "JaxConfig(telemetry=...): the training flight recorder is "
-                "not ported yet (ROADMAP A.5); leave telemetry None or "
-                "False")
 
     def backend_cls(self):
         return _JaxBackend

@@ -10,10 +10,10 @@ group from the latest checkpoint (elastic recovery; a collective group
 cannot survive losing a participant mid-step, so whole-group restart is
 the only sound recovery unit).
 
-The port's copy of ``ray_tpu/train/backend_executor.py``, less what only
-the flight recorder and the remediation engine use (ROADMAP A.5): the
-telemetry config it hands the sessions, the goodput transitions and
-``quarantine_worker``.
+The port's copy of ``ray_tpu/train/backend_executor.py``: the
+telemetry config rides into every session through ``ctx.extra``, drain
+and recovery paths stamp the trainer's goodput accountant, and
+``quarantine_worker`` is remediation's enforcement.
 """
 
 from __future__ import annotations
@@ -42,6 +42,12 @@ class TrainingWorkerError(Exception):
 class WorkerDrainedError(TrainingWorkerError):
     """A node hosting training workers posted a drain notice: restart
     proactively (before the host disappears) rather than reactively."""
+
+
+class WorkerQuarantinedError(TrainingWorkerError):
+    """Remediation quarantined a sustained straggler's node: rebalance
+    the gang off it (the host is alive — merely benched — so its vault
+    remains a recovery source)."""
 
 
 class EmergencyRecoveryError(Exception):
@@ -73,6 +79,9 @@ class BackendExecutor:
         from ray_tpu_torch.elastic.resume import IncarnationHistory
 
         self.history = IncarnationHistory()
+        # GoodputAccountant installed by the trainer; drain/recover paths
+        # stamp state transitions through it when present
+        self.goodput = None
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -131,6 +140,12 @@ class BackendExecutor:
             return
         if event == "draining":
             self._draining_nodes.add(nid)
+            if self.goodput is not None:
+                try:
+                    if self.drain_pending():
+                        self.goodput.transition("draining", node=nid)
+                except Exception:
+                    pass
         elif event in ("drain_canceled", "removed"):
             self._draining_nodes.discard(nid)
             if event == "removed":
@@ -146,6 +161,33 @@ class BackendExecutor:
             return False
         return any(w.metadata.get("node_id") in self._draining_nodes
                    for w in self.worker_group.workers)
+
+    def quarantine_worker(self, rank: int, reason: str,
+                          grace_s: float = 600.0) -> Optional[str]:
+        """Remediation enforcement: bench the node hosting ``rank`` on
+        the control plane (scheduler avoidance + ``node_quarantined``
+        pubsub) and exclude it locally so the next ``elastic_recover``
+        sheds it.  Returns the node id (None when unknown).  The local
+        exclusion is authoritative — a pubsub lag or an unreachable
+        control must not leave the straggler in the rebuilt gang."""
+        wg = self.worker_group
+        if wg is None or not (0 <= rank < len(wg.workers)):
+            return None
+        nid = wg.workers[rank].metadata.get("node_id")
+        if not nid:
+            return None
+        self._quarantined_nodes.add(nid)
+        try:
+            from ray_tpu_torch._private.core import current_core
+
+            current_core().control.call("report_quarantine", {
+                "node_id": nid, "grace_s": grace_s, "reason": reason,
+            }, timeout=5.0)
+        except Exception:
+            logger.warning("could not report quarantine of node %s to the "
+                           "control plane (local exclusion still applies)",
+                           nid[:12], exc_info=True)
+        return nid
 
     def _contexts(self, experiment_name: str, trial_name: str,
                   trial_dir: str) -> List[TrainContext]:
@@ -187,6 +229,15 @@ class BackendExecutor:
                     ctx.extra["global_batch_size"] = ec.global_batch_size
                     ctx.extra["per_replica_batch"] = batches[ctx.world_rank]
                     ctx.extra["batch_offset"] = offsets[ctx.world_rank]
+        try:
+            from ray_tpu_torch.telemetry import resolve_telemetry
+
+            tc = resolve_telemetry(
+                getattr(self._backend_config, "telemetry", None))
+            for ctx in ctxs:
+                ctx.extra["telemetry"] = tc.to_dict()
+        except Exception:
+            pass
         return ctxs
 
     def start_training(self, train_fn: Callable, config: Dict[str, Any],
@@ -302,6 +353,11 @@ class BackendExecutor:
         # close the dying incarnation's history record — its effective
         # rate (recovery churn included) informs the width choice below
         self.history.end(self.rounds_consumed, time.monotonic())
+        if self.goodput is not None:
+            try:
+                self.goodput.transition("recovering")
+            except Exception:
+                pass
         t0 = time.monotonic()
 
         # 1. abort + reachability probe in one pass: a worker that can't
@@ -387,6 +443,12 @@ class BackendExecutor:
                                            shards=shards))
         logger.info("elastic recovery completed in %.2fs",
                     time.monotonic() - t0)
+        if self.goodput is not None:
+            try:
+                self.goodput.note_incarnation(
+                    getattr(wg, "incarnation", 0))
+            except Exception:
+                pass
         return cks, step, new_n
 
     def finish_training(self):

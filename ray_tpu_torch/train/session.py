@@ -10,9 +10,10 @@ driver consumed the previous result — that back-pressure keeps all workers
 in lockstep on the report boundary (the reference does the same via
 a result queue of size 1).
 
-The port's copy of ``ray_tpu/train/session.py``, less the flight
-recorder's step timer (the reference's ``ray_tpu.telemetry``), which
-comes with ROADMAP A.5.
+The port's copy of ``ray_tpu/train/session.py``: one flight-recorder
+``StepTimer`` per session (``ray_tpu_torch.telemetry``, on unless the
+run's ``JaxConfig(telemetry=False)``), ``checkpoint`` timed as a phase,
+each report carrying its step's ``telemetry`` record.
 """
 
 from __future__ import annotations
@@ -109,6 +110,26 @@ class TrainSession:
         # with (and never clobber) pre-failure checkpoints
         self._iteration = start_iteration
         self._aborted = False
+        # flight recorder: one StepTimer per session, armed from
+        # the telemetry config BackendExecutor rode in through ctx.extra
+        self._step_timer = None
+        self._flush_interval = 2.0
+        tel = ctx.extra.get("telemetry")
+        if tel is None or (isinstance(tel, dict) and tel.get("enabled", True)):
+            try:
+                from ray_tpu_torch.telemetry import StepTimer, resolve_telemetry
+
+                tc = resolve_telemetry(tel)
+                if tc.enabled:
+                    self._step_timer = StepTimer(
+                        ring_size=tc.ring_size,
+                        rank=ctx.world_rank,
+                        incarnation=int(
+                            ctx.extra.get("elastic_incarnation", 0)),
+                        trial=ctx.trial_name)
+                    self._flush_interval = tc.flush_interval_s
+            except Exception:
+                pass
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name=f"train-rank{ctx.world_rank}")
         self._started = False
@@ -135,12 +156,30 @@ class TrainSession:
         # one installed in the module global — so its next report()
         # raises SessionAborted instead of corrupting the new lockstep
         _tls.session = self
+        if self._step_timer is not None:
+            from ray_tpu_torch.telemetry import recorder as _recorder
+
+            _recorder.set_current_timer(self._step_timer)
+            self._step_timer.step_start(self._iteration)
         try:
             out = self._train_fn()
             # the last checkpoint upload may still be in flight: the
             # driver reads `latest complete checkpoint` right after the
             # finish marker, so land it (and surface its error) first
             self._storage.wait()
+            if self._step_timer is not None:
+                # final forced flush: the worker group is torn down right
+                # after the finish marker, and a worker shorter-lived than
+                # FLUSH_INTERVAL_S would otherwise never land its ring or
+                # its Prometheus series in KV
+                from ray_tpu_torch.telemetry import recorder as _recorder
+                from ray_tpu_torch.util.metrics import _registry as _mreg
+
+                _recorder.flush_snapshot(self._step_timer, force=True)
+                try:
+                    _mreg.flush()
+                except Exception:
+                    pass
             self._results.put(_FinishedMarker(final=out if isinstance(out, dict) else None))
         except SessionAborted:
             return  # driver-initiated teardown; nobody is consuming results
@@ -200,12 +239,30 @@ class TrainSession:
             raise SessionAborted()
         self._iteration += 1
         ckpt_path = None
+        timer = self._step_timer
         if checkpoint is not None:
-            ckpt_path = self._persist_checkpoint(checkpoint)
-        self._results.put((dict(metrics), ckpt_path))
+            if timer is not None:
+                with timer.phase("checkpoint"):
+                    ckpt_path = self._persist_checkpoint(checkpoint)
+            else:
+                ckpt_path = self._persist_checkpoint(checkpoint)
+        metrics = dict(metrics)
+        if timer is not None:
+            rec = timer.step_end(step=self._iteration - 1)
+            if rec is not None and "telemetry" not in metrics:
+                metrics["telemetry"] = rec
+            from ray_tpu_torch.telemetry import recorder as _recorder
+
+            _recorder.flush_snapshot(timer,
+                                     interval_s=self._flush_interval)
+        self._results.put((metrics, ckpt_path))
         self._continue.acquire()  # lockstep with the driver's consumption
         if self._aborted:
             raise SessionAborted()
+        if timer is not None:
+            # start the next step only after the driver consumed this
+            # round: the lockstep wait is driver time, not step time
+            timer.step_start(self._iteration)
 
     def _persist_checkpoint(self, checkpoint: Checkpoint) -> str:
         """Copy the worker-local checkpoint dir into run storage.

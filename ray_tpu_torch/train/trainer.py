@@ -11,8 +11,11 @@ checkpoint on worker failure (FailureConfig.max_failures).
 The port's copy of ``ray_tpu/train/trainer.py``: the backend joins the
 workers into one collective group (see backend.JaxConfig), and the train
 loop syncs its gradients over it (``parallel.GradientSynchronizer``).
-The reference's flight recorder, goodput accounting and remediation
-(its ``telemetry`` and ``elastic.remediation``) wait for ROADMAP A.5.
+With telemetry on (the default), the run keeps a goodput accountant and
+a straggler aggregator over the workers' step records, publishes both
+with the run's state into KV namespace ``train`` (where the autoscaler's
+``LoadMetrics`` reads ``train_goodput``), and, with
+``ElasticConfig(remediation_mode=...)``, a ``RemediationEngine``.
 ``datasets=`` shards each port ``Dataset`` over the workers with
 ``streaming_split(n, equal=True)`` at every (re)start, as the reference
 does.
@@ -30,7 +33,8 @@ from typing import Any, Callable, Dict, List, Optional
 
 from .backend import BackendConfig, JaxConfig
 from .backend_executor import (BackendExecutor, TrainingFailedError,
-                               TrainingWorkerError)
+                               TrainingWorkerError, WorkerDrainedError,
+                               WorkerQuarantinedError)
 from .checkpoint import Checkpoint
 from .checkpoint_manager import CheckpointManager
 from .config import RunConfig, ScalingConfig
@@ -110,7 +114,8 @@ class JaxTrainer:
     # -- the run loop (shared by fit() and the Tune trainable) -------------
 
     def _publish_state(self, trial_name: str, status: str,
-                       metrics: Optional[Dict[str, Any]], rounds: int):
+                       metrics: Optional[Dict[str, Any]], rounds: int,
+                       telemetry: Optional[Dict[str, Any]] = None):
         """Run-state snapshot into the control KV (ns 'train') for the
         dashboard (reference: TrainStateActor feeding
         dashboard/modules/train/train_head.py) — advisory, never fails
@@ -120,7 +125,8 @@ class JaxTrainer:
         publish_run_state(trial_name, status,
                           name=self.run_config.name,
                           workers=self.scaling_config.num_workers,
-                          rounds=rounds, metrics=metrics)
+                          rounds=rounds, metrics=metrics,
+                          telemetry=telemetry)
 
     def _run(self, trial_dir: str, experiment_name: str, trial_name: str,
              on_report: Optional[Callable[[Dict[str, Any]], None]] = None,
@@ -130,6 +136,45 @@ class JaxTrainer:
         failures = 0
         restore = self._resume_checkpoint
         executor = BackendExecutor(self.backend_config, self.scaling_config)
+        # flight recorder: goodput state machine + cross-worker straggler
+        # detection, armed before start() so early drain notices stamp
+        goodput = aggregator = remediation = None
+        try:
+            from ray_tpu_torch.telemetry import (GoodputAccountant, StepAggregator,
+                                           resolve_telemetry,
+                                           set_current_accountant)
+
+            _tc = resolve_telemetry(
+                getattr(self.backend_config, "telemetry", None))
+            if _tc.enabled:
+                goodput = GoodputAccountant()
+                aggregator = StepAggregator(_tc, trial=trial_name)
+                executor.goodput = goodput
+                set_current_accountant(goodput)
+                # close the detect->act loop: the engine watches the
+                # aggregator's straggler episodes and (in enforce mode)
+                # quarantines + rebalances; advisory mode records only
+                _ec = getattr(self.backend_config, "elastic", None)
+                if _ec is not None and \
+                        getattr(_ec, "remediation_mode", "off") != "off":
+                    from ray_tpu_torch.elastic.remediation import RemediationEngine
+
+                    remediation = RemediationEngine(_ec, trial=trial_name)
+        except Exception:
+            pass
+
+        def _telemetry_state():
+            if goodput is None and aggregator is None:
+                return None
+            out: Dict[str, Any] = {}
+            if goodput is not None:
+                out["goodput"] = goodput.report()
+            if aggregator is not None:
+                out["stragglers"] = aggregator.summary()
+            if remediation is not None:
+                out["remediations"] = remediation.summary()
+            return out
+
         executor.start()
         last_metrics: Optional[Dict[str, Any]] = None
         error: Optional[BaseException] = None
@@ -153,11 +198,43 @@ class JaxTrainer:
                         start_iteration=rounds,
                         per_worker_checkpoints=per_worker_cks)
                     per_worker_cks = None
+                    if goodput is not None:
+                        goodput.transition(
+                            "productive",
+                            incarnation=getattr(executor.worker_group,
+                                                "incarnation", 0))
                     while True:
                         results = executor.get_next_results()
                         if results is None:
                             break
                         rounds += 1
+                        if aggregator is not None:
+                            aggregator.ingest_round([
+                                m.get("telemetry")
+                                if isinstance(m, dict) else None
+                                for _, m, _ in results])
+                            if remediation is not None:
+                                try:
+                                    from ray_tpu_torch.telemetry import (
+                                        device as _devtel)
+
+                                    for adv in (_devtel.get_ledger()
+                                                .drain_advisories()):
+                                        remediation.observe_advisory(adv)
+                                except Exception:
+                                    pass
+                                decision = remediation.observe_round(
+                                    aggregator)
+                                if decision is not None:
+                                    nid = executor.quarantine_worker(
+                                        decision["rank"],
+                                        reason=decision["reason"],
+                                        grace_s=decision["grace_s"])
+                                    remediation.note_enforced(decision, nid)
+                                    raise WorkerQuarantinedError(
+                                        f"rank {decision['rank']} (node "
+                                        f"{str(nid)[:12]}) quarantined: "
+                                        f"{decision['reason']}")
                         # rank-0 metrics are authoritative (reference keeps
                         # per-rank results; rank 0 drives callbacks)
                         _, metrics, ckpt_path = results[0]
@@ -172,10 +249,15 @@ class JaxTrainer:
                         if on_report is not None and metrics is not None:
                             on_report(metrics)
                         self._publish_state(trial_name, "RUNNING",
-                                            metrics, rounds)
+                                            metrics, rounds,
+                                            telemetry=_telemetry_state())
                     executor.finish_training()
                     break
                 except TrainingWorkerError as e:
+                    if goodput is not None:
+                        goodput.transition(
+                            "draining" if isinstance(e, WorkerDrainedError)
+                            else "recovering")
                     if (elastic is not None
                             and elastic_recoveries < max_elastic_recoveries):
                         try:
@@ -193,12 +275,15 @@ class JaxTrainer:
                             per_worker_cks = cks
                             n = new_n
                             ckpt_mgr.note_emergency(step)
+                            if remediation is not None:
+                                remediation.note_recovered(new_n, step)
                             logger.warning(
                                 "elastic recovery %d: resuming %d-wide from "
                                 "replicated snapshot step=%d (trigger: %s)",
                                 elastic_recoveries, new_n, step, e)
                             self._publish_state(trial_name, "RESTARTING",
-                                                last_metrics, rounds)
+                                                last_metrics, rounds,
+                                                telemetry=_telemetry_state())
                             continue
                     failures += 1
                     if max_failures != -1 and failures > max(max_failures, 0):
@@ -224,9 +309,18 @@ class JaxTrainer:
                     break
         finally:
             executor.shutdown()
+            if goodput is not None:
+                try:
+                    goodput.transition("idle")
+                    from ray_tpu_torch.telemetry import set_current_accountant
+
+                    set_current_accountant(None)
+                except Exception:
+                    pass
             self._publish_state(trial_name,
                                 "ERRORED" if error else "FINISHED",
-                                last_metrics, rounds)
+                                last_metrics, rounds,
+                                telemetry=_telemetry_state())
         return Result(metrics=last_metrics,
                       checkpoint=ckpt_mgr.latest_checkpoint,
                       path=trial_dir, error=error,

@@ -2,8 +2,9 @@
 (reference: python/ray/util/): placement groups and the scheduling
 strategies, ActorPool, Queue, the state API (``state``), client mode
 (``client``), ``tracing``, and the modules imported by name: ``rpdb``,
-``multiprocessing``, ``joblib``, ``iter``, ``dask`` and ``spark``.
-``metrics`` comes with ROADMAP A.5."""
+``multiprocessing``, ``joblib``, ``iter``, ``dask``, ``spark`` and
+``metrics`` (Counter / Gauge / Histogram, flushed into the control
+plane's KV and served as Prometheus text by the dashboard)."""
 
 from .actor_pool import ActorPool
 from .placement_group import (PlacementGroup, get_placement_group,

@@ -13,8 +13,7 @@ All functions accept an optional ``address`` ("host:port" of the control
 plane) so they work from an unconnected process (the CLI); inside a driver
 they default to the current connection.
 
-The port's copy of ``ray_tpu/util/state/api.py``.  ``device_stats`` reads
-the device telemetry, which comes with ROADMAP A.5: it raises naming it.
+The port's copy of ``ray_tpu/util/state/api.py``.
 """
 
 from __future__ import annotations
@@ -87,12 +86,14 @@ class StateApiClient:
         return self._control.call("control_stats", {}, timeout=10.0)
 
     def device_stats(self) -> Dict[str, Any]:
-        """Cluster-wide device runtime observability (the reference's
-        merged XLA compilation ledgers and device-memory censuses): the
-        port's device telemetry comes with ROADMAP A.5."""
-        raise NotImplementedError(
-            "device_stats reads the device telemetry, which is not ported "
-            "yet (ROADMAP A.5)")
+        """Cluster-wide device runtime observability: merged program
+        ledgers (signature counts, cause diffs, storm advisories,
+        ``kernels.build`` events) + device-memory censuses (the
+        ``python -m ray_tpu_torch device-stats`` CLI and ``GET
+        /api/device/stats`` render this)."""
+        from ray_tpu_torch.telemetry.device import collect_device_stats
+
+        return collect_device_stats(self._control)
 
     def per_node(self, method: str, payload=None) -> Dict[str, Any]:
         """Fan a query out to every alive raylet (node_id -> reply)."""
@@ -257,8 +258,8 @@ def control_stats(address: Optional[str] = None,
 
 
 def device_stats(address: Optional[str] = None) -> Dict[str, Any]:
-    """Cluster-wide device telemetry: raises until ROADMAP A.5 ports
-    it."""
+    """Cluster-wide program-ledger + memory-census merge (see
+    telemetry/device.py)."""
     return _run(address, lambda c: c.device_stats())
 
 

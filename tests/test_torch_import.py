@@ -361,6 +361,7 @@ import ray_tpu_torch.util.multiprocessing
 import ray_tpu_torch.util.queue
 import ray_tpu_torch.util.rpdb
 import ray_tpu_torch.util.spark
+import ray_tpu_torch.util.metrics
 import ray_tpu_torch.experimental.tqdm_ray
 import ray_tpu_torch._private.swarm
 for mod in (autoscaler, util):
@@ -376,8 +377,8 @@ print("ok")
 AUTOSCALER_MODULES = {
     "autoscaler": ("__init__", "autoscaler", "node_provider", "v2"),
     "util": ("__init__", "actor_pool", "dask", "iter", "joblib",
-             "multiprocessing", "placement_group", "queue", "rpdb",
-             "scheduling_strategies", "spark", "tracing"),
+             "metrics", "multiprocessing", "placement_group", "queue",
+             "rpdb", "scheduling_strategies", "spark", "tracing"),
 }
 
 
@@ -387,8 +388,7 @@ def test_autoscaler_and_util_load_no_torch_and_no_jax():
     of the autoscaler's modules, nor the rest of ``util``,
     ``experimental.tqdm_ray`` and the swarm, loads torch, JAX, the JAX
     package or an optional package (yaml, joblib, kubernetes) at import;
-    each directory holds the reference's modules (``util.metrics`` comes
-    with ROADMAP A.5)."""
+    each directory holds the reference's modules."""
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", _AUTOSCALER_PROBE],
                          cwd="/", env=env, capture_output=True, text=True,
@@ -401,5 +401,59 @@ def test_autoscaler_and_util_load_no_torch_and_no_jax():
         ref = {p.stem for p in (REPO / "ray_tpu" / pkg).glob("*.py")}
         assert have <= ref, (pkg, have - ref)
     assert set(AUTOSCALER_MODULES["util"]) == \
-        {p.stem for p in (REPO / "ray_tpu" / "util").glob("*.py")} \
-        - {"metrics"}
+        {p.stem for p in (REPO / "ray_tpu" / "util").glob("*.py")}
+
+
+_TELEMETRY_PROBE = r"""
+import sys
+import ray_tpu_torch.telemetry as telemetry
+import ray_tpu_torch.telemetry.aggregator
+import ray_tpu_torch.telemetry.config
+import ray_tpu_torch.telemetry.device
+import ray_tpu_torch.telemetry.goodput
+import ray_tpu_torch.telemetry.recorder
+import ray_tpu_torch.telemetry.timeline
+import ray_tpu_torch.telemetry.trace_assembly
+import ray_tpu_torch.util.metrics
+import ray_tpu_torch.elastic.remediation
+import ray_tpu_torch.dashboard
+import ray_tpu_torch.dashboard.head
+import ray_tpu_torch.dashboard.static
+for name in telemetry.__all__:
+    getattr(telemetry, name)
+# the fence, the census and the ledger's hooks read torch only where the
+# process already has it: with none loaded they are no-ops
+telemetry.recorder._fence({"a": [1, 2.0]})
+live = telemetry.device.DeviceMemoryCensus().census()["live"]
+assert live["total_bytes"] == 0 and live["allocator"] == {}, live
+telemetry.device.get_ledger().record_build("x.cu", 0.1)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "ray_tpu", "torch",
+                                    "numpy"))
+assert not bad, bad
+print("ok")
+"""
+
+TELEMETRY_MODULES = {
+    "telemetry": ("__init__", "aggregator", "config", "device", "goodput",
+                  "recorder", "timeline", "trace_assembly"),
+    "dashboard": ("__init__", "head", "static"),
+}
+
+
+def test_telemetry_metrics_remediation_dashboard_load_no_torch_and_no_jax():
+    """The dashboard's head process and the autoscaler's monitor compute
+    nothing on a card: ``telemetry/``, ``util.metrics``,
+    ``elastic.remediation`` and ``dashboard/`` load neither torch, JAX,
+    the JAX package nor numpy at import, and each directory holds the
+    reference's modules."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", _TELEMETRY_PROBE], cwd="/",
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+    for pkg, mods in TELEMETRY_MODULES.items():
+        have = {p.stem for p in (PORT / pkg).glob("*.py")}
+        ref = {p.stem for p in (REPO / "ray_tpu" / pkg).glob("*.py")}
+        assert have == set(mods) == ref, (pkg, have, ref)

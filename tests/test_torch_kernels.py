@@ -726,3 +726,101 @@ def test_iter_jax_batches_stages_onto_the_card_through_the_copy_stream(gpu):
     per_batch = 16 * 513 * 8 + 16 * 7 * 2
     assert iterator.staging_counts() == {
         "batches": 8, "bytes": 8 * per_batch, "copy_stream_batches": 8}
+
+
+# -- the flight recorder's CUDA hooks (telemetry/) ----------------------------
+
+
+@pytest.mark.cuda
+def test_fence_waits_for_the_card(gpu):
+    """``recorder._fence`` waits for the work queued before it on the
+    stream of every card holding a tensor of its argument (a nested
+    tree included); a CPU tensor needs no wait."""
+    import time
+
+    from ray_tpu_torch.telemetry import recorder
+
+    x = torch.ones(16, device=gpu)
+    y = x * 2                                  # load the kernel first
+    torch.cuda.synchronize()
+    recorder._fence(x)
+    start, end = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(1 << 30)                 # ~0.5 s of spinning
+    end.record()
+    y = x * 2                                  # queued behind the sleep
+    t0 = time.perf_counter()
+    recorder._fence({"out": [y], "cpu": torch.ones(2), "n": 3})
+    waited = time.perf_counter() - t0
+    assert end.query() and torch.cuda.current_stream().query()
+    assert waited >= 0.5 * start.elapsed_time(end) / 1e3, waited
+    t0 = time.perf_counter()
+    recorder._fence(torch.ones(4))             # CPU: nothing to wait for
+    assert time.perf_counter() - t0 < 0.01
+
+
+@pytest.mark.cuda
+def test_census_counts_a_cuda_tensor_once(gpu):
+    """The census walk counts a CUDA storage once, through any number of
+    views, attributes it to the largest tensor over it, and reports the
+    allocator's counters beside it."""
+    import gc
+
+    from ray_tpu_torch.telemetry import device as devtel
+
+    census = devtel.DeviceMemoryCensus()
+    gc.collect()
+    torch.cuda.synchronize()
+    base = census.census()["live"]["total_bytes"]
+    t = torch.empty(1 << 20, device=gpu)       # 4 MiB
+    views = [t[10:], t.view(1024, 1024), t[::2]]
+    live = census.census()["live"]
+    assert live["total_bytes"] - base == 4 << 20
+    (slot,) = [s for s in live["top_shapes"] if s["shape"] == [1 << 20]]
+    assert slot["count"] >= 1 and slot["dtype"] == "float32"
+    assert not any(s["shape"] in ([1024, 1024], [(1 << 20) - 10])
+                   for s in live["top_shapes"])
+    card = live["allocator"][f"cuda:{gpu.index or 0}"]
+    assert card["allocated_bytes"] >= 4 << 20
+    assert card["reserved_bytes"] >= card["allocated_bytes"]
+    del views, t
+
+
+@pytest.mark.cuda
+def test_profiled_allreduce_on_cuda_equals_unprofiled(gpu):
+    """``mesh_allreduce(profile=True)`` on the kernels (a one-rank NCCL
+    group) gives the unprofiled bits, launches K4 twice and K6 and K5
+    once each, and fills the three buckets."""
+    from ray_tpu_torch.collective import collective as col
+    from ray_tpu_torch.collective import nccl_group as ng
+    from ray_tpu_torch.telemetry import recorder
+
+    col.init_collective_group(1, 0, backend="nccl", group_name="prof1")
+    try:
+        pg = col.get_group_handle("prof1").pg
+        g = torch.Generator(device="cpu").manual_seed(5)
+        x = (torch.randn(1 << 20, generator=g)
+             * torch.randn(1 << 20, generator=g).exp()).to(gpu)
+        for op in ("sum", "mean"):
+            want = ng.mesh_allreduce(x, pg, op=op, compression="int8")
+            before = _kernels.launch_counts()
+            timer = recorder.StepTimer()
+            recorder.set_current_timer(timer)
+            try:
+                timer.step_start(0)
+                got = ng.mesh_allreduce(x, pg, op=op, compression="int8",
+                                        profile=True)
+                rec = timer.step_end(0, fence=got)
+            finally:
+                recorder.set_current_timer(None)
+            after = _kernels.launch_counts()
+            assert torch.equal(got, want)
+            assert {k: after[k] - before[k] for k in after} == {
+                "flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
+                "quantize": 2, "dequantize": 1,
+                "dequantize_accumulate": 1, "fused_reduce_scatter": 0}
+            for stage in ("quantize", "transfer", "dequantize"):
+                assert rec["phases"][f"collective.{stage}"] > 0, rec
+    finally:
+        col.destroy_collective_group("prof1")

@@ -192,10 +192,21 @@ def test_list_and_get_logs(cluster):
 
 
 def test_device_stats_names_its_slice(cluster):
+    """``device_stats`` merges every worker's flushed device snapshot,
+    in the driver and from an unconnected process alike."""
+    from ray_tpu_torch._private.core import current_core
+    from ray_tpu_torch.telemetry import device as devtel
     from ray_tpu_torch.util.state import api
 
-    with pytest.raises(NotImplementedError, match="A.5"):
-        api.device_stats()
-    addr = rt.connection_info()["control_address"]
-    with pytest.raises(NotImplementedError, match="A.5"):
-        api.device_stats(address=addr)
+    devtel.get_ledger().record_build("state_probe.cu", 0.25)
+    assert devtel.flush_device_snapshot(force=True)
+    wid = current_core().worker_id
+    for snap in (api.device_stats(),
+                 api.device_stats(
+                     address=rt.connection_info()["control_address"])):
+        assert wid in snap["workers"], sorted(snap["workers"])
+        led = snap["workers"][wid]["ledger"]
+        assert any(r["program"] == "kernels.build"
+                   and r["signature"][0]["value"] == "state_probe.cu"
+                   for r in led["records"])
+        assert "kernels.build" in snap["programs"]

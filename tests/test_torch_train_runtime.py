@@ -102,21 +102,34 @@ def test_scaling_config_asks_for_gpus():
         {"CPU": 1.0, "GPU": 0.5}] * 2
 
 
-# -- what is not ported yet raises, naming its item --------------------------
+# -- what is not ported yet raises, naming its item; telemetry is on ---------
 
 
 @pytest.mark.parametrize("kw,item", [
     ({"mesh_shape": {"dp": -1}}, "A.6"),
     ({"pipeline": "stages=2"}, "A.6"),
-    ({"telemetry": True}, "A.5"),
-    ({"telemetry": {"ring_size": 8}}, "A.5"),
+    ({"telemetry": True}, None),
+    ({"telemetry": {"ring_size": 8}}, None),
 ])
 def test_unported_backend_options_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        JaxConfig(mode="local", **kw)
-    # off and unset run
-    assert JaxConfig(telemetry=False).telemetry is False
+    """Meshes and pipelines raise naming A.6; every ``telemetry=`` value
+    the reference takes is accepted, and None (unset) means on, as in
+    the reference."""
+    from ray_tpu_torch.telemetry import resolve_telemetry
+
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            JaxConfig(mode="local", **kw)
+    else:
+        cfg = JaxConfig(mode="local", **kw)
+        tc = resolve_telemetry(cfg.telemetry)
+        assert tc.enabled
+        assert tc.ring_size == kw["telemetry"].get("ring_size", 512) \
+            if isinstance(kw["telemetry"], dict) else tc.ring_size == 512
+    assert resolve_telemetry(JaxConfig(telemetry=False).telemetry).enabled \
+        is False
     assert JaxConfig().telemetry is None
+    assert resolve_telemetry(JaxConfig().telemetry).enabled
 
 
 # -- end-to-end runs (test_train.py) -----------------------------------------
@@ -448,6 +461,9 @@ def test_two_process_spmd_gang(cluster, tmp_path):
         run_config=RunConfig(name="spmd-gang", storage_path=str(tmp_path)),
     ).fit()
     assert result.error is None, result.error
+    # the flight recorder (on by default) attaches rank 0's step record
+    tel = result.metrics.pop("telemetry")
+    assert tel["rank"] == 0 and tel["step"] == 0
     # the reporting worker joined a 2-process gloo group (no cards here)
     assert result.metrics == {"procs": 2, "rank": 0, "backend": "gloo",
                               "device": "cpu"}
@@ -621,6 +637,8 @@ def test_dataset_shards_on_a_fully_reserved_node(reserved_node, tmp_path):
         run_config=RunConfig(name="reserved", storage_path=str(tmp_path)),
     ).fit()
     assert result.error is None, result.error
+    # the flight recorder (on by default) attaches rank 0's step record
+    assert result.metrics.pop("telemetry")["rank"] == 0
     assert result.metrics == {"rows": 32, "total": sum(range(0, 128, 2))}
 
 

@@ -263,6 +263,24 @@ Phases, each of which must pass (any failure exits non-zero):
                 (ray_tpu_train_step_phase_seconds) series; `trace
                 --summary` renders a traced task from a fresh driver; the
                 dashboard's process maps no libtorch and holds no card.
+  mesh          (device meshes and sequence parallelism) GPT-2-small's
+                train step over a mesh whose every axis is 1, 3 AdamW
+                steps at [16, 513] bitwise make_train_step(cfg) (losses,
+                grad norms, params; 24/12/12 K1-K3 launches); a causal
+                ring of 4 ranks simulated on one card (ring_simulate: the
+                kernel body per rank, the rotation by indexing) at
+                [4, 12, 1024, 64] bf16, forward and backward against
+                whole-sequence K1/K2/K3 within K1's bf16 limit, with
+                exactly 10 K1, 10 K2 and 10 K3 launches and its ms (CUDA
+                events) beside K1's; JaxTrainer with JaxConfig(mode=
+                "spmd", mesh_shape={"dp": 1}) on a GPU worker, 2 steps
+                bitwise the in-process mesh step.  With four cards, one
+                NCCL rank per card: 3 steps at {fsdp 2, tp 2} and at
+                {sp 4} (the ring, K1-K3 on every rank; 24(r+1)/12(r+1)
+                launches per step on rank r) within 1e-3 relative of the
+                unsharded losses, each rank's param and optimizer bytes,
+                ms and tokens/s; Ulysses at sp 4 against whole-sequence
+                K1.  Fewer cards: those are reported as not run.
 
 The flight recorder rides the paths above too: in serve (and serve-app's
 in-process engine) the engine's Prometheus series move by exactly the
@@ -278,7 +296,10 @@ goodput covers the run and the restart, the autoscaler's LoadMetrics
 reads the running run's goodput, `timeline --job` writes a valid Chrome
 trace with every rank's steps (chip_smoke_out/train_app_timeline.json),
 and the worker measures the recorder's pieces: a collective record, a
-step's start and end, a flush, a device census.
+step's start and end, a flush, a device census (its slowest reading
+once per 2 s flush, with its registry's gc scans, at most 1% of the
+worker's time, or the phase fails; the registry's one seeding walk a
+process is reported beside it).
 
     python3 chip_smoke.py --phases dp-train
     python3 chip_smoke.py --phases runtime
@@ -288,6 +309,7 @@ step's start and end, a flush, a device census.
     python3 chip_smoke.py --phases dag,cli-jobs
     python3 chip_smoke.py --phases autoscale
     python3 chip_smoke.py --phases serve,train-app,observe
+    python3 chip_smoke.py --phases mesh
 
 runs the device and build phases and the named ones only (a development
 aid; with no arguments every phase runs).
@@ -4279,7 +4301,8 @@ def _train_app_loop(config):
             metrics["collective_records"] = calls[0]
             calls[0] = 0
             if step == config["steps"] and recorder.current_timer():
-                metrics["recorder"] = _recorder_costs(recorder, device)
+                metrics["recorder"] = _recorder_costs(recorder, device,
+                                                      t_start)
             ckpt_dir = None
             if step == config["ckpt_step"] or step == config["steps"]:
                 metrics["digest"] = _param_digest(names, leaves)
@@ -4309,8 +4332,9 @@ def _train_app_loop(config):
             col.destroy_collective_group(group)
 
 
-def _recorder_costs(recorder, device, n=200):
-    """What the flight recorder costs a trainer worker, piece by piece:
+def _recorder_costs(recorder, device, t_start, n=200):
+    """What the flight recorder costs a trainer worker (whose loop began
+    at ``t_start``), piece by piece:
     one collective record (us), a step's start and end (us), a forced KV
     flush of the ring and the device snapshot (ms), and one device-memory
     census (ms) with what it found beside the allocator's count."""
@@ -4338,6 +4362,9 @@ def _recorder_costs(recorder, device, n=200):
     flush_ms = (time.perf_counter() - t0) * 1e3
     return {"record_collective_us": record_us, "step_start_end_us": step_us,
             "census_ms": census_ms, "census_walk_s": live["walk_s"],
+            "census_scanned": live["scanned"],
+            "census_registry": devtel.census_registry_stats(),
+            "worker_s": time.time() - t_start,
             "census_total_bytes": live["total_bytes"],
             "census_count": live["count"],
             "allocated_bytes": torch.cuda.memory_allocated(device)
@@ -4625,6 +4652,20 @@ def phase_train_app(dp_rec=None):
         per_step = (c["record_collective_us"] * max(
             t["collective_records_per_step"]) + c["step_start_end_us"]) / 1e3
         t["recorder_ms_per_step"] = per_step
+        # one census per 2 s flush at its slowest reading, plus the
+        # registry's gc scans over the worker's life: the census's share
+        # of the worker's time.  The registry's seeding walk (one
+        # whole-heap walk a process) is reported beside it: its share
+        # falls as the worker lives longer
+        reg = c["census_registry"]
+        t["census_share"] = max(c["census_ms"]) / 2000.0
+        t["census_gc_scan_share"] = reg["gc_scan_s"] / c["worker_s"]
+        t["census_seed_share"] = reg["seed_s"] / c["worker_s"]
+        check(t["census_share"] + t["census_gc_scan_share"] <= 0.01,
+              f"one device census costs {max(c['census_ms']):.2f} ms per "
+              f"2 s flush ({t['census_share']:.2%}) and its gc scans "
+              f"{t['census_gc_scan_share']:.2%} of the worker's time: over "
+              f"1%")
         log(f"[train-app] flight recorder (on by default): every report "
             f"carries its step record, phases {sorted(t['phases_per_step'][1])}"
             f" (step {TRAIN_APP_CKPT_STEP} also checkpoint); "
@@ -4633,10 +4674,16 @@ def phase_train_app(dp_rec=None):
             f"start+end {c['step_start_end_us']:.1f} us: "
             f"{per_step:.3f} ms of the worker's {step_ms:.2f} ms step; a "
             f"forced flush (ring + device snapshot) {c['flush_ms']:.2f} ms; "
-            f"one device census {min(c['census_ms']):.2f} ms "
-            f"(runs {[round(x, 2) for x in c['census_ms']]}; at most one "
-            f"per {2.0:g} s flush interval: "
-            f"{min(c['census_ms']) / 2000.0:.2%} of a second) found "
+            f"one device census {max(c['census_ms']):.2f} ms at most "
+            f"(runs {[round(x, 2) for x in c['census_ms']]}, "
+            f"{c['census_scanned']} young objects scanned; at most one "
+            f"per {2.0:g} s flush interval: {t['census_share']:.3%} of the "
+            f"worker's time; the registry's gc scans {reg['gc_scans']} "
+            f"in {reg['gc_scan_s'] * 1e3:.1f} ms over the worker's "
+            f"{c['worker_s']:.1f} s, {t['census_gc_scan_share']:.3%}; its "
+            f"{reg['seeds']} seeding walk, once a process, "
+            f"{reg['seed_s'] * 1e3:.1f} ms, {t['census_seed_share']:.3%} "
+            f"of this worker's time) found "
             f"{c['census_total_bytes'] / 1e9:.3f} GB in {c['census_count']} "
             f"storages, the allocator {c['allocated_bytes'] / 1e9:.3f} GB; "
             f"goodput {t['goodput']['goodput']:.4f}; LoadMetrics saw "
@@ -6395,6 +6442,442 @@ def phase_observe():
     return rec
 
 
+# -- phase: mesh -------------------------------------------------------------
+#
+# Device meshes and sequence parallelism (ROADMAP A.6a, A.6c) on the card:
+# GPT-2-small's train step over a mesh whose every axis is 1, bitwise the
+# unsharded step; a causal sp = 4 ring simulated on one card (every rank's
+# kernel body, the rotation done by indexing) through K1-K3 against
+# whole-sequence attention; JaxConfig(mesh_shape=) through the trainer on
+# a GPU worker; and, where the run has four cards, the fsdp x tp and sp = 4
+# steps over NCCL (one spawned rank per card) and Ulysses at sp = 4.
+
+MESH_BATCH = (16, 512)              # tokens [16, 513]: the train recipe
+MESH_STEPS = 3
+MESH_TRAINER_STEPS = 2
+MESH_RING_SHAPE = (4, 12, 1024, 64)  # [B, H, S, D] bf16, causal
+MESH_RING_N = 4
+MESH_LOSS_RTOL = 1e-3               # a sharded step's loss vs unsharded
+MESH_SHAPES_4 = ({"fsdp": 2, "tp": 2}, {"sp": 4})
+
+
+def _mesh_tokens(cfg, device):
+    import numpy as np
+    import torch
+
+    B, S = MESH_BATCH
+    return torch.from_numpy(np.random.RandomState(SEED).randint(
+        0, cfg.vocab_size, (B, S + 1))).to(device)
+
+
+def _state_bytes(state):
+    """(param bytes, optimizer-state bytes) this process holds."""
+    from ray_tpu_torch.models import training
+
+    leaves = [t for _, t in training.param_leaves(
+        state.get("shards", state["params"]))]
+    params = sum(t.numel() * t.element_size() for t in leaves)
+    opt = sum(v.numel() * v.element_size()
+              for s in state["opt_state"].state.values() for v in s.values()
+              if hasattr(v, "numel") and v.dim() > 0)
+    return params, opt
+
+
+def _mesh_steps(cfg, mesh, tokens, steps):
+    """``steps`` steps of make_train_step (over ``mesh``, or unsharded
+    with None) on the global batch ``tokens``: the state and a record of
+    losses, grad norms, launches and ms (CUDA events) per step, and the
+    collectives each step issued (every mesh collective reports itself
+    to the flight recorder, from the backward's thread too): their
+    count by op and the host's seconds issuing them."""
+    import torch
+
+    from ray_tpu_torch.models import training
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.telemetry import recorder
+
+    init_state, step = (training.make_train_step(cfg) if mesh is None
+                        else training.make_train_step(cfg, mesh))
+    state = init_state(seed=SEED)
+    batch = {"tokens": tokens}
+    rec = {"losses": [], "grad_norms": [], "launches": [], "ms": [],
+           "collectives": [], "collective_host_ms": []}
+    issued = []
+    record = recorder.record_collective
+
+    def counting(op, seconds, *args, **kwargs):
+        issued.append((op, seconds))
+        return record(op, seconds, *args, **kwargs)
+
+    recorder.record_collective = counting
+    try:
+        for _ in range(steps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            _kernels.reset_launch_counts()
+            del issued[:]
+            start.record()
+            state, m = step(state, batch)
+            end.record()
+            torch.cuda.synchronize()
+            rec["launches"].append(_kernels.launch_counts())
+            rec["ms"].append(start.elapsed_time(end))
+            rec["losses"].append(m["loss"].item())
+            rec["grad_norms"].append(m["grad_norm"].item())
+            ops = {}
+            for op, _ in issued:
+                ops[op] = ops.get(op, 0) + 1
+            rec["collectives"].append(ops)
+            rec["collective_host_ms"].append(
+                sum(sec for _, sec in issued) * 1e3)
+    finally:
+        recorder.record_collective = record
+    rec["param_bytes"], rec["opt_bytes"] = _state_bytes(state)
+    B, S = MESH_BATCH
+    rec["tokens_per_s"] = B * S / (min(rec["ms"][1:] or rec["ms"]) / 1e3)
+    return state, rec
+
+
+def _mesh_world1(cfg):
+    """make_train_step(cfg, make_mesh()) with every axis 1 against
+    make_train_step(cfg): losses, grad norms and params bitwise."""
+    import torch
+
+    from ray_tpu_torch.models import training
+    from ray_tpu_torch.parallel import axis_sizes, make_mesh
+
+    tokens = _mesh_tokens(cfg, "cuda")
+    state, plain = _mesh_steps(cfg, None, tokens, MESH_STEPS)
+    want = {k: t.detach().clone()
+            for k, t in training.param_leaves(state["params"])}
+    del state
+    torch.cuda.empty_cache()
+    mesh = make_mesh()
+    state, rec = _mesh_steps(cfg, mesh, tokens, MESH_STEPS)
+    check(rec["losses"] == plain["losses"] and
+          rec["grad_norms"] == plain["grad_norms"],
+          f"world-1 mesh losses {rec['losses']} / grad norms "
+          f"{rec['grad_norms']} differ from the unsharded step's "
+          f"{plain['losses']} / {plain['grad_norms']}")
+    got = dict(training.param_leaves(state["params"]))
+    differ = [k for k, t in want.items()
+              if not torch.equal(got[k].to_local(), t)]
+    check(not differ, f"world-1 mesh params differ after {MESH_STEPS} "
+          f"steps: {differ}")
+    check(rec["launches"][-1] == TRAIN_LAUNCHES,
+          f"world-1 mesh step launched {rec['launches'][-1]}, expected "
+          f"{TRAIN_LAUNCHES}")
+    del state, got, want
+    torch.cuda.empty_cache()
+    return {"mesh": axis_sizes(mesh), "unsharded": plain, "mesh_step": rec}
+
+
+def _mesh_ring():
+    """The causal sp = 4 ring on one card against whole-sequence flash
+    attention, forward and backward, with its launch counts and ms."""
+    import torch
+
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.ops.attention import flash_attention
+    from ray_tpu_torch.ops.ring_attention import ring_simulate
+
+    n = MESH_RING_N
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    q, k, v, cot = (torch.randn(MESH_RING_SHAPE, generator=g, device="cuda",
+                                dtype=torch.bfloat16) for _ in range(4))
+
+    def ring(*ts):
+        return ring_simulate(*ts, n, causal=True, impl="pallas")
+
+    def whole(*ts):
+        return flash_attention(*ts, causal=True)
+
+    def run(fn):
+        ts = [t.clone().requires_grad_() for t in (q, k, v)]
+        _kernels.reset_launch_counts()
+        out = fn(*ts)
+        fwd = _kernels.launch_counts()
+        _kernels.reset_launch_counts()
+        (out.float() * cot.float()).sum().backward()
+        bwd = _kernels.launch_counts()
+        torch.cuda.synchronize()
+        return out.detach().float(), [t.grad.float() for t in ts], fwd, bwd
+
+    out, grads, fwd, bwd = run(ring)
+    ref, g_ref, _, _ = run(whole)
+    chunks = n * (n + 1) // 2
+    check(fwd["flash_fwd"] == chunks and fwd["flash_bwd_dkv"] == 0,
+          f"ring forward launched {fwd}, expected {chunks} K1")
+    check(bwd["flash_bwd_dkv"] == chunks and bwd["flash_bwd_dq"] == chunks
+          and bwd["flash_fwd"] == 0,
+          f"ring backward launched {bwd}, expected {chunks} K2 and K3")
+    atol, rtol = TOL["bfloat16"]
+    errs = {}
+    for name, a, b in (("out", out, ref), ("dq", grads[0], g_ref[0]),
+                       ("dk", grads[1], g_ref[1]), ("dv", grads[2], g_ref[2])):
+        err = (a - b).abs()
+        worst = (err / (atol + rtol * b.abs())).max().item()
+        errs[name] = {"max_abs_err": err.max().item(),
+                      "mean_abs_err": err.mean().item(),
+                      "worst_of_limit": worst}
+        check(worst <= 1.0, f"ring {name} vs whole-sequence attention: "
+              f"{err.max().item():.3g} exceeds {atol} + {rtol:.3g}*|ref| "
+              f"({worst:.2f} of the limit)")
+    ts = [t.clone().requires_grad_() for t in (q, k, v)]
+    ms = {"ring_fwd": cuda_time_ms(lambda: ring(q, k, v)),
+          "whole_fwd": cuda_time_ms(lambda: whole(q, k, v))}
+
+    def fwd_bwd(fn):
+        def go():
+            for t in ts:
+                t.grad = None
+            fn(*ts).float().mul(cot.float()).sum().backward()
+        return go
+
+    ms["ring_fwd_bwd"] = cuda_time_ms(fwd_bwd(ring))
+    ms["whole_fwd_bwd"] = cuda_time_ms(fwd_bwd(whole))
+    return {"shape": list(MESH_RING_SHAPE), "n": n, "dtype": "bfloat16",
+            "launches_fwd": fwd, "launches_bwd": bwd, "errors": errs,
+            "ms": ms,
+            "launches": {kk: fwd[kk] + bwd[kk] for kk in fwd}}
+
+
+def _mesh_trainer_loop(config):
+    """The trainer's loop: make_train_step(cfg, the default mesh the
+    backend installed) for ``steps`` steps of the mesh phase's batch."""
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.parallel import axis_sizes, get_default_mesh
+    from ray_tpu_torch.train.torch import get_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = get_device()
+    torch.cuda.set_device(device)
+    mesh = get_default_mesh()
+    cfg = gpt.GPTConfig.gpt2_small()
+    _, rec = _mesh_steps(cfg, mesh, _mesh_tokens(cfg, device),
+                         config["steps"])
+    train.report({**rec, "mesh": axis_sizes(mesh), "device": str(device),
+                  "mesh_device_type": mesh.device_type})
+
+
+def _mesh_trainer(want_losses):
+    import shutil
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private.protocol import free_port
+    from ray_tpu_torch.train import (JaxConfig, JaxTrainer, RunConfig,
+                                     ScalingConfig)
+
+    before = set(_runtime_procs())
+    storage = tempfile.mkdtemp(prefix="mesh-")
+    rt.init(num_cpus=4)
+    try:
+        t0 = time.perf_counter()
+        result = JaxTrainer(
+            _mesh_trainer_loop, train_loop_config={
+                "steps": MESH_TRAINER_STEPS},
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True,
+                                         gpus_per_worker=1),
+            backend_config=JaxConfig(mode="spmd", mesh_shape={"dp": 1},
+                                     coordinator_port=free_port()),
+            run_config=RunConfig(name="mesh", storage_path=storage)).fit()
+        fit_s = time.perf_counter() - t0
+        check(result.error is None, f"the mesh trainer failed: "
+              f"{result.error}")
+        m = dict(result.metrics)
+        m.pop("telemetry", None)
+    finally:
+        rt.shutdown()
+        shutil.rmtree(storage, ignore_errors=True)
+    mine = lambda: {p: c for p, c in _runtime_procs().items()  # noqa: E731
+                    if p not in before}
+    _wait_for(lambda: not mine(), 60,
+              f"runtime processes outlived shutdown: {mine()}")
+    check(m["mesh"] == {"pp": 1, "dp": 1, "fsdp": 1, "ep": 1, "sp": 1,
+                        "tp": 1} and m["mesh_device_type"] == "cuda",
+          f"the trainer's mesh {m['mesh']} on {m['mesh_device_type']}")
+    check(m["losses"] == want_losses[:MESH_TRAINER_STEPS],
+          f"the trainer's mesh losses {m['losses']} are not the in-process "
+          f"step's {want_losses[:MESH_TRAINER_STEPS]} (bitwise)")
+    check(all(m["launches"][-1][k] > 0 for k in FLASH_TRAIN_LAUNCHES),
+          f"the trainer's step launched {m['launches'][-1]}")
+    m["fit_s"] = fit_s
+    return m
+
+
+def _mesh_rank_entry(rank, world, init_method, out_path):
+    """One card's rank of the four-card mesh runs (NCCL)."""
+    sys.path.insert(0, str(ROOT))
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.ops import ulysses_attention
+    from ray_tpu_torch.ops.attention import flash_attention
+    from ray_tpu_torch.parallel import axis_index, make_mesh
+
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # a rank that fails leaves its peers in a collective: NCCL's watchdog
+    # ends them after this timeout instead of the call's limit
+    dist.init_process_group("nccl", init_method=init_method,
+                            world_size=world, rank=rank,
+                            device_id=torch.device("cuda", rank),
+                            timeout=datetime.timedelta(seconds=240))
+    try:
+        cfg = gpt.GPTConfig.gpt2_small()
+        tokens = _mesh_tokens(cfg, "cuda")
+        rec = {}
+        for axes in MESH_SHAPES_4:
+            mesh = make_mesh(**axes)
+            state, r = _mesh_steps(cfg, mesh, tokens, MESH_STEPS)
+            del state
+            torch.cuda.empty_cache()
+            every = [None] * world
+            dist.all_gather_object(every, r)
+            rec["_".join(f"{a}{n}" for a, n in axes.items())] = every
+        # Ulysses at sp = 4 against whole-sequence K1
+        mesh = make_mesh(sp=world)
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        q, k, v = (torch.randn(MESH_RING_SHAPE, generator=g, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(3))
+        r = axis_index(mesh, "sp")
+        blk = q.shape[2] // world
+        loc = [t[:, :, r * blk:(r + 1) * blk].contiguous()
+               for t in (q, k, v)]
+        out = ulysses_attention(*loc, mesh, "sp", causal=True)
+        parts = [torch.empty_like(out) for _ in range(world)]
+        dist.all_gather(parts, out.contiguous())
+        if rank == 0:
+            ref = flash_attention(q, k, v, causal=True).float()
+            got = torch.cat(parts, dim=2).float()
+            atol, rtol = TOL["bfloat16"]
+            err = (got - ref).abs()
+            rec["ulysses"] = {
+                "max_abs_err": err.max().item(),
+                "worst_of_limit": (err / (atol + rtol * ref.abs()))
+                .max().item(),
+                "ms": cuda_time_ms(lambda: ulysses_attention(
+                    *loc, mesh, "sp", causal=True)),
+                "whole_ms": cuda_time_ms(lambda: flash_attention(
+                    q, k, v, causal=True))}
+        else:
+            cuda_time_ms(lambda: ulysses_attention(*loc, mesh, "sp",
+                                                   causal=True))
+        if rank == 0:
+            Path(out_path).write_text(json.dumps(rec))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_four_cards(plain):
+    """The four-card runs, held to the unsharded step's losses."""
+    world = 4
+    rec = _spawn_ranks(_mesh_rank_entry, world, timeout_s=600)
+    want = plain["losses"]
+    for name, ranks in rec.items():
+        if name == "ulysses":
+            continue
+        for rank, r in enumerate(ranks):
+            rel = max(abs(a - b) / abs(b) for a, b in zip(r["losses"], want))
+            check(rel <= MESH_LOSS_RTOL, f"{name} rank {rank} losses "
+                  f"{r['losses']} vs unsharded {want}: {rel:.3g} relative "
+                  f"(> {MESH_LOSS_RTOL})")
+            r["loss_rel_err"] = rel
+            if name == "sp4":
+                layers = 12
+                want_l = {"flash_fwd": 2 * layers * (rank + 1),
+                          "flash_bwd_dkv": layers * (rank + 1),
+                          "flash_bwd_dq": layers * (rank + 1)}
+            else:
+                want_l = FLASH_TRAIN_LAUNCHES
+            got = {k: r["launches"][-1][k] for k in want_l}
+            check(got == want_l, f"{name} rank {rank} launched {got} a step,"
+                  f" expected {want_l}")
+    u = rec["ulysses"]
+    check(u["worst_of_limit"] <= 1.0, f"Ulysses at sp=4 vs whole-sequence "
+          f"K1: {u['max_abs_err']:.3g} ({u['worst_of_limit']:.2f} of the "
+          f"limit)")
+    return rec
+
+
+def phase_mesh():
+    import torch
+
+    from ray_tpu_torch.models import gpt
+
+    smi = _smi_line()
+    t_phase = time.perf_counter()
+    cfg = gpt.GPTConfig.gpt2_small()
+    rec = {"card": smi, "cards": torch.cuda.device_count()}
+    rec["world1"] = w1 = _mesh_world1(cfg)
+    m, p = w1["mesh_step"], w1["unsharded"]
+    log(f"[mesh] gpt2-small [{MESH_BATCH[0]}, {MESH_BATCH[1] + 1}] over a "
+        f"world-1 mesh {w1['mesh']}: {MESH_STEPS} AdamW steps bitwise the "
+        f"unsharded step (losses {[round(x, 4) for x in m['losses']]}, "
+        f"params equal); {min(m['ms'][1:]):.2f} ms/step against "
+        f"{min(p['ms'][1:]):.2f} unsharded; launches {m['launches'][-1]} "
+        f"({smi})")
+    rec["ring"] = ring = _mesh_ring()
+    e = ring["errors"]
+    log(f"[mesh] causal ring of {ring['n']} ranks on one card, "
+        f"{ring['shape']} bf16: K1 x {ring['launches_fwd']['flash_fwd']} "
+        f"forward, K2 x {ring['launches_bwd']['flash_bwd_dkv']} and K3 x "
+        f"{ring['launches_bwd']['flash_bwd_dq']} backward; vs whole-"
+        f"sequence K1/K2/K3 max |err| out {e['out']['max_abs_err']:.3g} dq "
+        f"{e['dq']['max_abs_err']:.3g} dk {e['dk']['max_abs_err']:.3g} dv "
+        f"{e['dv']['max_abs_err']:.3g} (worst "
+        f"{max(x['worst_of_limit'] for x in e.values()):.2f} of K1's bf16 "
+        f"limit); forward {ring['ms']['ring_fwd']:.4f} ms against "
+        f"{ring['ms']['whole_fwd']:.4f} ms whole, forward+backward "
+        f"{ring['ms']['ring_fwd_bwd']:.4f} against "
+        f"{ring['ms']['whole_fwd_bwd']:.4f} ms ({smi})")
+    torch.cuda.empty_cache()
+    rec["trainer"] = tr = _mesh_trainer(m["losses"])
+    log(f"[mesh] JaxConfig(mode='spmd', mesh_shape={{'dp': 1}}) on a GPU "
+        f"worker: mesh {tr['mesh']} on {tr['device']}, "
+        f"{MESH_TRAINER_STEPS} steps bitwise the in-process mesh step "
+        f"({[round(x, 4) for x in tr['losses']]}), "
+        f"{min(tr['ms']):.2f} ms/step, launches {tr['launches'][-1]}; fit "
+        f"{tr['fit_s']:.1f} s")
+    if torch.cuda.device_count() >= 4:
+        rec["four_cards"] = four = _mesh_four_cards(p)
+        for name in ("fsdp2_tp2", "sp4"):
+            for rank, r in enumerate(four[name]):
+                log(f"[mesh] {name} rank {rank}: losses "
+                    f"{[round(x, 4) for x in r['losses']]} (rel "
+                    f"{r['loss_rel_err']:.2g} of unsharded); params "
+                    f"{r['param_bytes'] / 1e6:.1f} MB + optimizer "
+                    f"{r['opt_bytes'] / 1e6:.1f} MB (unsharded "
+                    f"{p['param_bytes'] / 1e6:.1f} + "
+                    f"{p['opt_bytes'] / 1e6:.1f}); "
+                    f"{min(r['ms'][1:]):.2f} ms/step = "
+                    f"{r['tokens_per_s']:.0f} tokens/s; launches a step "
+                    f"{r['launches'][-1]}; collectives a step "
+                    f"{r['collectives'][-1]}, issued in "
+                    f"{r['collective_host_ms'][-1]:.2f} ms of host time")
+        u = four["ulysses"]
+        log(f"[mesh] Ulysses sp=4, {list(MESH_RING_SHAPE)} bf16: max |err| "
+            f"{u['max_abs_err']:.3g} vs whole-sequence K1 "
+            f"({u['worst_of_limit']:.2f} of the limit); {u['ms']:.4f} ms "
+            f"against {u['whole_ms']:.4f} ms whole ({smi})")
+    else:
+        rec["four_cards"] = "not run: the run has fewer than four cards"
+        log(f"[mesh] fsdp x tp, sp=4 and Ulysses: not run "
+            f"({torch.cuda.device_count()} card)")
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"[mesh] phase {rec['seconds']:.1f} s")
+    return rec
+
+
 def _kernel_entry(k, case, launches_by_path, **extra):
     # the main path: a step through the trainer on Data-fed batches (K1-K6;
     # K7 runs there only with the fused hop forced, and its entry says so)
@@ -6413,7 +6896,16 @@ def _kernel_entry(k, case, launches_by_path, **extra):
 PHASES = ("kernels", "forward", "serve", "serve-bench", "parity", "train",
           "kernels-quantize", "kernels-fused", "dp-train", "runtime",
           "serve-app", "train-app", "data-train", "dag", "cli-jobs",
-          "autoscale", "observe")
+          "autoscale", "observe", "mesh")
+
+
+def _timed(seconds, name, fn, *args):
+    """``fn(*args)``, its wall seconds logged and kept under ``name``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    seconds[name] = time.perf_counter() - t0
+    log(f"[smoke] {name}: {seconds[name]:.1f} s")
+    return out
 
 
 def main(argv=None):
@@ -6429,29 +6921,33 @@ def main(argv=None):
         raise SmokeFailure(f"unknown phases {sorted(unknown)}")
 
     report = {}
-    report["device"] = phase_device()
+    seconds = report["phase_seconds"] = {}
+    report["device"] = _timed(seconds, "device", phase_device)
     sys.path.insert(0, str(ROOT))
     from ray_tpu_torch.models import gpt
     from ray_tpu_torch.ops import _kernels
 
-    report["build"] = phase_build()
+    report["build"] = _timed(seconds, "build", phase_build)
     if "kernels" in phases:
-        report["kernels"] = phase_kernels()
-        report["kernels_bwd"] = phase_kernels_bwd()
+        report["kernels"] = _timed(seconds, "kernels", phase_kernels)
+        report["kernels_bwd"] = _timed(
+            seconds, "kernels_bwd", phase_kernels_bwd)
 
     cfg = gpt.GPTConfig.gpt2_small()
     params = gpt.init(cfg, seed=SEED)
     if "forward" in phases:
-        report["forward"] = phase_forward(params, cfg)
+        report["forward"] = _timed(
+            seconds, "forward", phase_forward, params, cfg)
     if "serve" in phases:
-        report["serve"] = phase_serve(params, cfg)
+        report["serve"] = _timed(seconds, "serve", phase_serve, params, cfg)
     del params
     torch.cuda.empty_cache()
     if "serve-bench" in phases:
-        report["serve_bench"] = phase_serve_bench()
+        report["serve_bench"] = _timed(
+            seconds, "serve_bench", phase_serve_bench)
         torch.cuda.empty_cache()
     if "parity" in phases:
-        report["parity"] = phase_parity()
+        report["parity"] = _timed(seconds, "parity", phase_parity)
 
     if "train" in phases:
         kernel_ms = None
@@ -6462,52 +6958,61 @@ def main(argv=None):
             kernel_ms = {"flash_fwd": k1_train["ms"],
                          "flash_bwd_dkv": bwd["dkv"]["ms"],
                          "flash_bwd_dq": bwd["dq"]["ms"]}
-        report["train"] = phase_train(kernel_ms)
+        report["train"] = _timed(seconds, "train", phase_train, kernel_ms)
         torch.cuda.empty_cache()
     if "kernels-quantize" in phases:
         # each in a fresh process: this one has served and run the kernels
         # phases, and may then lose profiler records (_in_fresh_process)
-        report["kernels_quantize"] = _in_fresh_process(
+        report["kernels_quantize"] = _timed(
+            seconds, "kernels_quantize", _in_fresh_process,
             "phase_kernels_quantize")
-        report["kernels_quantize"]["cold"] = _in_fresh_process(
+        report["kernels_quantize"]["cold"] = _timed(
+            seconds, "kernels_quantize_cold", _in_fresh_process,
             "_checked_cold_times")
     if "kernels-fused" in phases:
-        report["kernels_fused"] = phase_kernels_fused()
+        report["kernels_fused"] = _timed(
+            seconds, "kernels_fused", phase_kernels_fused)
     if "dp-train" in phases:
-        report["dp_train"], report["gpt_sync"] = phase_dp_train()
+        report["dp_train"], report["gpt_sync"] = _timed(
+            seconds, "dp_train", phase_dp_train)
     if "runtime" in phases:
         # late: its worker processes come and go on the card, and no
         # kernel timing follows them
         torch.cuda.empty_cache()
-        report["runtime"] = phase_runtime()
+        report["runtime"] = _timed(seconds, "runtime", phase_runtime)
     if "serve-app" in phases:
         # last, for the same reason: its replicas come and go on the card
         torch.cuda.empty_cache()
-        report["serve_app"] = phase_serve_app()
+        report["serve_app"] = _timed(seconds, "serve_app", phase_serve_app)
     if "train-app" in phases:
         # last as well: its GPU workers come and go on the card
         torch.cuda.empty_cache()
-        report["train_app"] = phase_train_app(report.get("dp_train"))
+        report["train_app"] = _timed(
+            seconds, "train_app", phase_train_app, report.get("dp_train"))
     if "data-train" in phases:
         # after train-app: its GPU workers come and go on the card too
         torch.cuda.empty_cache()
-        report["data_train"] = phase_data_train()
+        report["data_train"] = _timed(seconds, "data_train", phase_data_train)
     if "dag" in phases:
         # after data-train: its stage actors come and go on the card
         torch.cuda.empty_cache()
-        report["dag"] = phase_dag()
+        report["dag"] = _timed(seconds, "dag", phase_dag)
     if "cli-jobs" in phases:
         # last: the CLI-started cluster's GPU workers come and go too
         torch.cuda.empty_cache()
-        report["cli_jobs"] = phase_cli_jobs()
+        report["cli_jobs"] = _timed(seconds, "cli_jobs", phase_cli_jobs)
     if "autoscale" in phases:
         # last: the autoscaled node's GPU workers come and go too
         torch.cuda.empty_cache()
-        report["autoscale"] = phase_autoscale()
+        report["autoscale"] = _timed(seconds, "autoscale", phase_autoscale)
     if "observe" in phases:
         # last: the dashboard's head and a GPU actor come and go too
         torch.cuda.empty_cache()
-        report["observe"] = phase_observe()
+        report["observe"] = _timed(seconds, "observe", phase_observe)
+    if "mesh" in phases:
+        # last: its trainer's GPU worker comes and goes on the card too
+        torch.cuda.empty_cache()
+        report["mesh"] = _timed(seconds, "mesh", phase_mesh)
 
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps(report, indent=1))
@@ -6562,7 +7067,21 @@ def main(argv=None):
                     "launches_per_forward"][name],
                 # the observe phase's GPU actor, its forward a recorder step
                 "observe_actor_forward": report["observe"]["device"][
-                    "step_launches"][name]}
+                    "step_launches"][name],
+                # one GPT-2-small step over a world-1 mesh
+                "mesh_world1_step": report["mesh"]["world1"]["mesh_step"][
+                    "launches"][-1][name],
+                # the causal sp=4 ring on one card, forward and backward
+                "mesh_ring_sp4": report["mesh"]["ring"]["launches"][name],
+                # a step of JaxConfig(mesh_shape=)'s trainer worker
+                "mesh_trainer_step": report["mesh"]["trainer"][
+                    "launches"][-1][name],
+                **({f"mesh_{shape}_step_rank{r}": rr["launches"][-1][name]
+                    for shape in ("fsdp2_tp2", "sp4")
+                    for r, rr in enumerate(report["mesh"]["four_cards"][
+                        shape])}
+                   if isinstance(report["mesh"]["four_cards"], dict)
+                   else {})}
 
     k1 = report["kernels"][0]
     bwd = report["kernels_bwd"][0]

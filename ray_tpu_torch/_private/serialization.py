@@ -67,8 +67,9 @@ class _TensorStandIn:
     the host bytes as a numpy array (bf16 and float8 as unsigned integers
     of their width), the tensor's dtype name and the device type it was
     staged from.  ``placement`` is the counterpart of the reference's
-    sharding descriptor; mesh placement waits for the port's meshes
-    (ROADMAP A.6), so it is carried and left unused."""
+    sharding descriptor: a DTensor's PartitionSpec entries (mesh axis
+    names per dim), by which the receiving process re-places the tensor
+    on its own default mesh (``_restore_tensor``)."""
 
     def __init__(self, np_value, dtype: str, device_type: str,
                  placement=None):
@@ -122,9 +123,31 @@ def _load(thunk: Callable[[], Any], keep_stand_ins: bool) -> Any:
         _keeping_stand_ins.reset(token)
 
 
+def _dtensor_spec(t):
+    """(the whole tensor, its spec entries) of a DTensor whose local shard
+    is the whole tensor; a DTensor sharded over ranks raises, as the
+    reference's host copy of an array not every device of which this
+    process addresses does."""
+    from ray_tpu_torch.parallel.sharding import spec_of
+
+    local = t.to_local()
+    if tuple(local.shape) != tuple(t.shape):
+        raise ValueError(
+            f"a DTensor sharded over ranks ({t.placements}) is not "
+            f"addressable from one process; send full_tensor() or each "
+            f"rank's to_local()")
+    return local, [list(e) if isinstance(e, tuple) else e
+                   for e in spec_of(t)]
+
+
 def _stage_tensor(t) -> _TensorStandIn:
-    """Host copy of ``t`` (one D2H copy for a CUDA tensor)."""
+    """Host copy of ``t`` (one D2H copy for a CUDA tensor); a DTensor
+    carries its spec."""
     torch = _torch()
+    placement = None
+    dtensor = sys.modules.get("torch.distributed.tensor")
+    if dtensor is not None and isinstance(t, dtensor.DTensor):
+        t, placement = _dtensor_spec(t)
     dtype = str(t.dtype).split(".", 1)[1]
     host = t.detach().to("cpu").contiguous()
     bits = _BITS_AS.get(dtype)
@@ -134,7 +157,7 @@ def _stage_tensor(t) -> _TensorStandIn:
         arr = host.view(getattr(torch, _SIGNED[bits])).numpy().view(bits)
     else:
         arr = host.numpy()
-    return _TensorStandIn(arr, dtype, t.device.type)
+    return _TensorStandIn(arr, dtype, t.device.type, placement)
 
 
 def _restore_tensor(stand_in: _TensorStandIn):
@@ -158,7 +181,34 @@ def _restore_tensor(stand_in: _TensorStandIn):
         t = torch.from_numpy(arr)
     if bits is not None:
         t = t.view(getattr(torch, stand_in.dtype))
-    return t if dev == "cpu" else t.to(dev)
+    t = t if dev == "cpu" else t.to(dev)
+    if stand_in.placement is not None:
+        return _replace_on_mesh(t, stand_in.placement)
+    return t
+
+
+def _replace_on_mesh(t, entries):
+    """Re-place ``t`` on the receiving process's default mesh when its
+    axes cover the spec (the reference's ``serialization.py:79-98``);
+    otherwise, or when a dim does not divide, ``t`` as it is."""
+    from ray_tpu_torch.parallel.mesh import get_default_mesh, mesh_device
+
+    mesh = get_default_mesh()
+    if mesh is None:
+        return t
+    from ray_tpu_torch.parallel.sharding import (NamedSharding,
+                                                 PartitionSpec, distribute)
+
+    entries = [tuple(e) if isinstance(e, list) else e for e in entries]
+    used = {a for e in entries
+            for a in (e if isinstance(e, tuple) else (e,) if e else ())}
+    if not used <= set(mesh.mesh_dim_names):
+        return t
+    try:
+        sh = NamedSharding(mesh, PartitionSpec(*entries))
+        return distribute(t.to(mesh_device(mesh)), sh)
+    except ValueError:
+        return t    # a dim indivisible on this mesh: default placement
 
 
 def _restore_stand_in(np_value, dtype: str, device_type: str,

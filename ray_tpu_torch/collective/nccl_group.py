@@ -9,7 +9,19 @@ process and the contract is rank-local: each rank passes its own shard
 and gets its own result (the shard the reference's ``out_specs`` would
 give that device).  ``group`` is a process group (None: the default
 one); its size is the reference's mesh axis size and the rank in it the
-``axis_index``.
+``axis_index``.  Every ``mesh_*`` function also takes the reference's
+form, a ``DeviceMesh`` (``parallel/mesh.py``) and an axis name in place
+of the group — ``mesh_allreduce(x, mesh, "dp")``,
+``mesh_ppermute(x, mesh, perm, "sp")`` — and then runs over
+``mesh.get_group(axis_name)``, still on this rank's shard.
+``mesh_ppermute`` and ``mesh_all_to_all`` are differentiable (ring and
+Ulysses attention train through them): the gradient of a permutation is
+the inverse permutation, that of an all-to-all the all-to-all with
+``split_axis`` and ``concat_axis`` swapped.  So are the collectives of
+a sharded step's rank-local region (``gather_dim``: all-gather,
+reduce-scatter backward; ``sum_partials`` / ``sum_grads``: Megatron's
+"g" and "f"; ``reduce_values``), which ``parallel/spmd.py`` runs over
+mesh axes: every collective of the mesh path is one of this module's.
 
 The quantized (EQuARX-style) paths move int8 blocks and f32 per-block
 scales (``ops/quantize.py``'s layout) and run the reference's compiled
@@ -49,6 +61,7 @@ step's ``collective`` phase (``_q_allreduce_profiled``).
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 from typing import List, Optional, Sequence, Tuple, Union
@@ -176,6 +189,8 @@ def mesh_allreduce(x: torch.Tensor, group: Group = None, op: str = "sum",
                    profile: bool = False) -> torch.Tensor:
     """Allreduce this rank's tensor with its peers'; returns a new tensor
     of x's shape and dtype (reference API: collective.py:258 allreduce).
+    ``mesh_allreduce(x, mesh, axis_name, op=...)`` runs over the line of
+    ``mesh`` along ``axis_name``.
 
     compression: a CompressionConfig / spec string ("int8",
     "int8:block=512") switches to the two-phase quantized path (sum/mean
@@ -434,7 +449,8 @@ def mesh_reducescatter(x: torch.Tensor, group: Group = None,
     elements ([1, N] as the reference's shard, or [N]); returns rank r's
     reduced chunk, elements [r*N/world, (r+1)*N/world), shaped like x with
     its last dim N/world.  With ``compression``, contributions travel as
-    int8 blocks + scales (sum semantics, lossy)."""
+    int8 blocks + scales (sum semantics, lossy).  The mesh form:
+    ``mesh_reducescatter(x, mesh, axis_name)``."""
     t0 = time.perf_counter()
     cc = parse_compression(compression)
     with tracing.span("collective.mesh_reducescatter",
@@ -479,7 +495,8 @@ def mesh_allgather(x: torch.Tensor, group: Group = None,
     """Each rank contributes its shard; all get the concatenation along
     dim 0, in rank order (reference API: collective.py:423 allgather).
     With ``compression``, shards travel as int8 blocks + scales and are
-    dequantized on arrival (lossy; see compression.py)."""
+    dequantized on arrival (lossy; see compression.py).  The mesh form:
+    ``mesh_allgather(x, mesh, axis_name)``."""
     t0 = time.perf_counter()
     cc = parse_compression(compression)
     with tracing.span("collective.mesh_allgather",
@@ -511,17 +528,15 @@ def _allgather(x: torch.Tensor, group: Group,
     return out.view(world, npad)[:, :n].reshape(out_shape).to(x.dtype)
 
 
-def mesh_broadcast(x: torch.Tensor, group: Group = None,
-                   root: int = 0) -> torch.Tensor:
-    """Every rank receives root's shard (reference API: collective.py:373).
-    Every rank passes a tensor of root's shape and dtype."""
+def _broadcast(x: torch.Tensor, group: Group = None,
+               root: int = 0) -> torch.Tensor:
     out = x.clone(memory_format=torch.contiguous_format)
     dist.broadcast(out, src=_global_rank(group, int(root)), group=group)
     return out
 
 
-def mesh_ppermute(x: torch.Tensor, perm: Sequence[Tuple[int, int]],
-                  group: Group = None) -> torch.Tensor:
+def _ppermute(x: torch.Tensor, perm: Sequence[Tuple[int, int]],
+              group: Group = None) -> torch.Tensor:
     """Point-to-point shard rotation (reference API: collective.py:531/:594
     send/recv, ``lax.ppermute``): for each (src, dst) in ``perm``, rank
     dst receives rank src's shard; a rank no pair sends to gets zeros."""
@@ -549,9 +564,8 @@ def mesh_ppermute(x: torch.Tensor, perm: Sequence[Tuple[int, int]],
     return out
 
 
-def mesh_all_to_all(x: torch.Tensor, group: Group = None,
-                    split_axis: int = 1,
-                    concat_axis: int = 0) -> torch.Tensor:
+def _all_to_all(x: torch.Tensor, group: Group = None, split_axis: int = 1,
+                concat_axis: int = 0) -> torch.Tensor:
     """All-to-all reshard — the Ulysses/MoE-dispatch primitive (reference:
     ``lax.all_to_all`` tiled).  This rank's shard is split along
     ``split_axis`` into ``world`` pieces, piece j goes to rank j, and the
@@ -569,6 +583,252 @@ def mesh_all_to_all(x: torch.Tensor, group: Group = None,
     pieces = recv.view((world, -1) + tuple(send.shape[1:]))
     return torch.cat([p.movedim(0, split_axis) for p in pieces.unbind(0)],
                      dim=concat_axis)
+
+
+# -- differentiable collectives ------------------------------------------
+# What a sharded step, the ring and Ulysses run inside their rank-local
+# regions (``parallel/spmd.py`` names mesh axes for them).  Each call, in
+# the forward and in the backward, is traced and reported to the flight
+# recorder under its ``mesh_*`` name like the public collectives, and its
+# body runs through the program ledger.
+
+
+def _traced(op: str, x: torch.Tensor, group: Group, body, *args):
+    t0 = time.perf_counter()
+    with tracing.span("collective." + op, world=dist.get_world_size(group)):
+        out = body(*args)
+    _record_mesh_op(op, t0, x, None)
+    return out
+
+
+def _gather_along(x: torch.Tensor, dim: int, group: Group) -> torch.Tensor:
+    x0 = x.movedim(dim, 0).contiguous()
+    out = _traced("mesh_allgather", x0, group, _allgather, x0, group, None,
+                  0)
+    return out.movedim(0, dim)
+
+
+def _scatter_along(g: torch.Tensor, dim: int, group: Group) -> torch.Tensor:
+    g0 = g.movedim(dim, 0).contiguous()
+    out = _traced("mesh_reducescatter", g0, group, _reducescatter,
+                  g0.reshape(-1), group, None, 0)
+    world = dist.get_world_size(group)
+    return out.view((g0.shape[0] // world,)
+                    + tuple(g0.shape[1:])).movedim(0, dim)
+
+
+def _sum_over(x: torch.Tensor, groups: Sequence[Group],
+              op: str = "sum") -> torch.Tensor:
+    out = x.clone(memory_format=torch.contiguous_format)
+    for g in groups:
+        out = _traced("mesh_allreduce", out, g, _allreduce, out, g, op)
+    return out
+
+
+class _GatherDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _gather_along(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter_along(g, ctx.dim, ctx.group), None, None
+
+
+class _SumPartials(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, groups):
+        return _sum_over(x, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SumGrads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_over(g, ctx.groups), None
+
+
+class _PPermuteFn(torch.autograd.Function):
+    """ppermute whose gradient is the inverse permutation."""
+
+    @staticmethod
+    def forward(ctx, x, perm, group):
+        ctx.perm, ctx.group = perm, group
+        return _traced("mesh_ppermute", x, group, _ppermute_prog, x, perm,
+                       group)
+
+    @staticmethod
+    def backward(ctx, g):
+        inverse = [(b, a) for a, b in ctx.perm]
+        g = g.contiguous()
+        return (_traced("mesh_ppermute", g, ctx.group, _ppermute_prog, g,
+                        inverse, ctx.group), None, None)
+
+
+class _AllToAllFn(torch.autograd.Function):
+    """all_to_all whose gradient is the all_to_all with the split and
+    concat axes swapped."""
+
+    @staticmethod
+    def forward(ctx, x, group, split_axis, concat_axis):
+        ctx.group = group
+        ctx.split_axis, ctx.concat_axis = split_axis % x.dim(), \
+            concat_axis % x.dim()
+        return _traced("mesh_all_to_all", x, group, _all_to_all_prog, x,
+                       group, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_traced("mesh_all_to_all", g, ctx.group, _all_to_all_prog,
+                        g, ctx.group, ctx.concat_axis, ctx.split_axis),
+                None, None, None)
+
+
+def gather_dim(x: torch.Tensor, dim: int, group: Group) -> torch.Tensor:
+    """The concatenation along ``dim`` of every rank's ``x``, in rank
+    order; its gradient is reduce-scattered back along ``dim``."""
+    return _GatherDim.apply(x, dim, group)
+
+
+def sum_partials(x: torch.Tensor, groups: Sequence[Group]) -> torch.Tensor:
+    """The sum of every rank's partial ``x`` over each group in turn; its
+    gradient passes as it is (the same on every rank)."""
+    return _SumPartials.apply(x, tuple(groups))
+
+
+def sum_grads(x: torch.Tensor, groups: Sequence[Group]) -> torch.Tensor:
+    """``x`` as it is; its gradient summed over each group in turn."""
+    return _SumGrads.apply(x, tuple(groups))
+
+
+def reduce_values(x: torch.Tensor, groups: Sequence[Group],
+                  op: str = "sum") -> torch.Tensor:
+    """A copy of ``x`` reduced by ``op`` over each group in turn,
+    recording no gradient (counts, maxima, norms)."""
+    return _sum_over(x.detach(), groups, op)
+
+
+def _needs_grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _is_mesh(obj) -> bool:
+    return obj is not None and hasattr(obj, "mesh_dim_names") \
+        and hasattr(obj, "get_group")
+
+
+def _axis(mesh, axis_name: Optional[str]) -> str:
+    """The reference's rule (``xla_group.py:63``): a one-axis mesh needs
+    no name."""
+    if axis_name is None:
+        names = tuple(mesh.mesh_dim_names)
+        if len(names) != 1:
+            raise ValueError(f"specify axis_name for multi-axis mesh "
+                             f"{names}")
+        return names[0]
+    if axis_name not in tuple(mesh.mesh_dim_names):
+        raise ValueError(f"axis {axis_name!r} is not in the mesh (axes: "
+                         f"{tuple(mesh.mesh_dim_names)})")
+    return axis_name
+
+
+def _mesh_group(mesh, axis_name: Optional[str]) -> Group:
+    return mesh.get_group(_axis(mesh, axis_name))
+
+
+def _group_from(args: tuple, kwargs: dict, group_key: str = "group"):
+    """(group, rest of the positional args): the group form passes the
+    group itself; the mesh form ``(mesh, axis_name, ...)`` a mesh and an
+    axis name, whose line's group is taken."""
+    if args and _is_mesh(args[0]):
+        mesh, args = args[0], args[1:]
+        axis_name = kwargs.pop("axis_name", None)
+        if axis_name is None and args:
+            axis_name, args = args[0], args[1:]
+        return _mesh_group(mesh, axis_name), args
+    if group_key in kwargs:
+        return kwargs.pop(group_key), args
+    if args:
+        return args[0], args[1:]
+    return None, args
+
+
+def mesh_broadcast(x: torch.Tensor, *args, **kwargs) -> torch.Tensor:
+    """Every rank receives root's shard (reference API: collective.py:373):
+    ``mesh_broadcast(x, group=None, root=0)`` or
+    ``mesh_broadcast(x, mesh, axis_name, root=0)``.  Every rank passes a
+    tensor of root's shape and dtype; ``root`` is a rank of the group (a
+    position on the axis)."""
+    group, args = _group_from(args, kwargs)
+    return _broadcast_prog(x, group, *args, **kwargs)
+
+
+def mesh_ppermute(x: torch.Tensor, *args, **kwargs) -> torch.Tensor:
+    """Point-to-point shard rotation, differentiable:
+    ``mesh_ppermute(x, perm, group=None)`` or the reference's
+    ``mesh_ppermute(x, mesh, perm, axis_name)``.  For each (src, dst) in
+    ``perm``, rank dst receives rank src's shard; a rank no pair sends to
+    gets zeros.  On a line of one rank the only permutation is the
+    identity."""
+    if args and _is_mesh(args[0]):
+        mesh, perm = args[0], args[1]
+        axis = _axis(mesh, args[2] if len(args) > 2
+                     else kwargs.pop("axis_name", None))
+        from ray_tpu_torch.parallel.mesh import axis_group
+
+        group = axis_group(mesh, axis)
+        if group is None:
+            _check_identity_perm(perm)
+            return x
+    else:
+        perm = args[0] if args else kwargs.pop("perm")
+        group = args[1] if len(args) > 1 else kwargs.pop("group", None)
+    perm = [(int(a), int(b)) for a, b in perm]
+    if _needs_grad(x):
+        return _PPermuteFn.apply(x, perm, group)
+    return _traced("mesh_ppermute", x, group, _ppermute_prog, x, perm, group)
+
+
+def _check_identity_perm(perm) -> None:
+    if [tuple(map(int, p)) for p in perm] not in ([], [(0, 0)]):
+        raise ValueError(f"perm {list(perm)} is not a partial permutation "
+                         f"of ranks 0..0")
+
+
+def mesh_all_to_all(x: torch.Tensor, *args, **kwargs) -> torch.Tensor:
+    """All-to-all reshard, differentiable:
+    ``mesh_all_to_all(x, group=None, split_axis=1, concat_axis=0)`` or
+    ``mesh_all_to_all(x, mesh, axis_name, split_axis=1, concat_axis=0)``.
+    This rank's shard is split along ``split_axis`` into ``world`` pieces,
+    piece j goes to rank j, and the pieces received are concatenated
+    along ``concat_axis`` in source order."""
+    if args and _is_mesh(args[0]):
+        mesh, args = args[0], args[1:]
+        axis_name = kwargs.pop("axis_name", None)
+        if axis_name is None and args:
+            axis_name, args = args[0], args[1:]
+        from ray_tpu_torch.parallel.mesh import axis_group
+
+        group = axis_group(mesh, _axis(mesh, axis_name))
+        if group is None:           # one rank: the pieces stay here
+            return x
+    else:
+        group, args = _group_from(args, kwargs)
+    split_axis = args[0] if args else kwargs.pop("split_axis", 1)
+    concat_axis = args[1] if len(args) > 1 else kwargs.pop("concat_axis", 0)
+    if _needs_grad(x):
+        return _AllToAllFn.apply(x, group, split_axis, concat_axis)
+    return _traced("mesh_all_to_all", x, group, _all_to_all_prog, x, group,
+                   split_axis, concat_axis)
 
 
 # -- program-ledger hookup (telemetry/device.py) -------------------------
@@ -589,9 +849,24 @@ _reducescatter = _devtel.instrument(
     dynamic_argnames=("seed",))
 _allgather = _devtel.instrument(_allgather, name="collective.allgather",
                                 dynamic_argnames=("seed",))
-mesh_broadcast = _devtel.instrument(mesh_broadcast,
-                                    name="collective.broadcast")
-mesh_ppermute = _devtel.instrument(mesh_ppermute,
-                                   name="collective.ppermute")
-mesh_all_to_all = _devtel.instrument(mesh_all_to_all,
-                                     name="collective.all_to_all")
+_broadcast_prog = _devtel.instrument(_broadcast,
+                                     name="collective.broadcast")
+_ppermute_prog = _devtel.instrument(_ppermute, name="collective.ppermute")
+_all_to_all_prog = _devtel.instrument(_all_to_all,
+                                      name="collective.all_to_all")
+
+
+def _with_mesh_form(fn):
+    """``fn(x, group, ...)`` that also takes ``fn(x, mesh, axis_name,
+    ...)``: the group of this rank's line along the axis."""
+    @functools.wraps(fn)
+    def call(x, *args, **kwargs):
+        group, args = _group_from(args, kwargs)
+        return fn(x, group, *args, **kwargs)
+
+    return call
+
+
+mesh_allreduce = _with_mesh_form(mesh_allreduce)
+mesh_reducescatter = _with_mesh_form(mesh_reducescatter)
+mesh_allgather = _with_mesh_form(mesh_allgather)

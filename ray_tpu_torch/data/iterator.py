@@ -9,8 +9,8 @@ DataLoader pinned-memory prefetch).
 The port's copy of ``ray_tpu/data/iterator.py``.  Its ``iter_jax_batches``
 is the one body that differs: pinned buffers and a copy stream where the
 reference calls ``jax.device_put``, a ``device=`` argument, and
-``sharding`` raising until the port has meshes (ROADMAP A.6).  ROADMAP §C
-lists what differs.
+``sharding=`` as a ``parallel.NamedSharding`` whose batches come out as
+DTensors.  ROADMAP §C lists what differs.
 """
 
 from __future__ import annotations
@@ -182,20 +182,38 @@ def iter_jax_batches(batch_iter: Iterator[Dict[str, np.ndarray]], *,
     allocator.
 
     ``dtypes`` maps a column to a numpy or torch dtype (or is one dtype
-    for a non-dict batch).  ``sharding`` raises: batches laid out over a
-    mesh wait for the port's meshes (ROADMAP A.6), and without one the
-    reference too places batches on the default device.
+    for a non-dict batch).
+
+    ``sharding`` (a ``parallel.NamedSharding``, e.g. ``batch_sharding(
+    mesh)``) lays each batch out over a mesh, as the reference's
+    ``jax.device_put(batch, sharding)``: every rank iterates the same
+    host batches (the global arrays), stages only its own block of each
+    column through the same ring and copy stream onto the mesh's device,
+    and gets DTensors of the global shape.  With no sharding and a
+    default mesh installed, the reference lays batches over the mesh's
+    data axes only when every device of the mesh belongs to the process;
+    a process of the port holds one rank of its mesh, so its batches go
+    to ``device`` as they do with no mesh (the reference's rule for a
+    multi-process mesh, whose processes each iterate their own shard).
     """
-    if sharding is not None:
-        raise NotImplementedError(
-            "iter_jax_batches(sharding=...): batches laid out over a mesh "
-            "wait for the port's meshes (ROADMAP A.6); without sharding "
-            "they go to `device`")
     import torch
 
     from .._device import resolve_device
 
-    dev = resolve_device(device)
+    if sharding is not None:
+        from ..parallel.mesh import mesh_device
+        from ..parallel.sharding import NamedSharding
+
+        if not isinstance(sharding, NamedSharding):
+            raise TypeError(f"sharding must be a parallel.NamedSharding "
+                            f"(e.g. batch_sharding(mesh)), got "
+                            f"{type(sharding).__name__}")
+        dev = mesh_device(sharding.mesh)
+        if device is not None and torch.device(device) != dev:
+            raise ValueError(f"sharding's mesh computes on {dev}, not "
+                             f"{device}")
+    else:
+        dev = resolve_device(device)
     if dev.type == "cuda":
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
@@ -204,7 +222,31 @@ def iter_jax_batches(batch_iter: Iterator[Dict[str, np.ndarray]], *,
         stager = _HostStager()
     else:
         raise ValueError(f"iter_jax_batches stages to cuda or cpu, not {dev}")
+    if sharding is not None:
+        stager = _ShardedStager(stager, sharding)
     return _iter_staged(batch_iter, stager, dtypes, prefetch)
+
+
+class _ShardedStager:
+    """Stages this rank's block of each column and hands out DTensors of
+    the global shape (``sharding``'s layout)."""
+
+    def __init__(self, inner, sharding):
+        self.inner = inner
+        self.sharding = sharding
+
+    def stage(self, cols):
+        local = {}
+        for k, (x, dtype) in cols.items():
+            arr = np.asarray(x)
+            local[k] = (arr[self.sharding.local_slices(arr.shape)], dtype)
+        return self.inner.stage(local)
+
+    def ready(self, cols):
+        from ..parallel.sharding import from_local
+
+        return {k: from_local(t, self.sharding)
+                for k, t in self.inner.ready(cols).items()}
 
 
 def _iter_staged(batch_iter, stager, dtypes, prefetch):

@@ -51,11 +51,28 @@ def from_jax_params(tree: Dict[str, Any], cfg: GPTConfig, *,
     return convert(tree, param_shapes(cfg), "")
 
 
+def shard_jax_params(tree: Dict[str, Any], cfg: GPTConfig, mesh
+                     ) -> Dict[str, Any]:
+    """``from_jax_params`` onto the mesh's device, then each rank's shards
+    as DTensors laid out by the reference's rules."""
+    from ray_tpu_torch.models.gpt import logical_axes
+    from ray_tpu_torch.parallel.mesh import mesh_device
+    from ray_tpu_torch.parallel.sharding import shard_tree
+
+    params = from_jax_params(tree, cfg, device=mesh_device(mesh))
+    return shard_tree(params, logical_axes(cfg), mesh)
+
+
 def to_numpy_params(params: Dict[str, Any]) -> Dict[str, Any]:
     """The port's param tree -> the same keys with f32 numpy leaves (the
-    form ``jax.tree.map(np.asarray, params)`` gives the reference's)."""
-    return {k: (to_numpy_params(v) if isinstance(v, dict)
-                else v.detach().float().cpu().numpy())
+    form ``jax.tree.map(np.asarray, params)`` gives the reference's); a
+    DTensor leaf is gathered whole (``full_tensor()``)."""
+    def leaf(v):
+        if hasattr(v, "full_tensor"):
+            v = v.full_tensor()
+        return v.detach().float().cpu().numpy()
+
+    return {k: (to_numpy_params(v) if isinstance(v, dict) else leaf(v))
             for k, v in params.items()}
 
 

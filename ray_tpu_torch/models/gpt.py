@@ -18,7 +18,22 @@ Where the reference returns an updated KV array, this port writes the
 cache tensors IN PLACE and returns the same dict (no copy of the arena
 per step); callers that need the old contents must clone first.
 
-Meshes (dp/fsdp/tp/sp/pp) are not ported: passing ``mesh`` raises.
+Meshes (dp/fsdp/ep/sp/tp): ``logical_axes`` annotates the param tree as
+the reference's does, and ``apply_hidden`` / ``apply`` / ``loss_fn``
+take ``mesh=``.  The reference passes global arrays to one program; here
+every rank calls with DTensors (``parallel.shard_tree``), whose global
+view is the reference's array, and the model runs on their local shards
+in one rank-local region with explicit collectives
+(``parallel/spmd.py``): each layer's fsdp-sharded weights gathered on use
+(their gradient reduce-scattered), Megatron's column/row split over
+``tp`` for the heads and the MLP, the vocab-parallel embedding and
+cross-entropy over ``tp``, ring attention (K1-K3 per chunk) over ``sp``,
+and every parameter's gradient summed over the data ranks it is
+replicated on.  The activations are laid out by ``ACTIVATION_RULES``
+(batch over the data axes, seq over ``sp``, heads over ``tp``), and what
+leaves the region is a DTensor of that layout.  Without a mesh the same
+code runs as one rank (every axis 1), where each collective is the
+identity and runs nothing.  ``pp`` > 1 is ROADMAP A.6b and raises.
 """
 
 from __future__ import annotations
@@ -38,6 +53,12 @@ from ray_tpu_torch.ops import (apply_rope, attention,
                                fused_softmax_cross_entropy, gelu_mlp,
                                layer_norm, rms_norm, rope_table,
                                softmax_cross_entropy, swiglu)
+from ray_tpu_torch.ops.ring_attention import ring_attention_sharded
+from ray_tpu_torch.parallel import spmd
+from ray_tpu_torch.parallel.sharding import (ACTIVATION_RULES, Logical,
+                                             NamedSharding, _entry_axes,
+                                             _tree_map, from_local,
+                                             spec_from_logical)
 
 Params = Dict[str, Any]
 
@@ -56,9 +77,10 @@ class GPTConfig:
     pos: str = "learned"      # "learned" | "rope"
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
-    # training: recompute each block in the backward ("full"; the
-    # reference's "dots" policy is not ported), CE over sequence chunks
-    # of loss_chunk (None: dense), z-loss weight
+    # training: recompute each block in the backward ("full"), or save
+    # the matmul outputs and recompute the rest ("dots", the reference's
+    # dots_with_no_batch_dims_saveable), CE over sequence chunks of
+    # loss_chunk (None: dense; off when sp > 1), z-loss weight
     remat: bool = True
     remat_policy: str = "full"
     loss_chunk: Optional[int] = None
@@ -66,6 +88,9 @@ class GPTConfig:
     # q/k/v/o projection biases (real GPT-2 checkpoints have them)
     attn_bias: bool = False
     tie_embeddings: bool = True
+    # how a >1 sp axis attends: "ring" (ring attention) or "none" (K/V
+    # gathered over sp, each rank's rows at their global offset)
+    sp_mode: str = "ring"
 
     @classmethod
     def gpt2_small(cls, **kw):
@@ -120,6 +145,48 @@ def param_shapes(cfg: GPTConfig) -> Dict[str, Any]:
         out["pos_embed"] = (cfg.max_seq, D)
     if not cfg.tie_embeddings:
         out["unembed"] = (D, V)
+    return out
+
+
+def logical_axes(cfg: GPTConfig) -> Dict[str, Any]:
+    """Logical sharding annotations mirroring the param tree (the
+    reference's, ``ray_tpu/models/gpt.py:99-135``)."""
+    lp = {
+        "attn_norm": Logical("layers", None),
+        "wq": Logical("layers", "embed", "heads", "head_dim"),
+        "wk": Logical("layers", "embed", "heads", "head_dim"),
+        "wv": Logical("layers", "embed", "heads", "head_dim"),
+        "wo": Logical("layers", "heads", "head_dim", "embed"),
+        "mlp_norm": Logical("layers", None),
+        "mlp_out": Logical("layers", "mlp", "embed"),
+    }
+    if cfg.act == "swiglu":
+        lp["mlp_gate"] = Logical("layers", "embed", "mlp")
+        lp["mlp_up"] = Logical("layers", "embed", "mlp")
+    else:
+        lp["mlp_in"] = Logical("layers", "embed", "mlp")
+        lp["mlp_in_b"] = Logical("layers", "mlp")
+        lp["mlp_out_b"] = Logical("layers", None)
+    if cfg.norm == "ln":
+        lp["attn_norm_b"] = Logical("layers", None)
+        lp["mlp_norm_b"] = Logical("layers", None)
+    if cfg.attn_bias:
+        lp["wq_b"] = Logical("layers", "heads", "head_dim")
+        lp["wk_b"] = Logical("layers", "heads", "head_dim")
+        lp["wv_b"] = Logical("layers", "heads", "head_dim")
+        lp["wo_b"] = Logical("layers", None)
+    out = {
+        # vocab-only: the lookup is a gather over the vocab rows
+        "embed": Logical("vocab", None),
+        "layers": lp,
+        "final_norm": Logical(None),
+    }
+    if cfg.norm == "ln":
+        out["final_norm_b"] = Logical(None)
+    if cfg.pos == "learned":
+        out["pos_embed"] = Logical(None, "embed")
+    if not cfg.tie_embeddings:
+        out["unembed"] = Logical("embed", "vocab")
     return out
 
 
@@ -184,14 +251,17 @@ def _norm(x, w, b, kind):
     return layer_norm(x, w, b)
 
 
-def _qkv_proj(x, layer, cfg: GPTConfig, rope, positions=None):
+def _qkv_proj(x, layer, cfg: GPTConfig, rope, positions=None, ctx=None):
     """Pre-norm + QKV projection + rope: x [B, S, D] -> q, k, v
     [B, H, S, dh] — the one recipe shared by the forward and the decode
-    paths (decode==forward parity rests on it)."""
+    paths (decode==forward parity rests on it).  H is the weights' own
+    (a rank's heads under tp, whose input's gradient is summed over tp)."""
     B, S, D = x.shape
-    H, dh = cfg.n_heads, cfg.d_head
+    H, dh = layer["wq"].shape[-2], cfg.d_head
     h = _norm(x, layer["attn_norm"], layer.get("attn_norm_b"), cfg.norm)
     h = h.to(cfg.dtype)
+    if ctx is not None:
+        h = spmd.reduce_grad(h, ctx)
 
     def proj(name):
         y = h @ layer[name].to(cfg.dtype).reshape(D, H * dh)
@@ -207,81 +277,126 @@ def _qkv_proj(x, layer, cfg: GPTConfig, rope, positions=None):
     return q, k, v
 
 
-def _attn_out_and_mlp(x, o, layer, cfg: GPTConfig):
+def _attn_out_and_mlp(x, o, layer, cfg: GPTConfig, ctx=None):
     """Output projection + residual + MLP sublayer (shared, see
-    _qkv_proj).  o [B, H, S, dh], x [B, S, D]."""
+    _qkv_proj).  o [B, H, S, dh], x [B, S, D].  Under tp the row-parallel
+    products are summed over tp before their biases."""
     B, H, S, dh = o.shape
     D = cfg.d_model
     att = (o.transpose(1, 2).reshape(B, S, H * dh)
            @ layer["wo"].to(cfg.dtype).reshape(H * dh, D))
+    if ctx is not None:
+        att = spmd.reduce_out(att, ctx)
     if cfg.attn_bias:
         att = att + layer["wo_b"].to(cfg.dtype)
     x = x + att
     h2 = _norm(x, layer["mlp_norm"], layer.get("mlp_norm_b"), cfg.norm)
     h2 = h2.to(cfg.dtype)
+    if ctx is not None:
+        h2 = spmd.reduce_grad(h2, ctx)
     if cfg.act == "swiglu":
         m = swiglu(h2, layer["mlp_gate"].to(cfg.dtype),
                    layer["mlp_up"].to(cfg.dtype),
                    layer["mlp_out"].to(cfg.dtype))
-    else:
+        if ctx is not None:
+            m = spmd.reduce_out(m, ctx)
+    elif ctx is None or ctx.size("tp") == 1:
         m = gelu_mlp(h2, layer["mlp_in"].to(cfg.dtype),
                      layer["mlp_in_b"].to(cfg.dtype),
                      layer["mlp_out"].to(cfg.dtype),
                      layer["mlp_out_b"].to(cfg.dtype))
+    else:   # gelu_mlp with the tp sum before the output bias
+        m = F.gelu(h2 @ layer["mlp_in"].to(cfg.dtype)
+                   + layer["mlp_in_b"].to(cfg.dtype), approximate="tanh")
+        m = spmd.reduce_out(m @ layer["mlp_out"].to(cfg.dtype), ctx)
+        m = m + layer["mlp_out_b"].to(cfg.dtype)
     return x + m
 
 
-def _attention_op(q, k, v):
+def _attention_op(q, k, v, cfg: GPTConfig, ctx):
+    """The forward's attention: flash attention over the whole sequence,
+    or, with an sp axis > 1, the ring over sp (``sp_mode="ring"``) or
+    attention against K/V gathered over sp (``"none"``)."""
     # the flash kernel takes contiguous [B, H, S, dh]
-    return attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                     causal=True)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if ctx.size("sp") == 1:
+        return attention(q, k, v, causal=True)
+    if cfg.sp_mode == "ring":
+        return ring_attention_sharded(q, k, v, "sp", causal=True,
+                                      mesh=ctx.mesh)
+    if cfg.sp_mode != "none":
+        raise ValueError(f"unknown sp_mode {cfg.sp_mode!r}")
+    # rank r's rows see the keys of ranks 0..r: the bottom-right corner
+    # of the first (r+1)*S_loc keys, attention's own causal anchor
+    end = (ctx.coords["sp"] + 1) * q.shape[2]
+    kf = spmd.gather(k, 2, ctx, "sp")[:, :, :end].contiguous()
+    vf = spmd.gather(v, 2, ctx, "sp")[:, :, :end].contiguous()
+    return attention(q, kf, vf, causal=True)
 
 
-def _block(x, params: Params, l: int, cfg: GPTConfig, rope):
-    """One transformer block (attention + MLP sublayers) of layer l."""
-    layer = _layer(params, l)
-    q, k, v = _qkv_proj(x, layer, cfg, rope)
-    return _attn_out_and_mlp(x, _attention_op(q, k, v), layer, cfg)
+def _block(x, params: Params, l: int, cfg: GPTConfig, rope,
+           shards: "_Shards", positions=None):
+    """One transformer block (attention + MLP sublayers) of layer l, its
+    fsdp-sharded weights gathered first."""
+    ctx = shards.ctx
+    layer = {k: shards.gather_layer(k, w)
+             for k, w in _layer(params, l).items()}
+    q, k, v = _qkv_proj(x, layer, cfg, rope, positions, ctx)
+    return _attn_out_and_mlp(x, _attention_op(q, k, v, cfg, ctx), layer,
+                             cfg, ctx)
 
 
-def _check_remat(cfg: GPTConfig) -> None:
-    if not cfg.remat or cfg.remat_policy == "full":
-        return
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save the weight matmuls' outputs (2-D products, no batch dims),
+    recompute everything else."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in _DOT_OPS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _remat_kwargs(cfg: GPTConfig) -> Dict[str, Any]:
+    if cfg.remat_policy == "full":
+        return {}
     if cfg.remat_policy == "dots":
-        raise NotImplementedError(
-            'remat_policy="dots" (save the matmul outputs, recompute the '
-            'rest) is not ported; use remat_policy="full" or remat=False')
+        import functools
+
+        from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+        return {"context_fn": functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)}
     raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+
+
+def _stack(x, params: Params, cfg: GPTConfig, rope, shards: "_Shards",
+           positions=None):
+    """Every block over x, then the final norm."""
+    remat = cfg.remat and torch.is_grad_enabled()
+    kw = _remat_kwargs(cfg) if cfg.remat else {}
+    for l in range(cfg.n_layers):
+        if remat:
+            # the model draws no random numbers: no RNG state to replay
+            x = checkpoint(_block, x, params, l, cfg, rope, shards,
+                           positions, use_reentrant=False,
+                           preserve_rng_state=False, **kw)
+        else:
+            x = _block(x, params, l, cfg, rope, shards, positions)
+    return _norm(x, params["final_norm"], params.get("final_norm_b"),
+                 cfg.norm)
 
 
 def apply_hidden(params: Params, tokens, cfg: GPTConfig, *,
                  device: DeviceLike = None, mesh=None) -> torch.Tensor:
     """Transformer stack up to the final norm: tokens [B, S] ->
-    hidden [B, S, D]."""
-    if mesh is not None:
-        raise NotImplementedError("meshes are not ported; run on one device")
-    _check_remat(cfg)
-    dev = resolve_device(device)
-    check_params_on(params, dev)
-    tokens = torch.as_tensor(tokens, dtype=torch.long, device=dev)
-    S = tokens.shape[1]
-    x = params["embed"][tokens].to(cfg.dtype)
-    if cfg.pos == "learned":
-        x = x + params["pos_embed"][:S][None].to(cfg.dtype)
-        rope = None
-    else:
-        rope = rope_table(S, cfg.d_head, device=dev)
-    # with nothing recorded for a backward there is nothing to recompute
-    remat = cfg.remat and torch.is_grad_enabled()
-    for l in range(cfg.n_layers):
-        if remat:
-            # the model draws no random numbers: no RNG state to replay
-            x = checkpoint(_block, x, params, l, cfg, rope,
-                           use_reentrant=False, preserve_rng_state=False)
-        else:
-            x = _block(x, params, l, cfg, rope)
-    return _norm(x, params["final_norm"], params.get("final_norm_b"),
-                 cfg.norm)
+    hidden [B, S, D].  Under a mesh: params and tokens DTensors (or
+    global tokens), the hidden a DTensor laid out (batch, seq, embed)."""
+    shards = _Shards(cfg, mesh, device)
+    x = _hidden(shards.params(params), shards.block(tokens), cfg, shards)
+    return shards.wrap(x, ("batch", "seq", "embed"))
 
 
 def _unembed_table(params: Params, cfg: GPTConfig) -> torch.Tensor:
@@ -291,9 +406,14 @@ def _unembed_table(params: Params, cfg: GPTConfig) -> torch.Tensor:
 
 def apply(params: Params, tokens, cfg: GPTConfig, *,
           device: DeviceLike = None, mesh=None) -> torch.Tensor:
-    """Forward pass: tokens [B, S] -> logits [B, S, V] in cfg.dtype."""
-    x = apply_hidden(params, tokens, cfg, device=device, mesh=mesh)
-    return x.to(cfg.dtype) @ _unembed_table(params, cfg)
+    """Forward pass: tokens [B, S] -> logits [B, S, V] in cfg.dtype
+    (under a mesh a DTensor laid out (batch, seq, vocab))."""
+    shards = _Shards(cfg, mesh, device)
+    local = shards.params(params)
+    x = _hidden(local, shards.block(tokens), cfg, shards)
+    logits = (spmd.reduce_grad(x.to(cfg.dtype), shards.ctx)
+              @ shards.unembed(local))
+    return shards.wrap(logits, ("batch", "seq", "vocab"))
 
 
 def loss_fn(params: Params, batch: Dict[str, Any], cfg: GPTConfig, *,
@@ -301,30 +421,263 @@ def loss_fn(params: Params, batch: Dict[str, Any], cfg: GPTConfig, *,
     """Next-token LM loss, a scalar f32 tensor.  batch: {"tokens":
     [B, S+1]} or {"inputs", "targets": [B, S]}, and an optional "mask"
     [B, S] that weights the per-token losses.  The fused chunked CE
-    (``cfg.loss_chunk``) runs when the chunk divides S, the dense CE
-    otherwise; both add ``cfg.z_loss``."""
-    if mesh is not None:
-        raise NotImplementedError("meshes are not ported; run on one device")
-    dev = resolve_device(device)
+    (``cfg.loss_chunk``) runs when the chunk divides S (and sp is 1),
+    the dense CE otherwise; both add ``cfg.z_loss``.  Under a mesh the
+    params are DTensors, the batch DTensors laid out by ``shard_batch``
+    or ``batch_sharding`` (or global arrays), and the loss the global
+    mean, the same scalar on every rank."""
+    shards = _Shards(cfg, mesh, device)
+    return _loss(shards.params(params), batch, cfg, shards)
+
+
+# ---------------------------------------------------------------------------
+# One rank-local region over this rank's shards (the whole model without
+# a mesh)
+
+
+class _Shards:
+    """A rank's view of the model: its place on the mesh
+    (``parallel.spmd.MeshCtx``), each leaf's spec under the reference's
+    rules, and the device the shards live on.  With no mesh it is the one
+    rank of an unsharded model on ``device``."""
+
+    def __init__(self, cfg: GPTConfig, mesh=None, device: DeviceLike = None):
+        if mesh is not None and not (hasattr(mesh, "mesh_dim_names")
+                                     and hasattr(mesh, "get_group")):
+            raise TypeError(f"mesh must be a torch DeviceMesh "
+                            f"(parallel.make_mesh), got "
+                            f"{type(mesh).__name__}")
+        self.cfg = cfg
+        self.mesh = mesh
+        self.ctx = spmd.MeshCtx.of(mesh)
+        if mesh is None:
+            self.device = resolve_device(device)
+            self.specs = None
+            return
+        from ray_tpu_torch.parallel.mesh import mesh_device
+
+        if self.ctx.size("pp") > 1:
+            raise NotImplementedError(
+                "a pp axis > 1 runs the GPT as pipeline stages, which come "
+                "with MPMD pipelines (ROADMAP A.6b)")
+        self.device = mesh_device(mesh)
+        self.specs = _tree_map(lambda l: spec_from_logical(l.axes, None, mesh),
+                               logical_axes(cfg))
+
+    def params(self, params: Params) -> Params:
+        """The local shards of a DTensor tree (differentiable: gradients
+        reach the DTensors), each with its gradient summed over the data
+        ranks and sp (those the leaf is replicated over).  Without a mesh:
+        the tree itself, checked to lie on the device."""
+        if self.mesh is None:
+            check_params_on(params, self.device)
+            return params
+        from torch.distributed.tensor import DTensor
+
+        def one(w, spec):
+            if isinstance(w, DTensor):
+                w = w.to_local()
+            if w.device != self.device:
+                raise ValueError(f"a param shard is on {w.device}, the mesh "
+                                 f"computes on {self.device}")
+            used = {a for e in spec for a in _entry_axes(e)}
+            axes = [a for a in ("dp", "fsdp", "ep", "sp") if a not in used]
+            return spmd.reduce_grad(w, self.ctx, axes)
+
+        return _tree_map(one, params, self.specs)
+
+    def fsdp_dim(self, spec) -> Optional[int]:
+        for d, e in enumerate(spec):
+            if "fsdp" in _entry_axes(e):
+                return d
+        return None
+
+    def gather_layer(self, name: str, w):
+        """Layer ``name``'s slice (the stacked dim dropped) whole over
+        fsdp."""
+        if self.ctx.size("fsdp") == 1:
+            return w
+        d = self.fsdp_dim(self.specs["layers"][name])
+        return w if d is None else spmd.gather(w, d - 1, self.ctx)
+
+    def gather_top(self, name: str, w):
+        if self.ctx.size("fsdp") == 1:
+            return w
+        d = self.fsdp_dim(self.specs[name])
+        return w if d is None else spmd.gather(w, d, self.ctx)
+
+    def unembed(self, local: Params) -> torch.Tensor:
+        """This rank's vocab columns of the unembedding, [D, V/tp]."""
+        if self.cfg.tie_embeddings:
+            return local["embed"].T.to(self.cfg.dtype)
+        return self.gather_top("unembed", local["unembed"]).to(
+            self.cfg.dtype)
+
+    def batch_rows(self, x):
+        """(this rank's rows of a batch leaf, whether its dim 1 is already
+        this rank's sp slice).  A DTensor must be laid out batch over the
+        data axes (``shard_batch``, or ``batch_sharding``'s seq over sp);
+        anything else is the global batch."""
+        from torch.distributed.tensor import DTensor
+
+        if isinstance(x, DTensor):
+            names = tuple(x.device_mesh.mesh_dim_names)
+            rows, seq = [], []
+            for a, p in zip(names, x.placements):
+                if p.is_shard(0):
+                    rows.append(a)
+                elif p.is_shard(1):
+                    seq.append(a)
+                elif p.is_shard():
+                    raise ValueError(f"a batch sharded on dim {p.dim} over "
+                                     f"{a!r}: batches shard dim 0 over the "
+                                     f"data axes, dim 1 over sp")
+            want = [a for a in spmd.DATA_AXES if self.ctx.size(a) > 1]
+            got = [a for a in rows if self.ctx.size(a) > 1]
+            if got != want or [a for a in seq if self.ctx.size(a) > 1]                     not in ([], ["sp"] if self.ctx.size("sp") > 1 else []):
+                raise ValueError(
+                    f"batch placements {x.placements} do not shard the "
+                    f"batch over {want} (and the sequence over sp)")
+            return x.to_local().to(self.device), "sp" in seq and                 self.ctx.size("sp") > 1
+        x = torch.as_tensor(x, device=self.device)
+        n = self.ctx.data_size
+        if x.shape[0] % n:
+            raise ValueError(f"a batch of {x.shape[0]} rows does not divide "
+                             f"over {n} data ranks")
+        blk = x.shape[0] // n
+        i = self.ctx.data_index
+        return x[i * blk:(i + 1) * blk], False
+
+    def seq_slice(self, x, done: bool = False):
+        """This rank's sp slice of dim 1."""
+        n = self.ctx.size("sp")
+        if n == 1 or done:
+            return x
+        if x.shape[1] % n:
+            raise ValueError(f"a sequence of {x.shape[1]} does not divide "
+                             f"over sp={n}")
+        blk = x.shape[1] // n
+        r = self.ctx.coords["sp"]
+        return x[:, r * blk:(r + 1) * blk]
+
+    def block(self, x):
+        """This rank's block of a batch leaf: its rows and sp slice."""
+        rows, done = self.batch_rows(x)
+        return self.seq_slice(rows, done)
+
+    def wrap(self, local: torch.Tensor, logical):
+        """A DTensor of this rank's block of an activation laid out by
+        ``ACTIVATION_RULES`` (without a mesh, the tensor itself)."""
+        if self.mesh is None:
+            return local
+        return from_local(local, NamedSharding(self.mesh, spec_from_logical(
+            logical, ACTIVATION_RULES, self.mesh)))
+
+
+def _hidden(local: Params, tokens, cfg: GPTConfig, shards: _Shards):
+    """The stack on this rank's rows and sp slice of the tokens: hidden
+    [B/data, S/sp, D], replicated over tp."""
+    ctx = shards.ctx
+    tokens = tokens.to(dtype=torch.long)
+    S = tokens.shape[1]
+    off = ctx.coords["sp"] * S
+    table = local["embed"]
+    if ctx.size("tp") == 1:
+        x = table[tokens]
+    else:   # vocab-parallel lookup: this rank's rows, summed over tp
+        v_loc = table.shape[0]
+        ids = tokens - ctx.coords["tp"] * v_loc
+        hit = (ids >= 0) & (ids < v_loc)
+        x = table[ids.clamp(0, v_loc - 1)] * hit[..., None].to(table.dtype)
+        x = spmd.reduce_out(x, ctx)
+    x = x.to(cfg.dtype)
+    positions = None
+    if cfg.pos == "learned":
+        pe = shards.gather_top("pos_embed", local["pos_embed"])
+        x = x + pe[off:off + S][None].to(cfg.dtype)
+        rope = None
+    else:
+        rope = rope_table(off + S, cfg.d_head, device=shards.device)
+        if ctx.size("sp") > 1:
+            positions = off + torch.arange(S, device=shards.device)
+    return _stack(x, local, cfg, rope, shards, positions)
+
+
+def _vocab_parallel_ce(logits: torch.Tensor, labels: torch.Tensor,
+                       z_loss: float, ctx) -> torch.Tensor:
+    """``softmax_cross_entropy`` on logits whose vocab is split over tp:
+    the max, the sum of exponentials and the label's logit each summed
+    over tp."""
+    logits = logits.float()
+    v_loc = logits.shape[-1]
+    m = spmd.all_max(logits.detach().amax(dim=-1), ctx, ("tp",))
+    se = spmd.reduce_out(torch.exp(logits - m[..., None]).sum(dim=-1), ctx)
+    lse = m + torch.log(se)
+    ids = labels.long() - ctx.coords["tp"] * v_loc
+    hit = (ids >= 0) & (ids < v_loc)
+    ll = logits.gather(-1, ids.clamp(0, v_loc - 1)[..., None])[..., 0]
+    ll = spmd.reduce_out(ll * hit.to(ll.dtype), ctx)
+    loss = lse - ll
+    if z_loss:
+        loss = loss + z_loss * lse.square()
+    return loss
+
+
+def _ce(x, table, targets, cfg: GPTConfig, ctx, chunk):
+    """Per-token CE of hidden x against this rank's vocab columns."""
+    x = spmd.reduce_grad(x.to(cfg.dtype), ctx)
+    if ctx.size("tp") == 1:
+        if chunk:
+            return fused_softmax_cross_entropy(x, table, targets,
+                                               z_loss=cfg.z_loss, chunk=chunk)
+        return softmax_cross_entropy(x @ table, targets, z_loss=cfg.z_loss)
+    if not chunk:
+        return _vocab_parallel_ce(x @ table, targets, cfg.z_loss, ctx)
+    S = x.shape[1]
+    if S % chunk:
+        raise ValueError(f"sequence length {S} is not a multiple of the "
+                         f"loss chunk {chunk}")
+
+    def chunk_loss(xc, lc):
+        return _vocab_parallel_ce(xc @ table, lc, cfg.z_loss, ctx)
+
+    return torch.cat([
+        checkpoint(chunk_loss, x[:, i:i + chunk], targets[:, i:i + chunk],
+                   use_reentrant=False, preserve_rng_state=False)
+        for i in range(0, S, chunk)], dim=1)
+
+
+def _loss(local: Params, batch: Dict[str, Any], cfg: GPTConfig,
+          shards: _Shards) -> torch.Tensor:
+    """``loss_fn`` on this rank's shards (``_Shards.params``): the global
+    mean, summed over the data ranks and sp."""
+    ctx = shards.ctx
     if "inputs" in batch:
-        inputs, targets = batch["inputs"], batch["targets"]
+        inputs, in_done = shards.batch_rows(batch["inputs"])
+        targets, t_done = shards.batch_rows(batch["targets"])
     else:
-        toks = torch.as_tensor(batch["tokens"], device=dev)
+        toks, _ = shards.batch_rows(batch["tokens"])
         inputs, targets = toks[:, :-1], toks[:, 1:]
-    targets = torch.as_tensor(targets, dtype=torch.long, device=dev)
+        in_done = t_done = False
+    inputs = shards.seq_slice(inputs, in_done)
+    targets = shards.seq_slice(targets, t_done).to(torch.long)
     chunk = cfg.loss_chunk
-    if chunk and targets.shape[1] % chunk == 0:
-        x = apply_hidden(params, inputs, cfg, device=dev)
-        loss = fused_softmax_cross_entropy(
-            x.to(cfg.dtype), _unembed_table(params, cfg), targets,
-            z_loss=cfg.z_loss, chunk=chunk)
-    else:
-        logits = apply(params, inputs, cfg, device=dev)
-        loss = softmax_cross_entropy(logits, targets, z_loss=cfg.z_loss)
+    # the sequence is split over sp: chunking it would cut across ranks
+    if not (chunk and ctx.size("sp") == 1
+            and targets.shape[1] % chunk == 0):
+        chunk = None
+    x = _hidden(local, inputs, cfg, shards)
+    loss = _ce(x, shards.unembed(local), targets, cfg, ctx, chunk)
+    over = spmd.DATA_AXES + ("sp",)
     if "mask" in batch:
-        mask = torch.as_tensor(batch["mask"], device=dev).float()
-        return (loss * mask).sum() / mask.sum().clamp_min(1.0)
-    return loss.mean()
+        mask, m_done = shards.batch_rows(batch["mask"])
+        mask = shards.seq_slice(mask, m_done).float()
+        num = spmd.reduce_out((loss * mask).sum(), ctx, over)
+        return num / spmd.all_sum(mask.sum(), ctx, over).clamp_min(1.0)
+    if ctx.data_size * ctx.size("sp") == 1:
+        return loss.mean()
+    total = spmd.reduce_out(loss.sum(), ctx, over)
+    return total / (loss.numel() * ctx.data_size * ctx.size("sp"))
 
 
 # ---------------------------------------------------------------------------

@@ -12,6 +12,10 @@ from ray_tpu_torch.ops.quantize import (dequantize_accumulate,
                                         dequantize_blockwise,
                                         quantization_error,
                                         quantize_blockwise)
+from ray_tpu_torch.ops.ring_attention import (ring_attention,
+                                              ring_attention_sharded)
+from ray_tpu_torch.ops.ulysses import (ulysses_attention,
+                                       ulysses_attention_sharded)
 from ray_tpu_torch.ops.layers import (apply_rope, fused_softmax_cross_entropy,
                                       gelu_mlp, layer_norm, rms_norm,
                                       rope_table, softmax_cross_entropy,
@@ -24,5 +28,6 @@ __all__ = [
     "apply_rope", "fused_softmax_cross_entropy", "gelu_mlp", "layer_norm",
     "rms_norm", "rope_table", "softmax_cross_entropy", "swiglu",
     "quantize_blockwise", "dequantize_blockwise", "dequantize_accumulate",
-    "quantization_error",
+    "quantization_error", "ring_attention", "ring_attention_sharded",
+    "ulysses_attention", "ulysses_attention_sharded",
 ]

@@ -230,15 +230,16 @@ def _check_offset(sq: int, sk: int, causal: bool, q_offset: int) -> None:
             f"bottom-right (decode) alignment, or pad q to sk.")
 
 
-def _forward(q, k, v, causal, scale, q_offset, with_lse):
+def _forward(q, k, v, causal, scale, q_offset, with_lse, plain=False):
     """(out, lse or None): the forward kernel for CUDA tensors, its plain
-    version for CPU tensors."""
-    if q.device.type == "cuda":
+    version for CPU tensors (or on any device when the caller asks for
+    the plain version by name, ``plain=True``)."""
+    if q.device.type == "cuda" and not plain:
         from ray_tpu_torch.ops import _kernels
 
         return _kernels.flash_fwd(q, k, v, causal=causal, scale=scale,
                                   q_offset=q_offset, with_lse=with_lse)
-    if q.device.type != "cpu":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no flash attention for device {q.device}")
     if with_lse:
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
@@ -254,10 +255,11 @@ class _FlashAttention(torch.autograd.Function):
     (out, lse), both differentiable: lse's cotangent folds into di."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale, q_offset):
-        out, lse = _forward(q, k, v, causal, scale, q_offset, True)
+    def forward(ctx, q, k, v, causal, scale, q_offset, plain=False):
+        out, lse = _forward(q, k, v, causal, scale, q_offset, True, plain)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.scale, ctx.q_offset = causal, scale, q_offset
+        ctx.plain = plain
         ctx.set_materialize_grads(False)
         return out, lse
 
@@ -266,7 +268,7 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         # the grad of o arrives through transpose(1, 2).reshape
         do = torch.zeros_like(o) if do is None else do.contiguous()
-        if q.device.type == "cuda":
+        if q.device.type == "cuda" and not ctx.plain:
             from ray_tpu_torch.ops import _kernels
 
             dq, dk, dv = _kernels.flash_bwd(
@@ -276,17 +278,19 @@ class _FlashAttention(torch.autograd.Function):
             dq, dk, dv = flash_attention_bwd_plain(
                 q, k, v, o, lse, do, dlse, causal=ctx.causal,
                 scale=ctx.scale, q_offset=ctx.q_offset)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
-def _flash(q, k, v, causal, scale, q_offset, with_lse):
+def _flash(q, k, v, causal, scale, q_offset, with_lse, plain=False):
     _check_offset(q.shape[-2], k.shape[-2], causal, q_offset)
     scale = (q.shape[-1] ** -0.5) if scale is None else float(scale)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        out, lse = _FlashAttention.apply(q, k, v, causal, scale, q_offset)
+        out, lse = _FlashAttention.apply(q, k, v, causal, scale, q_offset,
+                                         plain)
     else:   # nothing to differentiate: no graph, and lse only on request
-        out, lse = _forward(q, k, v, causal, scale, q_offset, with_lse)
+        out, lse = _forward(q, k, v, causal, scale, q_offset, with_lse,
+                            plain)
     return (out, lse) if with_lse else out
 
 

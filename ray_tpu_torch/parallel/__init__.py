@@ -1,6 +1,22 @@
-"""Data-parallel gradient sync for the port (see ray_tpu/parallel).  The
-meshes, logical-axis rules and pipelines come with ROADMAP A.6."""
+"""Meshes, logical-axis sharding and data-parallel gradient sync for the
+port (see ray_tpu/parallel).  MPMD pipelines come with ROADMAP A.6b."""
 
-from .sharding import GradientSynchronizer
+from .mesh import (AXIS_ORDER, MeshSpec, axis_index, axis_sizes,
+                   batch_sharding, data_axes, default_mesh,
+                   get_default_mesh, local_mesh, make_mesh,
+                   make_multislice_mesh, replicated, set_default_mesh,
+                   slice_groups)
+from .sharding import (ACTIVATION_RULES, DEFAULT_RULES, GradientSynchronizer,
+                       Logical, NamedSharding, PartitionSpec, distribute,
+                       shard_tree, spec_from_logical, spec_of,
+                       tree_shardings, with_constraint)
 
-__all__ = ["GradientSynchronizer"]
+__all__ = [
+    "AXIS_ORDER", "MeshSpec", "make_mesh", "make_multislice_mesh",
+    "local_mesh", "slice_groups", "batch_sharding",
+    "data_axes", "replicated", "axis_sizes", "axis_index",
+    "set_default_mesh", "get_default_mesh", "default_mesh",
+    "DEFAULT_RULES", "ACTIVATION_RULES", "GradientSynchronizer", "Logical",
+    "NamedSharding", "PartitionSpec", "distribute", "spec_from_logical",
+    "spec_of", "tree_shardings", "shard_tree", "with_constraint",
+]

@@ -1,12 +1,25 @@
-"""Explicit data-parallel gradient sync with compressed collectives.
+"""Logical-axis sharding rules, and explicit data-parallel gradient sync
+with compressed collectives.
 
-Counterpart of ``GradientSynchronizer`` in ``ray_tpu/parallel/sharding.py``
-(:129-296).  The logical-axis rules, ``shard_tree`` and the other mesh
-helpers of that module come with the meshes slice (ROADMAP A.6).
+Counterpart of ``ray_tpu/parallel/sharding.py``.  Parameters carry
+*logical* axis names and a rule table maps them to mesh axes: ZeRO-3 is
+sharding every parameter's embed axis over ``fsdp``, TP sharding the
+head / mlp / vocab axes over ``tp``, SP sharding the sequence axis of
+activations over ``sp``.  A ``PartitionSpec`` names the mesh axes of
+each tensor dim as the reference's does; ``NamedSharding(mesh, spec)``
+turns it into a ``DTensor`` placement list (``Shard(d)`` on each mesh
+dim that tensor dim ``d`` names, ``Replicate()`` elsewhere), and
+``shard_tree`` places a tree with ``DTensor.from_local``: every rank
+passes the same global tensor and keeps its own block (the reference's
+``jax.device_put``), with no communication.
+
+``GradientSynchronizer`` is the reference's (:129-296) bucketed,
+int8-compressed data-parallel gradient sync over a collective group.
 """
 
 from __future__ import annotations
 
+import math
 from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
                     Sequence, Tuple)
 
@@ -20,6 +33,277 @@ from ray_tpu_torch.collective.compression import (CompressionConfig,
                                                   result_block_size)
 from ray_tpu_torch.collective.nccl_group import _resolve_rs_impl
 from ray_tpu_torch.ops.quantize import padded_len, quantization_error
+
+
+class PartitionSpec(tuple):
+    """The reference's ``jax.sharding.PartitionSpec``: one entry per
+    tensor dim, each None, a mesh axis name, or a tuple of names."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, tuple(
+            tuple(e) if isinstance(e, list) else e for e in entries))
+
+    def __getnewargs__(self):
+        return tuple(self)
+
+    def __repr__(self):
+        return f"P{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+# logical axis -> mesh axis (or tuple of mesh axes, or None = replicate)
+DEFAULT_RULES: Dict[str, Any] = {
+    "batch": ("dp", "fsdp", "ep"),
+    "seq": "sp",
+    "embed": "fsdp",       # ZeRO-3: shard params' embed dim over fsdp
+    "heads": "tp",
+    "kv_heads": "tp",
+    "head_dim": None,
+    "mlp": "tp",
+    "vocab": "tp",
+    "layers": "pp",        # stacked-layer leading axis: stage-sharded when pp>1
+    "stages": "pp",
+    "experts": "ep",
+    "conv_in": None,
+    "conv_out": "fsdp",
+    "norm": None,
+}
+
+# Rules for ACTIVATION constraints: fsdp shards PARAMETER embed dims
+# (ZeRO-3: gathered on use); activations keep fsdp on their batch dim, so
+# their embed dim stays unsharded (the reference's split, :36-48).
+ACTIVATION_RULES: Dict[str, Any] = {
+    **DEFAULT_RULES,
+    "embed": None,
+    "conv_out": None,
+}
+
+
+def _sizes(mesh) -> Dict[str, int]:
+    from .mesh import axis_sizes
+
+    return axis_sizes(mesh)
+
+
+def spec_from_logical(logical: Sequence[Optional[str]],
+                      rules: Optional[Dict[str, Any]] = None,
+                      mesh=None) -> PartitionSpec:
+    """Map a tuple of logical axis names to a PartitionSpec.
+
+    Axes whose mesh axis has size 1 (or is absent) become None so the same
+    model code runs on any mesh shape; a mesh axis shards one tensor dim
+    only, and on a clash the leftmost dim keeps it.
+    """
+    rules = {**DEFAULT_RULES, **(rules or {})}
+    sizes = _sizes(mesh) if mesh is not None else None
+    out = []
+    used: set = set()
+    for name in logical:
+        mesh_axes = rules.get(name) if name is not None else None
+        if mesh_axes is None:
+            out.append(None)
+            continue
+        if isinstance(mesh_axes, str):
+            mesh_axes = (mesh_axes,)
+        if sizes is not None:
+            mesh_axes = tuple(a for a in mesh_axes if sizes.get(a, 1) > 1)
+        mesh_axes = tuple(a for a in mesh_axes if a not in used)
+        used.update(mesh_axes)
+        if not mesh_axes:
+            out.append(None)
+        elif len(mesh_axes) == 1:
+            out.append(mesh_axes[0])
+        else:
+            out.append(tuple(mesh_axes))
+    while out and out[-1] is None:
+        out.pop()
+    return PartitionSpec(*out)
+
+
+class Logical:
+    """Annotation carried on parameter tree leaves."""
+
+    __slots__ = ("axes",)
+
+    def __init__(self, *axes: Optional[str]):
+        self.axes = axes
+
+    def __repr__(self):
+        return f"Logical{self.axes!r}"
+
+
+def _entry_axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+class NamedSharding:
+    """A spec on a mesh (the reference's ``NamedSharding``): its DTensor
+    placements, and the block of a global tensor each rank holds."""
+
+    def __init__(self, mesh, spec: Sequence = ()):
+        self.mesh = mesh
+        self.spec = spec if isinstance(spec, PartitionSpec) \
+            else PartitionSpec(*spec)
+        names = tuple(mesh.mesh_dim_names)
+        seen = []
+        for entry in self.spec:
+            for a in _entry_axes(entry):
+                if a not in names:
+                    raise ValueError(f"spec {self.spec} names axis {a!r}, "
+                                     f"not in the mesh {names}")
+                if a in seen:
+                    raise ValueError(f"spec {self.spec} names {a!r} twice")
+                seen.append(a)
+        # DTensor splits a dim over several mesh dims in mesh order,
+        # outermost first, as a tuple entry lists them outer to inner
+        for entry in self.spec:
+            axes = _entry_axes(entry)
+            if list(axes) != sorted(axes, key=names.index):
+                raise ValueError(f"spec entry {entry} lists mesh axes out "
+                                 f"of the mesh's order {names}")
+
+    @property
+    def placements(self) -> Tuple[Any, ...]:
+        from torch.distributed.tensor import Replicate, Shard
+
+        out = []
+        for name in self.mesh.mesh_dim_names:
+            dim = next((d for d, e in enumerate(self.spec)
+                        if name in _entry_axes(e)), None)
+            out.append(Replicate() if dim is None else Shard(dim))
+        return tuple(out)
+
+    def shard_counts(self, ndim: int) -> List[int]:
+        """How many blocks each tensor dim is cut into."""
+        sizes = _sizes(self.mesh)
+        return [math.prod(sizes[a] for a in _entry_axes(e))
+                for e in (tuple(self.spec) + (None,) * ndim)[:ndim]]
+
+    def local_slices(self, shape: Sequence[int]) -> Tuple[slice, ...]:
+        """This rank's block of a global tensor of ``shape``: even blocks,
+        as the reference requires (an indivisible dim raises)."""
+        from .mesh import axis_index
+
+        sizes = _sizes(self.mesh)
+        out = []
+        for d, n in enumerate(shape):
+            entry = self.spec[d] if d < len(self.spec) else None
+            axes = _entry_axes(entry)
+            count = math.prod(sizes[a] for a in axes)
+            if n % count:
+                raise ValueError(
+                    f"dim {d} of shape {tuple(shape)} ({n}) does not "
+                    f"divide over {axes} ({count}) in spec {self.spec}")
+            idx = 0
+            for a in axes:                  # outer to inner
+                idx = idx * sizes[a] + axis_index(self.mesh, a)
+            blk = n // count
+            out.append(slice(idx * blk, (idx + 1) * blk))
+        return tuple(out)
+
+    def __eq__(self, other):
+        return (isinstance(other, NamedSharding) and other.mesh is self.mesh
+                and other.spec == self.spec)
+
+    def __hash__(self):
+        return hash((id(self.mesh), self.spec))
+
+    def __repr__(self):
+        return f"NamedSharding({self.spec!r})"
+
+
+def from_local(local: torch.Tensor, sharding: NamedSharding):
+    """The DTensor whose block on this rank is ``local`` (its memory, no
+    copy), of the global shape the even blocks make."""
+    from torch.distributed.tensor import DTensor
+
+    counts = sharding.shard_counts(local.dim())
+    shape = torch.Size(n * c for n, c in zip(local.shape, counts))
+    return DTensor.from_local(local, sharding.mesh, sharding.placements,
+                              run_check=False, shape=shape,
+                              stride=_contiguous_stride(shape))
+
+
+def distribute(x, sharding: NamedSharding):
+    """Place a global tensor on the mesh (the reference's
+    ``jax.device_put(x, sharding)``): every rank passes the same ``x`` and
+    keeps its block, as a DTensor of x's global shape.  A DTensor is
+    redistributed instead."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(x, DTensor):
+        return x.redistribute(sharding.mesh, sharding.placements)
+    x = torch.as_tensor(x)
+    return from_local(x[sharding.local_slices(x.shape)].contiguous(),
+                      sharding)
+
+
+def _contiguous_stride(shape) -> Tuple[int, ...]:
+    stride, acc = [], 1
+    for n in reversed(tuple(shape)):
+        stride.append(acc)
+        acc *= int(n)
+    return tuple(reversed(stride))
+
+
+def spec_of(x) -> PartitionSpec:
+    """The PartitionSpec of a DTensor's placements (P() for a tensor
+    that lies whole on one device)."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return PartitionSpec()
+    names = x.device_mesh.mesh_dim_names
+    dims: Dict[int, List[str]] = {}
+    for name, pl in zip(names, x.placements):
+        if pl.is_shard():
+            dims.setdefault(pl.dim % x.dim(), []).append(name)
+    out = [None] * x.dim()
+    for d, axes in dims.items():
+        out[d] = axes[0] if len(axes) == 1 else tuple(axes)
+    while out and out[-1] is None:
+        out.pop()
+    return PartitionSpec(*out)
+
+
+def _tree_map(fn, tree, *rest):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_shardings(logical_tree, mesh,
+                   rules: Optional[Dict[str, Any]] = None):
+    """Map a tree of Logical annotations to NamedShardings."""
+    return _tree_map(
+        lambda l: NamedSharding(mesh, spec_from_logical(l.axes, rules, mesh)),
+        logical_tree)
+
+
+def shard_tree(tree, logical_tree, mesh,
+               rules: Optional[Dict[str, Any]] = None):
+    """Place a concrete tree (tensors or numpy arrays, global values) on
+    the mesh per its logical annotations: a tree of DTensors."""
+    sh = tree_shardings(logical_tree, mesh, rules)
+    return _tree_map(lambda x, s: distribute(x, s), tree, sh)
+
+
+def with_constraint(x, logical: Tuple[Optional[str], ...],
+                    rules: Optional[Dict[str, Any]] = None):
+    """Sharding constraint by logical axes (the reference's
+    ``with_sharding_constraint``): a DTensor is redistributed to the
+    spec on its own mesh; anything else is returned as it is (no mesh)."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    spec = spec_from_logical(logical, rules, mesh)
+    return x.redistribute(mesh, NamedSharding(mesh, spec).placements)
 
 
 def _flatten(tree) -> Tuple[List[torch.Tensor], Callable[[List], Any]]:

@@ -29,14 +29,22 @@ is the memory budget that decides a serving engine's admission.
     analysis records why it has no fields.
 
 ``DeviceMemoryCensus``
-    Walks the CUDA tensors that Python can reach (``gc``), counting each
-    storage once (a view adds nothing), by dtype and shape, beside the
+    Reads the CUDA tensors that Python can reach, counting each
+    storage once (a view adds nothing; a DTensor is its local shard), by
+    dtype and shape, beside the
     caching allocator's ``memory_allocated`` / ``memory_reserved`` per
     card, plus registered owner reports — the serve engine registers its
     ``PageAllocator`` arena occupancy (free / used / shared / COW
     pages) and the emergency vault its footprint.  Crossing a configured
-    watermark of the walked ``total_bytes`` publishes a
+    watermark of the counted ``total_bytes`` publishes a
     ``memory_watermark`` advisory with the same episode semantics.
+    Where the reference reads ``jax.live_arrays()``, the census reads a
+    weak registry of tensors (``_TensorRegistry``): the young
+    generations of ``gc`` are scanned as each collection that promotes
+    objects to the old generation starts, so every long-lived tensor is
+    registered once on its way there, and a census scans only the young
+    generations beside the registry — never the whole heap, but for one
+    walk that seeds the registry at a process's first census.
 
 Snapshots flush to control-plane KV namespace ``_device`` (keyed
 ``device:<worker_id>``) over the same rate-limited, never-raises path
@@ -722,6 +730,115 @@ class InstrumentedProgram:
 CENSUS_DEVICE_TYPES: Tuple[str, ...] = ("cuda",)
 
 
+class _TensorRegistry:
+    """The tensors a census reads, found without walking the heap.
+
+    CPython 3.12's collector moves the survivors of a collection of
+    generation 1 or 2 into generation 2, the old one.  A ``gc`` callback
+    scans the young generations (0 and 1: at most a few thousand objects)
+    as each such collection starts and keeps a weak reference to every
+    tensor of a census device type there; a tensor that dies drops out
+    through its reference's callback.  So the registry holds every tensor
+    in the old generation, and a census reads it plus one scan of the
+    young generations.  The first census of a process (or one with other
+    device types) seeds the registry with one walk of the whole heap."""
+
+    def __init__(self):
+        self._refs: Dict[int, Any] = {}
+        self._types: Optional[Tuple[str, ...]] = None
+        self._torch = None
+        self.seeds = 0
+        self.seed_s = 0.0
+        self.gc_scans = 0
+        self.gc_scan_s = 0.0
+
+    def _tensors(self, objs) -> List[Any]:
+        """The tensors of ``objs`` on a census device type (the type test
+        runs in C: one ``map`` of ``type`` over the objects)."""
+        import itertools
+
+        tensor_type = self._torch.Tensor
+        kinds = frozenset(k for k in set(map(type, objs))
+                          if issubclass(k, tensor_type))
+        if not kinds:
+            return []
+        out = []
+        for t in itertools.compress(objs, map(kinds.__contains__,
+                                              map(type, objs))):
+            try:
+                if t.device.type in self._types:
+                    out.append(t)
+            except Exception:
+                continue
+        return out
+
+    def _add(self, tensors) -> None:
+        import weakref
+
+        refs = self._refs
+        for t in tensors:
+            key = id(t)
+
+            def drop(r, key=key, refs=refs):
+                if refs.get(key) is r:
+                    del refs[key]
+
+            refs[key] = weakref.ref(t, drop)
+
+    def _on_gc(self, phase: str, info: Dict[str, Any]) -> None:
+        if phase != "start" or info.get("generation", 0) < 1 \
+                or self._types is None:
+            return
+        t0 = time.perf_counter()
+        try:
+            self._add(self._tensors(gc.get_objects(0) + gc.get_objects(1)))
+        except Exception:
+            pass                          # a callback must never raise
+        self.gc_scans += 1
+        self.gc_scan_s += time.perf_counter() - t0
+
+    def live(self, torch, types: Tuple[str, ...]):
+        """(every tensor of ``types`` Python reaches, objects scanned)."""
+        self._torch = torch
+        scanned = 0
+        if self._types != tuple(types):
+            t0 = time.perf_counter()
+            self._types = tuple(types)
+            self._refs = {}
+            objs = gc.get_objects()
+            scanned += len(objs)
+            self._add(self._tensors(objs))
+            del objs
+            self.seeds += 1
+            self.seed_s += time.perf_counter() - t0
+            if self._on_gc not in gc.callbacks:
+                gc.callbacks.append(self._on_gc)
+        young = gc.get_objects(0) + gc.get_objects(1)
+        scanned += len(young)
+        found = {id(t): t for t in self._tensors(young)}
+        del young
+        for r in list(self._refs.values()):
+            t = r()
+            if t is not None:
+                found[id(t)] = t
+        return list(found.values()), scanned
+
+    def stats(self) -> Dict[str, Any]:
+        return {"registered": len(self._refs), "seeds": self.seeds,
+                "seed_s": round(self.seed_s, 6), "gc_scans": self.gc_scans,
+                "gc_scan_s": round(self.gc_scan_s, 6)}
+
+
+_registry = _TensorRegistry()
+
+
+def census_registry_stats() -> Dict[str, Any]:
+    """The registry's size, its seeding walks and the scans its ``gc``
+    callback ran, each with their seconds (what the census costs outside
+    a census)."""
+    return _registry.stats()
+
+
 class DeviceMemoryCensus:
     """Samples live device memory and registered owner reports.
 
@@ -753,30 +870,24 @@ class DeviceMemoryCensus:
             self._owners.pop(tag, None)
 
     def _live_buffers(self) -> Dict[str, Any]:
-        """The walk: every tensor on a card (``CENSUS_DEVICE_TYPES``) that
-        Python can reach, each storage counted once — a view adds no
-        bytes — attributed to the largest tensor over it; beside it the
-        caching allocator's counters per card.  Tensors only C++ holds
-        (autograd's saved activations, a kernel's workspace) show in the
-        allocator's numbers alone."""
+        """Every tensor on a card (``CENSUS_DEVICE_TYPES``) that Python
+        can reach (``_TensorRegistry``), each storage counted once — a
+        view adds no bytes — attributed to the largest tensor over it;
+        beside it the caching allocator's counters per card.  Tensors
+        only C++ holds (autograd's saved activations, a kernel's
+        workspace) show in the allocator's numbers alone."""
         t0 = time.perf_counter()
         total = 0
         by_dtype: Dict[str, int] = {}
         shapes: Dict[Tuple[str, Tuple[int, ...]], Dict[str, Any]] = {}
         allocator: Dict[str, Dict[str, int]] = {}
         storages: Dict[Tuple[str, int], Tuple[int, Any]] = {}
+        scanned = 0
         torch = sys.modules.get("torch")
         if torch is not None:
-            types = CENSUS_DEVICE_TYPES
-            tensor_type = torch.Tensor
-            for t in gc.get_objects():
-                # type(), not isinstance(): a lazy module proxy answers
-                # isinstance's __class__ probe with a warning
-                if not issubclass(type(t), tensor_type):
-                    continue
+            tensors, scanned = _registry.live(torch, CENSUS_DEVICE_TYPES)
+            for t in tensors:
                 try:
-                    if t.device.type not in types:
-                        continue
                     st = t.untyped_storage()
                     key = (str(t.device), st.data_ptr())
                     nbytes = int(st.nbytes())
@@ -785,6 +896,7 @@ class DeviceMemoryCensus:
                         storages[key] = (nbytes, t)
                 except Exception:
                     continue  # sparse / meta layouts have no storage
+            del tensors
             if torch.cuda.is_initialized():
                 for i in range(torch.cuda.device_count()):
                     allocator[f"cuda:{i}"] = {
@@ -808,7 +920,7 @@ class DeviceMemoryCensus:
         return {"total_bytes": total, "count": sum(
                     s["count"] for s in shapes.values()),
                 "by_dtype": by_dtype, "top_shapes": top,
-                "allocator": allocator,
+                "allocator": allocator, "scanned": scanned,
                 "walk_s": round(time.perf_counter() - t0, 6)}
 
     def census(self) -> Dict[str, Any]:

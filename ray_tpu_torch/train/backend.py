@@ -28,6 +28,7 @@ over that group) runs unchanged in both modes.
 from __future__ import annotations
 
 import logging
+import os
 from collections import defaultdict
 from dataclasses import dataclass
 from typing import TYPE_CHECKING, Any, Dict, List, Optional, Union
@@ -226,8 +227,12 @@ class JaxConfig(BackendConfig):
         every worker's group default.
     elastic: opt into peer-replicated emergency checkpoints and
         shrink-to-fit restarts (ray_tpu_torch.elastic.ElasticConfig).
-    mesh_shape, pipeline: device meshes and MPMD pipelines, not ported
-        yet (ROADMAP A.6): any value but None raises.
+    mesh_shape: installs a default mesh of this shape (``parallel.
+        make_mesh``) on every worker once the gang's group is up (the
+        reference's ``_install_default_mesh``): over the "spmd" group's
+        ranks, or a world-1 mesh on a lone worker.
+    pipeline: MPMD pipelines, not ported yet (ROADMAP A.6b): any value
+        but None raises.
     telemetry: the flight recorder (``ray_tpu_torch.telemetry``): None
         (the default) and True turn it on, False turns it off; a dict or
         a ``TelemetryConfig`` sets its knobs, as in the reference.
@@ -246,14 +251,10 @@ class JaxConfig(BackendConfig):
         if self.mode not in ("auto", "spmd", "local"):
             raise ValueError(f"mode must be 'auto', 'spmd' or 'local', got "
                              f"{self.mode!r}")
-        if self.mesh_shape is not None:
-            raise NotImplementedError(
-                "JaxConfig(mesh_shape=...): device meshes are not ported "
-                "yet (ROADMAP A.6)")
         if self.pipeline is not None:
             raise NotImplementedError(
                 "JaxConfig(pipeline=...): MPMD pipelines are not ported "
-                "yet (ROADMAP A.6)")
+                "yet (ROADMAP A.6b)")
 
     def backend_cls(self):
         return _JaxBackend
@@ -287,6 +288,22 @@ def _setup_kv_group(group_name: str, world_size: int, rank: int,
     if compression:
         set_group_compression(compression)
     return {"rank": rank, "backend": "kv", "device": None}
+
+
+def _install_default_mesh(shape: Dict[str, int]):
+    """Make the gang's mesh on this worker and install it as the default
+    (every worker calls it: the mesh's groups are made collectively)."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel import axis_sizes, make_mesh, set_default_mesh
+
+    # a lone worker has no group: its card if it holds a GPU lease
+    dev = None if dist.is_initialized() else (
+        "cuda" if os.environ.get("RAY_TPU_TORCH_WORKER_GPU") == "1"
+        else "cpu")
+    mesh = make_mesh(device_type=dev, **shape)
+    set_default_mesh(mesh)
+    return {"mesh": axis_sizes(mesh)}
 
 
 def _destroy_group(group_name: str):
@@ -354,6 +371,14 @@ class _JaxBackend(Backend):
         if backend_config.elastic is not None:
             self._init_emergency_checkpointers(worker_group,
                                                backend_config.elastic)
+        if backend_config.mesh_shape:
+            # after the group, so the mesh spans the gang's ranks
+            meshes = ray_tpu_torch.get([
+                w.actor.execute.remote(_install_default_mesh,
+                                       dict(backend_config.mesh_shape))
+                for w in worker_group.workers])
+            logger.info("default mesh installed on %d workers: %s",
+                        n, meshes[0])
 
     def _init_emergency_checkpointers(self, worker_group, ec):
         """Arm per-worker EmergencyCheckpointers.  Tag carries the gang

@@ -3,7 +3,8 @@ test_map.py, test_sort.py, test_consumption.py shapes).
 
 The port's mirror of tests/test_data.py, case by case.  The
 ``iter_jax_batches`` cases run on ``device="cpu"`` and hold torch tensors
-and dtypes; a mesh layout raises naming ROADMAP A.6, and with no CUDA
+and dtypes; a mesh layout (on this process's world-1 mesh; several ranks
+in tests/test_torch_mesh_parity.py) gives DTensors, and with no CUDA
 device the default device raises when the iterator is built.  The
 cross-package oracle is tests/test_torch_data_parity.py.
 """
@@ -236,29 +237,45 @@ def test_iter_jax_batches(ray_cluster):
 
 
 def test_iter_jax_batches_sharded(ray_cluster):
-    """A mesh layout waits for the port's meshes: it raises, naming the
-    item, when the iterator is built."""
+    """A NamedSharding lays each batch out over its mesh: DTensors of that
+    spec on that mesh (a world-1 mesh here: one rank holds it all)."""
+    from ray_tpu_torch.parallel import (NamedSharding, PartitionSpec as P,
+                                        make_mesh, spec_of)
+
+    mesh = make_mesh(device_type="cpu")
+    sharding = NamedSharding(mesh, P("dp"))
     ds = rd.range(32, override_num_blocks=2)
-    with pytest.raises(NotImplementedError, match="A.6"):
-        ds.iter_jax_batches(batch_size=8, sharding=object(), device="cpu")
+    batches = list(ds.iter_jax_batches(batch_size=8, sharding=sharding))
+    assert batches and spec_of(batches[0]["id"]) == sharding.spec
+    assert batches[0]["id"].device_mesh is mesh
+    assert sum(int(b["id"].full_tensor().sum()) for b in batches) \
+        == sum(range(32))
 
 
 def test_iter_jax_batches_default_mesh_auto_shard(ray_cluster):
-    """With no mesh (the port has none until A.6) batches land whole on
-    the device, which is what the reference does when no mesh is
-    declared; a short final batch comes out as it is."""
+    """With a declared process mesh and no explicit sharding, batches are
+    laid over the mesh's data axes of size > 1 only when the process holds
+    the whole mesh; this process's world-1 mesh has none, so batches land
+    whole on the device (the reference's rule) and a short final batch
+    comes out as it is; with no declared mesh, the same."""
     import torch
 
+    from ray_tpu_torch.parallel import default_mesh, make_mesh
+
     ds = rd.range(36, override_num_blocks=2)   # 36 = 4*8 + short 4
-    batches = list(ds.iter_jax_batches(batch_size=8, drop_last=False,
-                                       device="cpu"))
+    with default_mesh(make_mesh(device_type="cpu")):
+        batches = list(ds.iter_jax_batches(batch_size=8, drop_last=False,
+                                           device="cpu"))
     assert len(batches) == 5
+    assert all(type(b["id"]) is torch.Tensor for b in batches)
     assert all(b["id"].device == torch.device("cpu") for b in batches)
     assert batches[0]["id"].shape == (8,)
     short = batches[-1]["id"]
     assert short.shape[0] == 4
     total = sum(int(b["id"].sum()) for b in batches)
     assert total == sum(range(36))
+    b2 = list(ds.iter_jax_batches(batch_size=8, device="cpu"))
+    assert type(b2[0]["id"]) is torch.Tensor
     # the jit callers' default drops the short batch
     assert len(list(ds.iter_jax_batches(batch_size=8, device="cpu"))) == 4
 

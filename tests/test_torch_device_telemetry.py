@@ -478,3 +478,45 @@ def test_device_flush_collect_cli_and_http(cluster, capsys):
     out = capsys.readouterr().out
     assert json.loads(out)["workers"][wid]["ledger"][
         "total_recompiles"] == 1
+
+
+def test_census_does_not_scale_with_the_heap(monkeypatch):
+    """After the registry's seeding walk, a census scans only the young
+    generations: half a million objects promoted to the old generation
+    add nothing to what it scans, and a tensor promoted with them is
+    still counted (the gc callback registered it on its way)."""
+    import gc
+
+    census = devtel.DeviceMemoryCensus()
+    census.census()                                # seeds the registry
+    junk = [{"k": [i]} for i in range(500_000)]    # non-tensor objects
+    keep = torch.ones((128, 128)) + 0
+    gc.collect()                       # promotes junk and keep to gen 2
+    heap = len(gc.get_objects())
+    live = census.census()["live"]
+    assert heap > 1_000_000
+    assert live["scanned"] < 50_000, live["scanned"]
+    assert any(s["shape"] == [128, 128] and s["count"] >= 1
+               for s in live["top_shapes"])
+    stats = devtel.census_registry_stats()
+    assert stats["registered"] >= 1 and stats["gc_scans"] >= 1
+    del junk, keep
+
+
+def test_census_counts_a_dtensor_as_its_local_shard():
+    """A DTensor's wrapper holds no storage; its local shard is counted,
+    once."""
+    from ray_tpu_torch.parallel import (NamedSharding, PartitionSpec,
+                                        distribute, make_mesh)
+
+    census = devtel.DeviceMemoryCensus()
+    base = census.census()["live"]["total_bytes"]
+    d = distribute(torch.ones((96, 64)),
+                   NamedSharding(make_mesh(device_type="cpu"),
+                                 PartitionSpec("dp")))
+    live = census.census()["live"]
+    # the shard, and the mesh's own small tensor of ranks
+    assert 96 * 64 * 4 <= live["total_bytes"] - base < 96 * 64 * 4 + 64
+    (slot,) = [s for s in live["top_shapes"] if s["shape"] == [96, 64]]
+    assert slot["count"] == 1 and slot["bytes"] == 96 * 64 * 4
+    del d

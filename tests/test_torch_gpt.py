@@ -178,10 +178,20 @@ def test_sample_logits_recipe():
 
 
 def test_mesh_and_missing_device_raise():
+    """A mesh that is not a DeviceMesh raises; on a world-1 mesh the
+    forward is the unsharded one, as a DTensor (the sharded meshes:
+    tests/test_torch_mesh_parity.py)."""
+    from ray_tpu_torch.parallel import make_mesh, shard_tree
+
     cfg = gpt.GPTConfig.nano()
     params = gpt.init(cfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         gpt.apply(params, TOKENS[:1, :8], cfg, device="cpu", mesh=object())
+    mesh = make_mesh(device_type="cpu")
+    placed = shard_tree(params, gpt.logical_axes(cfg), mesh)
+    got = gpt.apply(placed, TOKENS[:1, :8], cfg, mesh=mesh)
+    assert torch.equal(got.full_tensor(),
+                       gpt.apply(params, TOKENS[:1, :8], cfg, device="cpu"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             gpt.apply(params, TOKENS[:1, :8], cfg)

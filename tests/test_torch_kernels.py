@@ -824,3 +824,100 @@ def test_profiled_allreduce_on_cuda_equals_unprofiled(gpu):
                 assert rec["phases"][f"collective.{stage}"] > 0, rec
     finally:
         col.destroy_collective_group("prof1")
+
+
+# -- meshes and the ring ----------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-4),
+                                        (torch.bfloat16, 2e-2)])
+def test_ring_kernel_body_matches_scan_on_the_card(gpu, dtype, atol):
+    """Every rank of a four-rank causal ring on one card: the kernel body
+    (K1 per unmasked chunk, K2/K3 in its backward) against the same
+    ring's scan body, values and grads; n(n+1)/2 = 10 K1 launches
+    forward, 10 K2 and 10 K3 backward."""
+    from ray_tpu_torch.ops.ring_attention import ring_simulate
+
+    g = torch.Generator(device="cpu").manual_seed(3)
+    q, k, v, cot = (torch.randn((2, 4, 512, 64), generator=g).to(gpu, dtype)
+                    for _ in range(4))
+
+    def run(impl):
+        ts = [t.clone().requires_grad_() for t in (q, k, v)]
+        _kernels.reset_launch_counts()
+        out = ring_simulate(*ts, 4, causal=True, impl=impl)
+        fwd = dict(_kernels.launch_counts())
+        (out.float() * cot.float()).sum().backward()
+        return out.float(), [t.grad.float() for t in ts], fwd, \
+            dict(_kernels.launch_counts())
+
+    out, grads, fwd, both = run("pallas")
+    ref, g_ref, _, none = run("xla")
+    assert fwd["flash_fwd"] == 10 and fwd["flash_bwd_dq"] == 0
+    assert both["flash_bwd_dkv"] == 10 and both["flash_bwd_dq"] == 10
+    assert set(none.values()) == {0}
+    assert (out - ref).abs().max().item() <= atol
+    for a, b in zip(grads, g_ref):
+        assert (a - b).abs().max().item() <= atol * 5
+
+
+@pytest.mark.cuda
+def test_world_one_mesh_step_is_bitwise_the_unsharded_step(gpu):
+    """Three AdamW steps of GPT nano (bf16) over a mesh whose every axis
+    is 1 are the unsharded step's, bit for bit: no collective runs."""
+    from ray_tpu_torch.models import gpt, training
+    from ray_tpu_torch.parallel import make_mesh
+
+    cfg = gpt.GPTConfig.nano()
+    g = torch.Generator(device="cpu").manual_seed(50)
+    batches = [torch.randint(0, 256, (4, 65), generator=g).to(gpu)
+               for _ in range(3)]
+
+    def run(mesh):
+        init, step = (training.make_train_step(cfg) if mesh is None
+                      else training.make_train_step(cfg, mesh))
+        state = init(seed=0)
+        losses = [float(step(state, {"tokens": b})[1]["loss"])
+                  for b in batches]
+        return losses, {k: (t.to_local() if mesh is not None else t)
+                        .detach().cpu() for k, t in
+                        training.param_leaves(state["params"])}
+
+    a, pa = run(None)
+    b, pb = run(make_mesh())
+    assert a == b
+    for k in pa:
+        assert torch.equal(pa[k], pb[k]), k
+
+
+@pytest.mark.cuda
+def test_remat_dots_is_bitwise_full_on_the_card(gpu):
+    """``remat_policy="dots"`` (the weight matmuls' outputs saved, the
+    rest, K1 included, recomputed) gives "full"'s steps bit for bit on
+    the kernels."""
+    import dataclasses
+
+    from ray_tpu_torch.models import gpt, training
+
+    cfg = gpt.GPTConfig.nano()
+    g = torch.Generator(device="cpu").manual_seed(51)
+    batches = [torch.randint(0, 256, (4, 65), generator=g).to(gpu)
+               for _ in range(2)]
+
+    def run(policy):
+        init, step = training.make_train_step(
+            dataclasses.replace(cfg, remat_policy=policy))
+        state = init(seed=0)
+        _kernels.reset_launch_counts()
+        losses = [float(step(state, {"tokens": b})[1]["loss"])
+                  for b in batches]
+        return losses, _kernels.launch_counts(), {
+            k: t.detach().cpu() for k, t in
+            training.param_leaves(state["params"])}
+
+    a, na, pa = run("full")
+    b, nb, pb = run("dots")
+    assert a == b and na == nb and na["flash_fwd"] == 2 * 2 * cfg.n_layers
+    for k in pa:
+        assert torch.equal(pa[k], pb[k]), k

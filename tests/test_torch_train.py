@@ -209,18 +209,23 @@ def test_cpu_training_never_reaches_the_kernels(ref):
 
 
 def test_unported_options_and_missing_device_raise():
+    """``remat_policy="dots"`` runs (the same loss as "full"); an unknown
+    policy and a mesh that is not a DeviceMesh raise."""
     cfg = _tcfg()
     params = gpt.init(cfg, seed=0, device="cpu")
     batch = {"tokens": BATCHES[0]}
-    with pytest.raises(NotImplementedError, match='remat_policy="dots"'):
-        gpt.loss_fn(params, batch, _tcfg(remat_policy="dots"), device="cpu")
+    dots = gpt.loss_fn(params, batch, _tcfg(remat_policy="dots"),
+                       device="cpu")
+    assert torch.equal(dots, gpt.loss_fn(params, batch, cfg, device="cpu"))
+    with pytest.raises(ValueError, match="remat_policy"):
+        with torch.enable_grad():
+            gpt.loss_fn(params, batch, _tcfg(remat_policy="some"),
+                        device="cpu")
     for call in (lambda: gpt.loss_fn(params, batch, cfg, device="cpu",
                                      mesh=object()),
-                 lambda: training.make_train_step(cfg, mesh=object(),
-                                                  device="cpu"),
-                 lambda: training.make_eval_step(cfg, mesh=object(),
-                                                 device="cpu")):
-        with pytest.raises(NotImplementedError, match="mesh"):
+                 lambda: training.make_train_step(cfg, mesh=object()),
+                 lambda: training.make_eval_step(cfg, mesh=object())):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             call()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -106,20 +106,23 @@ def test_scaling_config_asks_for_gpus():
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"mesh_shape": {"dp": -1}}, "A.6"),
-    ({"pipeline": "stages=2"}, "A.6"),
+    ({"mesh_shape": {"dp": -1}}, None),
+    ({"pipeline": "stages=2"}, "A.6b"),
     ({"telemetry": True}, None),
     ({"telemetry": {"ring_size": 8}}, None),
 ])
 def test_unported_backend_options_raise(kw, item):
-    """Meshes and pipelines raise naming A.6; every ``telemetry=`` value
-    the reference takes is accepted, and None (unset) means on, as in
-    the reference."""
+    """Pipelines raise naming A.6b; a mesh shape is taken (the trainer
+    installs the mesh, tests/test_torch_mesh_parity.py); every
+    ``telemetry=`` value the reference takes is accepted, and None
+    (unset) means on, as in the reference."""
     from ray_tpu_torch.telemetry import resolve_telemetry
 
     if item is not None:
         with pytest.raises(NotImplementedError, match=item):
             JaxConfig(mode="local", **kw)
+    elif "mesh_shape" in kw:
+        assert JaxConfig(mode="local", **kw).mesh_shape == kw["mesh_shape"]
     else:
         cfg = JaxConfig(mode="local", **kw)
         tc = resolve_telemetry(cfg.telemetry)

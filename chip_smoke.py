@@ -156,11 +156,12 @@ Phases, each of which must pass (any failure exits non-zero):
                 losses == dp-train's int8 losses, bitwise; K1-K7 launches
                 per step == dp-train's prediction; the checkpoint
                 Result.checkpoint returns == the worker's step-3 params;
-                a second run whose first gang dies after step 4
-                (FailureConfig(max_failures=1)) resumes on fresh GPU
-                leases from the step-3 checkpoint, its steps 4-6 and final
-                params == the uninterrupted run's, bitwise; no process
-                holds the card after shutdown.  Times: gang up to the
+                the run's first gang dies after step 4
+                (FailureConfig(max_failures=1)) and a new gang resumes on
+                fresh GPU leases from the step-3 checkpoint: its steps
+                4-6 == dp-train's losses, its step-4 params == the first
+                gang's, bitwise; no process holds the card after
+                shutdown.  Times: gang up to the
                 first step, the worker's step (CUDA events) against
                 dp-train's int8 step run in fresh processes just before
                 the trainer's (its losses == dp-train's too), report per
@@ -281,6 +282,29 @@ Phases, each of which must pass (any failure exits non-zero):
                 unsharded losses, each rank's param and optimizer bytes,
                 ms and tokens/s; Ulysses at sp 4 against whole-sequence
                 K1.  Fewer cards: those are reported as not run.
+  pipeline      (pipelines) GPT-2-small at full width as MPMD pipeline
+                stages on one card (bench.py's bench_pipeline), [16,
+                513], M = 8
+                microbatches: forward_backward of fill_drain, 1f1b and zb
+                at 2 stages and 1f1b at 4 (threads transport) against the
+                unpipelined loss_fn and its grads (loss within 1e-3
+                relative, the global grad norm within 1e-2, every leaf's
+                cosine >= 0.999), each stage's K1/K2/K3 launches == the
+                schedule's count (every backward rebuilds its stage
+                forward); tokens/s, step s, the replayed bubble (the
+                median over timed steps, each replayed: 10 for 1f1b at 2
+                stages, 5 at 4, 3 for the others; each 1f1b run's must
+                lie strictly below fill-drain's theoretical
+                (n-1)/(M+n-1) at its n),
+                p2p bytes and peak stash per schedule; 3 AdamW steps
+                through 1f1b within 1e-3 of the unpipelined steps, and
+                the same run with stage 1 killed during step 2 and
+                respawned from its emergency snapshot, losses bitwise;
+                two stage actors at num_gpus 0.5, bitwise the threads
+                transport.  With four cards: the SPMD pp step over NCCL
+                at {pp 2, dp 2} and {pp 4} against the unsharded losses
+                and 4 stage actors, one per card.  Per-op ms and events
+                in chip_smoke_out/pipeline.json.
 
 The flight recorder rides the paths above too: in serve (and serve-app's
 in-process engine) the engine's Prometheus series move by exactly the
@@ -291,7 +315,7 @@ unprofiled call, launches K4 twice and K6 and K5 once, fills its
 quantize / transfer / dequantize buckets within the call's wall time and
 writes the step's Chrome trace (collective.* sub-phase slices) to
 chip_smoke_out/gpt_timeline.json; in train-app (the recorder on by
-default) every report carries its step record and phases, the runs'
+default) every report carries its step record and phases, the run's
 goodput covers the run and the restart, the autoscaler's LoadMetrics
 reads the running run's goodput, `timeline --job` writes a valid Chrome
 trace with every rank's steps (chip_smoke_out/train_app_timeline.json),
@@ -310,6 +334,7 @@ process is reported beside it).
     python3 chip_smoke.py --phases autoscale
     python3 chip_smoke.py --phases serve,train-app,observe
     python3 chip_smoke.py --phases mesh
+    python3 chip_smoke.py --phases pipeline
 
 runs the device and build phases and the named ones only (a development
 aid; with no arguments every phase runs).
@@ -328,6 +353,7 @@ import functools
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -2640,9 +2666,11 @@ def _rel(a, b):
     return ((a - b).norm() / b.norm()).item()
 
 
-def _dp_run(mode, cfg, batch, group, world):
+def _dp_run(mode, cfg, batch, group, world, digest_step=None):
     """1 warm-up and DP_STEPS timed data-parallel steps from seeded params:
-    backward, sync (per ``mode``), write the synced grads back, AdamW."""
+    backward, sync (per ``mode``), write the synced grads back, AdamW.
+    With ``digest_step``, the record also holds the params' digest after
+    that step (a copy on the card, digested after the timed steps)."""
     import resource
 
     import torch
@@ -2653,7 +2681,9 @@ def _dp_run(mode, cfg, batch, group, world):
 
     init_state, _ = training.make_train_step(cfg)
     state = init_state(seed=SEED)
-    leaves = [t for _, t in training.param_leaves(state["params"])]
+    named = training.param_leaves(state["params"])
+    leaves = [t for _, t in named]
+    kept = None
     opt = state["opt_state"]
     sync = (None if mode == "none" else GradientSynchronizer(
         group, compression=None if mode == "fp32" else "int8"))
@@ -2694,6 +2724,8 @@ def _dp_run(mode, cfg, batch, group, world):
         losses.append(step())
         launches.append(_kernels.launch_counts())
         vector.append(_kernels.vector_launch_counts())
+        if len(losses) == digest_step:
+            kept = [t.detach().clone() for t in leaves]
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / DP_STEPS
     ru1 = resource.getrusage(resource.RUSAGE_THREAD)
@@ -2711,6 +2743,10 @@ def _dp_run(mode, cfg, batch, group, world):
            "thread_cpu_ms": 1e3 * (ru1.ru_utime + ru1.ru_stime - ru0.ru_utime
                                    - ru0.ru_stime) / DP_STEPS,
            "launches": launches, "vector_launches": vector}
+    if kept is not None:
+        rec["digest_step"] = digest_step
+        rec["digest"] = _param_digest([n for n, _ in named], kept)
+        del kept
     if mode.startswith("int8"):
         rec["profile"] = _dp_profile(step)
     return rec, state, leaves
@@ -3779,6 +3815,29 @@ def _http_post(url, body):
         return r.read().decode()
 
 
+def _replica_engine_health(app, deployment, timeout=15.0):
+    """The replica engine's stall-check readings as its last metrics poll
+    brought them to the controller: the device setup's seconds, the
+    first prefill chunk's and decode step's, and the longest quiet
+    stretch a health probe found while slots were active."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.serve._common import CONTROLLER_NAME
+
+    ctl = rt.get_actor(CONTROLLER_NAME)
+    deadline = time.monotonic() + timeout
+    while True:
+        table = rt.get(ctl.get_replica_table.remote(app, deployment),
+                       timeout=30)
+        health = [(r["engine"] or {}).get("health")
+                  for r in table["replicas"]]
+        if health and all(h and h["first_step_s"] is not None
+                          for h in health):
+            return health
+        check(time.monotonic() < deadline, f"no engine health readings "
+              f"from {app}/{deployment}: {health}")
+        time.sleep(0.5)
+
+
 def phase_serve_app():
     import importlib.util
     import threading
@@ -3943,6 +4002,16 @@ def phase_serve_app():
             f"the handle (in-process {long_ref_s:.2f} s), against the "
             f"replica's stall window {stall_s:g} s; == the in-process "
             f"engine's, bitwise; no replica restarted ({smi})")
+        # what the stall check saw: the device setup runs before the
+        # first request takes its slot, outside the window
+        rec["engine_health"] = eh = _replica_engine_health("llm",
+                                                           "LLMServer")
+        log(f"[serve-app] the replica engine's stall check: device setup "
+            f"{eh[0]['setup_s']:.3f} s (before any slot is taken), first "
+            f"prefill chunk {eh[0]['first_chunk_s']:.3f} s, first decode "
+            f"step {eh[0]['first_step_s']:.3f} s; longest quiet stretch "
+            f"a probe saw with slots active {eh[0]['max_quiet_s']:.3f} s "
+            f"of the {stall_s:g} s window over {eh[0]['probes']} probes")
 
         # 5. resume: two f32 replicas at num_gpus 0.5 on the one card; a
         # sampled stream whose replica is killed after 3 tokens continues
@@ -4045,7 +4114,7 @@ def phase_serve_app():
 
 TRAIN_APP_STEPS = 6
 TRAIN_APP_CKPT_STEP = 3          # a checkpoint after this step
-TRAIN_APP_CRASH_STEP = 4         # the restart run's first gang dies here
+TRAIN_APP_CRASH_STEP = 4         # the run's first gang dies here
 TRAIN_APP_BATCH = (16, 512)      # dp-train's [16, 513] per rank
 
 
@@ -4304,7 +4373,8 @@ def _train_app_loop(config):
                 metrics["recorder"] = _recorder_costs(recorder, device,
                                                       t_start)
             ckpt_dir = None
-            if step == config["ckpt_step"] or step == config["steps"]:
+            if step in (config["ckpt_step"], config["steps"],
+                        config.get("crash_step")):
                 metrics["digest"] = _param_digest(names, leaves)
             if step == config["ckpt_step"]:
                 ckpt_dir = tempfile.mkdtemp(prefix="train-app-ckpt-")
@@ -4323,6 +4393,12 @@ def _train_app_loop(config):
                 shutil.rmtree(ckpt_dir, ignore_errors=True)
                 report_s = None         # a checkpoint's copy, not a report
             if step == config.get("crash_step") and restored is None:
+                # the host dies right after a flush of its recorder's ring
+                # (a death between flushes loses the records since the
+                # last one, and the run's timeline would miss them)
+                if recorder.current_timer() is not None:
+                    recorder.flush_snapshot(recorder.current_timer(),
+                                            force=True)
                 os._exit(1)             # the host dies: the gang restarts
         if feed is not None:
             feed.close(config["out_dir"])
@@ -4424,7 +4500,7 @@ def _int8_dp_rank(rank, world, init_method, out_path=None):
         tokens = torch.from_numpy(np.random.RandomState(SEED + rank).randint(
             0, cfg.vocab_size, (B, S + 1))).cuda()
         rec, state, leaves = _dp_run("int8", cfg, {"tokens": tokens}, "dp",
-                                     world)
+                                     world, digest_step=TRAIN_APP_STEPS)
         del state, leaves
         torch.cuda.empty_cache()
         rec = {"world": world, "runs": {"int8": rec}}
@@ -4469,14 +4545,14 @@ def _run_state(trial):
 
 
 def _train_app_telemetry(steps, got, world, trial):
-    """The flight recorder of the uninterrupted run (on by default):
-    every report's step record and phases, the run's goodput, the
+    """The flight recorder of the run (on by default): every report's
+    step record and phases (a restarted gang's too), the run's goodput, the
     autoscaler's view of it while it ran, and ``python -m ray_tpu_torch
     timeline --job`` as a valid Chrome trace with every rank's steps."""
     import ray_tpu_torch as rt
     from ray_tpu_torch.telemetry import validate_chrome_trace
 
-    for m in steps:
+    for i, m in enumerate(steps):
         tel = m.get("telemetry")
         check(tel is not None, f"train-app step {m['step']} reported no "
               f"telemetry record")
@@ -4486,9 +4562,10 @@ def _train_app_telemetry(steps, got, world, trial):
             want.add("checkpoint")
         check(want <= set(ph), f"train-app step {m['step']}: phases "
               f"{sorted(ph)} lack {sorted(want - set(ph))}")
-        check(tel["step"] == m["step"] - 1 and tel["rank"] == 0,
-              f"step record {tel['step']}/{tel['rank']} for step "
-              f"{m['step']}")
+        # the trainer numbers its records by report, across a restart
+        check(tel["step"] == i and tel["rank"] == 0,
+              f"step record {tel['step']}/{tel['rank']} for report {i} "
+              f"(step {m['step']})")
         check(m["collective_records"] > 0, f"step {m['step']}: no "
               f"collective reached the recorder")
     state = _run_state(trial)
@@ -4560,13 +4637,22 @@ def phase_train_app(dp_rec=None):
     storage = tempfile.mkdtemp(prefix="train-app-")
     rt.init(num_cpus=4)
     try:
-        # 1. the uninterrupted run: 6 steps, a checkpoint after step 3
-        t_fit, t_end, result, got = _train_app_fit("train-app", storage,
-                                                   world)
-        steps = [m for _, m in got]
-        check([m["step"] for m in steps] == list(range(1, TRAIN_APP_STEPS
-                                                        + 1)),
-              f"train-app reported steps {[m['step'] for m in steps]}")
+        # 1. one run of 6 steps, a checkpoint after step 3, whose first
+        # gang dies after step 4: the trainer builds a new gang on fresh
+        # GPU leases, which resumes from the step-3 checkpoint.  Steps 1-3
+        # of the first gang and 4-6 of the second are the uninterrupted
+        # run's (the first gang's step 4 too), each bitwise dp-train's
+        t_fit, t_end, result, got = _train_app_fit(
+            "train-app", storage, world,
+            failure_config=FailureConfig(max_failures=1),
+            loop={"crash_step": TRAIN_APP_CRASH_STEP})
+        reports = [m for _, m in got]
+        seq = [m["step"] for m in reports]
+        resumed = list(range(TRAIN_APP_CKPT_STEP + 1, TRAIN_APP_STEPS + 1))
+        check(seq == list(range(1, TRAIN_APP_CRASH_STEP + 1)) + resumed,
+              f"train-app reported steps {seq}")
+        first, after = got[:TRAIN_APP_CRASH_STEP], got[TRAIN_APP_CRASH_STEP:]
+        steps = reports[:TRAIN_APP_CKPT_STEP] + [m for _, m in after]
         losses = [m["loss"] for m in steps]
         check(losses == want, f"train-app losses {losses} are not dp-train's"
               f" int8 losses {want} (bitwise)")
@@ -4576,7 +4662,7 @@ def phase_train_app(dp_rec=None):
                                m0["peers"]))}
         check(m0["predicted"] == predicted, f"the worker predicts "
               f"{m0['predicted']}, this process {predicted}")
-        for m in steps:
+        for m in reports:
             check(m["launches"] == predicted, f"train-app step {m['step']}"
                   f" launched {m['launches']}, predicted {predicted}")
         on_path = [k for k in QUANT_KERNELS + tuple(FLASH_TRAIN_LAUNCHES)
@@ -4601,12 +4687,14 @@ def phase_train_app(dp_rec=None):
                          for r, _, fs in os.walk(result.checkpoint.path)
                          for f in fs)
         del saved
-        rec["telemetry"] = _train_app_telemetry(steps, got, world,
+        rec["telemetry"] = _train_app_telemetry(reports, got, world,
                                                 "train-app_00000")
-        later = steps[1:]
+        # each gang's steps after its first (which builds the gang's
+        # state): 2-4 and 5-6
+        later = reports[1:TRAIN_APP_CRASH_STEP] + [m for _, m in after][1:]
         step_ms = sum(m["step_ms"] for m in later) / len(later)
-        reports = [m["prev_report_s"] for m in steps
-                   if m["prev_report_s"] is not None]
+        reports_s = [m["prev_report_s"] for m in reports
+                     if m["prev_report_s"] is not None]
         rec["run"] = {
             "losses": losses, "dp_train_losses": want,
             "launches_per_step": steps[-1]["launches"],
@@ -4614,9 +4702,9 @@ def phase_train_app(dp_rec=None):
             "gang_up_s": m0["t_ready"] - t_fit,
             "worker_start_s": m0["t_start"] - t_fit,
             "first_report_s": got[0][0] - t_fit, "fit_s": t_end - t_fit,
-            "step_ms": [m["step_ms"] for m in steps],
+            "step_ms": [m["step_ms"] for m in reports],
             "step_ms_mean_2_to_6": step_ms,
-            "host_ms": [m["host_ms"] for m in steps],
+            "host_ms": [m["host_ms"] for m in reports],
             "host_ms_mean_2_to_6": sum(m["host_ms"] for m in later)
             / len(later),
             "thread_cpu_ms_mean_2_to_6": sum(m["thread_cpu_ms"]
@@ -4625,8 +4713,8 @@ def phase_train_app(dp_rec=None):
             "dp_fresh_thread_cpu_ms": dp["thread_cpu_ms"],
             "dp_train_step_ms": None if dp_rec is None
             else dp_rec["runs"]["int8"]["step_ms"],
-            "report_s_mean": sum(reports) / len(reports),
-            "reports_timed": len(reports),
+            "report_s_mean": sum(reports_s) / len(reports_s),
+            "reports_timed": len(reports_s),
             "ckpt_save_s": ck["ckpt_save_s"], "ckpt_bytes": ckpt_bytes,
             "checkpoint": "== the worker's step-3 params (sha256)"}
         r = rec["run"]
@@ -4634,19 +4722,19 @@ def phase_train_app(dp_rec=None):
                     else f"{r['dp_train_step_ms']:.2f} ms")
         log(f"[train-app] JaxTrainer(mode=spmd, compression=int8) on {world}"
             f" GPU worker(s): gang up to the first step {r['gang_up_s']:.2f}"
-            f" s (worker process up {r['worker_start_s']:.2f} s); losses == "
-            f"dp-train's int8 losses (bitwise) {[round(x, 4) for x in losses]}"
-            f"; launches per step {r['launches_per_step']} == predicted; "
-            f"step {step_ms:.2f} ms (CUDA events, steps 2-6; the host "
-            f"issues it in {r['host_ms_mean_2_to_6']:.2f} ms, the loop "
-            f"thread on a CPU {r['thread_cpu_ms_mean_2_to_6']:.2f} ms of "
-            f"them) against dp-train's int8 step in a fresh process just "
-            f"before {dp['step_ms']:.2f} ms (its thread on a CPU "
+            f" s (worker process up {r['worker_start_s']:.2f} s); losses of "
+            f"steps 1-6 == dp-train's int8 losses (bitwise) "
+            f"{[round(x, 4) for x in losses]}; launches per step "
+            f"{r['launches_per_step']} == predicted; step {step_ms:.2f} ms "
+            f"(CUDA events, steps 2-4 and 5-6; the host issues it in "
+            f"{r['host_ms_mean_2_to_6']:.2f} ms, the loop thread on a CPU "
+            f"{r['thread_cpu_ms_mean_2_to_6']:.2f} ms of them) against "
+            f"dp-train's int8 step in a fresh process just before "
+            f"{dp['step_ms']:.2f} ms (its thread on a CPU "
             f"{dp['thread_cpu_ms']:.2f} ms; in the dp-train phase "
-            f"{in_phase}); report "
-            f"{1e3 * r['report_s_mean']:.2f} ms per step; checkpoint "
-            f"{ckpt_bytes / 1e9:.2f} GB saved in {r['ckpt_save_s']:.2f} s, "
-            f"== the step-3 params ({smi})")
+            f"{in_phase}); report {1e3 * r['report_s_mean']:.2f} ms per "
+            f"step; checkpoint {ckpt_bytes / 1e9:.2f} GB saved in "
+            f"{r['ckpt_save_s']:.2f} s, == the step-3 params ({smi})")
         t = rec["telemetry"]
         c = t["recorder_costs"]
         per_step = (c["record_collective_us"] * max(
@@ -4689,42 +4777,38 @@ def phase_train_app(dp_rec=None):
             f"goodput {t['goodput']['goodput']:.4f}; LoadMetrics saw "
             f"{t['train_goodput_while_running']}; {t['timeline']['stdout']}"
             f" ({smi})")
-        shutil.rmtree(os.path.join(storage, "train-app"), ignore_errors=True)
 
-        # 2. the restart: the first gang dies after step 4; the trainer
-        # builds a new one on fresh GPU leases, which resumes from the
-        # step-3 checkpoint
-        t_fit, t_end, result, got = _train_app_fit(
-            "train-app-restart", storage, world,
-            failure_config=FailureConfig(max_failures=1),
-            loop={"crash_step": TRAIN_APP_CRASH_STEP})
-        seq = [m["step"] for _, m in got]
-        resumed = list(range(TRAIN_APP_CKPT_STEP + 1, TRAIN_APP_STEPS + 1))
-        check(seq == list(range(1, TRAIN_APP_CRASH_STEP + 1)) + resumed,
-              f"restart run reported steps {seq}")
-        first, after = got[:TRAIN_APP_CRASH_STEP], got[TRAIN_APP_CRASH_STEP:]
+        # 2. the restart in that run: a new gang in new processes, whose
+        # step 4 from the step-3 checkpoint gives the first gang's step-4
+        # params bitwise
         check(after[0][1]["pid"] != first[0][1]["pid"],
               "the restarted gang runs in the dead worker's process")
-        check([m["loss"] for _, m in first] == losses[:TRAIN_APP_CRASH_STEP],
-              "the restart run's first gang differs from the uninterrupted "
-              "run")
+        check([m["loss"] for _, m in first] == want[:TRAIN_APP_CRASH_STEP],
+              "the first gang's steps differ from the uninterrupted run's "
+              "(dp-train's)")
         got_after = [m["loss"] for _, m in after]
-        check(got_after == losses[TRAIN_APP_CKPT_STEP:],
+        check(got_after == want[TRAIN_APP_CKPT_STEP:],
               f"resumed steps {resumed} lost {got_after} != the "
-              f"uninterrupted run's {losses[TRAIN_APP_CKPT_STEP:]}")
-        check(after[-1][1]["digest"] == steps[-1]["digest"],
-              "the resumed run's final params differ from the "
-              "uninterrupted run's")
-        for _, m in after:
-            check(m["launches"] == predicted, f"resumed step {m['step']} "
-                  f"launched {m['launches']}")
+              f"uninterrupted run's {want[TRAIN_APP_CKPT_STEP:]}")
+        check(after[0][1]["digest"] == first[-1][1]["digest"],
+              f"the resumed gang's step-{TRAIN_APP_CRASH_STEP} params differ "
+              f"from the first gang's")
+        # its final params, after updates from the restored AdamW state,
+        # are an uninterrupted run's: dp-train's int8 run in fresh
+        # processes, digested after the same step
+        check(dp["digest_step"] == TRAIN_APP_STEPS
+              and after[-1][1]["step"] == TRAIN_APP_STEPS
+              and after[-1][1]["digest"] == dp["digest"],
+              f"the resumed gang's step-{TRAIN_APP_STEPS} params differ "
+              f"from the uninterrupted run's (dp-train's int8 run, fresh "
+              f"processes)")
         t_dead = first[-1][0]
-        gp = _run_state("train-app-restart_00000")["telemetry"]["goodput"]
+        gp = _run_state("train-app_00000")["telemetry"]["goodput"]
         check(gp["seconds"]["recovering"] > 0 and gp["goodput"] < 1
               and gp["seconds"]["productive"] > 0,
-              f"the restart run's goodput does not cover the restart: {gp}")
+              f"the run's goodput does not cover the restart: {gp}")
         rec["restart_goodput"] = gp
-        log(f"[train-app] restart run goodput {gp['goodput']:.4f}: "
+        log(f"[train-app] the run's goodput {gp['goodput']:.4f}: "
             f"productive {gp['seconds']['productive']:.2f} s, recovering "
             f"{gp['seconds']['recovering']:.2f} s")
         rec["restart"] = {
@@ -4740,7 +4824,9 @@ def phase_train_app(dp_rec=None):
             f"{r['resume_to_ready_s']:.2f} s after the last report (its "
             f"worker up at {r['worker_start_s']:.2f} s, its first report at "
             f"{r['resume_to_first_report_s']:.2f} s); steps {resumed} == "
-            f"the uninterrupted run's, final params bitwise ({smi})")
+            f"dp-train's, its step-{TRAIN_APP_CRASH_STEP} params == the first"
+            f" gang's and its step-{TRAIN_APP_STEPS} params == dp-train's, "
+            f"bitwise ({smi})")
     finally:
         rt.shutdown()
         shutil.rmtree(storage, ignore_errors=True)
@@ -5194,8 +5280,8 @@ class _DagStage:
         return time.perf_counter() - t0
 
     def read_big(self, path):
-        """One read of the big tensor out of the ring: shm -> an owned host
-        buffer -> the card, synchronized."""
+        """One read of the big tensor out of the ring: shm -> the card
+        (one copy from the page-locked mapping), synchronized."""
         c = self._chan(path)
         t0 = time.perf_counter()
         tag, t = c.read(timeout_s=60)
@@ -6878,6 +6964,482 @@ def phase_mesh():
     return rec
 
 
+PIPELINE_BATCH = (16, 512)            # tokens [16, 513], bench_pipeline's
+PIPELINE_M = 8                        # microbatches of 2 rows
+PIPELINE_RUNS = (("fill_drain", 2), ("1f1b", 2), ("zb", 2), ("1f1b", 4))
+PIPELINE_STEPS = 3                    # AdamW steps, uninterrupted/recovered
+# timed steps a run (3 for the others); the bubble gate reads the 1f1b
+# runs
+PIPELINE_TIMED_STEPS = {"1f1b_2st": 10, "1f1b_4st": 5}
+PIPELINE_LOSS_RTOL = 1e-3
+PIPELINE_NORM_RTOL = 1e-2
+PIPELINE_MIN_COS = 0.999
+PIPELINE_FLASH = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+PIPELINE_OUT = ROOT / "chip_smoke_out" / "pipeline.json"
+
+
+def _pipeline_batch(cfg):
+    import numpy as np
+
+    B, S = PIPELINE_BATCH
+    return {"tokens": np.random.RandomState(SEED).randint(
+        0, cfg.vocab_size, (B, S + 1))}
+
+
+def _pipeline_launch_plan(cfg, schedule, stages, stage):
+    """The K1-K3 launches one step of a stage should make: a forward
+    runs K1 once a layer; every backward op (B, and each zb half)
+    rebuilds the stage forward from its stashed input (K1) and, with
+    remat, recomputes each block once more (K1) before K2 and K3; the
+    first stage has no input gradient, so its zb Bx runs nothing."""
+    L, M = cfg.n_layers // stages, PIPELINE_M
+    halves = 2 if schedule == "zb" and stage > 0 else 1
+    per_bwd = {"flash_fwd": L * (2 if cfg.remat else 1),
+               "flash_bwd_dkv": L, "flash_bwd_dq": L}
+    return {k: M * (L if k == "flash_fwd" else 0) + M * halves * v
+            for k, v in per_bwd.items()}
+
+
+def _stage_launches(res):
+    """Per stage, each kernel's launches over the step's op kinds."""
+    out = []
+    for kinds in res["launches"]:
+        tot = {}
+        for per in kinds.values():
+            for k, v in per.items():
+                tot[k] = tot.get(k, 0) + v
+        out.append(tot)
+    return out
+
+
+def _op_seconds(res):
+    """Per stage, each op kind's [count, mean s, max s] in a step."""
+    out = []
+    for evs in res["events"]:
+        kinds = {}
+        for e in evs:
+            kinds.setdefault(e["kind"], []).append(e["dur"])
+        out.append({k: [len(v), sum(v) / len(v), max(v)]
+                    for k, v in kinds.items()})
+    return out
+
+
+def _pipeline_parity(what, loss, grads, want_loss, want_grads):
+    """loss within PIPELINE_LOSS_RTOL, the merged gradients' global norm
+    within PIPELINE_NORM_RTOL and each leaf's cosine >= PIPELINE_MIN_COS
+    against the unpipelined step's."""
+    import torch
+
+    from ray_tpu_torch.models import training
+
+    rel = abs(loss - want_loss) / abs(want_loss)
+    check(rel <= PIPELINE_LOSS_RTOL, f"{what}: loss {loss} vs unpipelined "
+          f"{want_loss}: {rel:.3g} relative (> {PIPELINE_LOSS_RTOL})")
+    got = {k: g.to(want_grads[k].device, torch.float32)
+           for k, g in training.param_leaves(grads)}
+    check(got.keys() == want_grads.keys(), f"{what}: grad leaves "
+          f"{sorted(got)} != {sorted(want_grads)}")
+    norm = training.global_norm(list(got.values())).item()
+    want_norm = training.global_norm(list(want_grads.values())).item()
+    norm_rel = abs(norm - want_norm) / want_norm
+    check(norm_rel <= PIPELINE_NORM_RTOL, f"{what}: grad norm {norm} vs "
+          f"{want_norm}: {norm_rel:.3g} relative (> {PIPELINE_NORM_RTOL})")
+    worst = (2.0, None)
+    for k, g in got.items():
+        w = want_grads[k].float()
+        cos = (torch.dot(g.flatten(), w.flatten())
+               / (g.norm() * w.norm()).clamp_min(1e-30)).item()
+        worst = min(worst, (cos, k))
+    check(worst[0] >= PIPELINE_MIN_COS, f"{what}: the grad of {worst[1]} "
+          f"has cosine {worst[0]:.6f} with the unpipelined one (< "
+          f"{PIPELINE_MIN_COS})")
+    return {"loss": loss, "loss_rel_err": rel, "grad_norm": norm,
+            "grad_norm_rel_err": norm_rel, "min_cosine": worst[0],
+            "min_cosine_leaf": worst[1]}
+
+
+def _pipeline_trees_equal(a, b):
+    from ray_tpu_torch.models import training
+
+    la, lb = training.param_leaves(a), training.param_leaves(b)
+    return [k for k, _ in la] == [k for k, _ in lb] and all(
+        x.dtype == y.dtype and bool((x == y).all())
+        for (_, x), (_, y) in zip(la, lb))
+
+
+PIPELINE_SPMD_SHAPES_4 = ({"pp": 2, "dp": 2}, {"pp": 4})
+
+
+def _pipeline_spmd_plan(cfg, pp):
+    """K1-K3 launches a rank of a GPipe step over pp makes: M = pp
+    microbatches over M + pp - 1 ticks, each tick its L / pp layers
+    forward (K1, recorded under remat) and in the backward (K1 again,
+    K2, K3), the fill and drain ticks included."""
+    ticks, layers = 2 * pp - 1, cfg.n_layers // pp
+    return {"flash_fwd": 2 * ticks * layers, "flash_bwd_dkv": ticks * layers,
+            "flash_bwd_dq": ticks * layers}
+
+
+def _pipeline_rank_entry(rank, world, init_method, out_path):
+    """One card's rank of the SPMD pp steps (NCCL)."""
+    sys.path.insert(0, str(ROOT))
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.parallel import make_mesh
+
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("nccl", init_method=init_method,
+                            world_size=world, rank=rank,
+                            device_id=torch.device("cuda", rank),
+                            timeout=datetime.timedelta(seconds=240))
+    try:
+        cfg = gpt.GPTConfig.gpt2_small()
+        tokens = _mesh_tokens(cfg, "cuda")
+        rec = {}
+        for axes in PIPELINE_SPMD_SHAPES_4:
+            state, r = _mesh_steps(cfg, make_mesh(**axes), tokens,
+                                   MESH_STEPS)
+            del state
+            torch.cuda.empty_cache()
+            every = [None] * world
+            dist.all_gather_object(every, r)
+            rec["_".join(f"{a}{n}" for a, n in axes.items())] = every
+        if rank == 0:
+            Path(out_path).write_text(json.dumps(rec))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _pipeline_four_cards(cfg, params, batch, want_loss, want_grads):
+    """The SPMD pp steps over NCCL, one rank per card, against one card's
+    unsharded steps; then 4 MPMD stages as actors, one per card."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.parallel.mpmd import MPMDPipeline, PipelineConfig
+
+    _, plain = _mesh_steps(cfg, None, _mesh_tokens(cfg, "cuda"), MESH_STEPS)
+    want = plain["losses"]
+    rec = {"unsharded": plain}
+    spmd = _spawn_ranks(_pipeline_rank_entry, 4, timeout_s=600)
+    for name, ranks in spmd.items():
+        pp = int(name.split("_")[0][2:])
+        plan = _pipeline_spmd_plan(cfg, pp)
+        for rank, r in enumerate(ranks):
+            rel = max(abs(a - b) / abs(b) for a, b in zip(r["losses"], want))
+            check(rel <= MESH_LOSS_RTOL, f"{name} rank {rank} losses "
+                  f"{r['losses']} vs unsharded {want}: {rel:.3g} relative "
+                  f"(> {MESH_LOSS_RTOL})")
+            r["loss_rel_err"] = rel
+            got = {k: r["launches"][-1][k] for k in plan}
+            check(got == plan, f"{name} rank {rank} launched {got} a step, "
+                  f"expected {plan}")
+    rec["spmd"] = spmd
+    rt.init(num_cpus=8)
+    try:
+        t0 = time.perf_counter()
+        pcfg = PipelineConfig(stages=4, schedule="1f1b",
+                              microbatches=PIPELINE_M, transport="actors")
+        with MPMDPipeline(cfg, pcfg, params=params,
+                          actor_options={"num_gpus": 1}) as pipe:
+            res = pipe.step(batch, apply_update=False, return_grads=True)
+            t1 = time.perf_counter()
+            step = pipe.step(batch, apply_update=False)
+            step_s = time.perf_counter() - t1
+            rep = pipe.bubble_report()
+        r = _pipeline_parity("1f1b over 4 stage actors, one per card",
+                             res["loss"], res["grads"], want_loss,
+                             want_grads)
+        r.update({"seconds": time.perf_counter() - t0, "step_s": step_s,
+                  "bubble_mean": rep["mean"],
+                  "bubble_per_stage": rep["per_stage"],
+                  "p2p_bytes_per_step": step["p2p_bytes"],
+                  "launches_by_stage": _stage_launches(res)})
+        rec["mpmd_actors"] = r
+    finally:
+        rt.shutdown()
+    return rec
+
+
+def phase_pipeline():
+    """GPT-2-small at full width as MPMD pipeline stages on one card
+    (the reference's bench_pipeline): each schedule's forward_backward
+    against the unpipelined step, AdamW steps, the replayed bubbles,
+    a stage's recovery and the actor transport."""
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.elastic import emergency
+    from ray_tpu_torch.models import gpt, training
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.parallel.mpmd import (MPMDPipeline, PipelineConfig,
+                                             PipelineSchedule,
+                                             mean_op_events, replay_bubble)
+
+    smi = _smi_line()
+    t_phase = time.perf_counter()
+    cfg = gpt.GPTConfig.gpt2_small()
+    batch = _pipeline_batch(cfg)
+    B, S = PIPELINE_BATCH
+    params = gpt.init(cfg, seed=SEED)
+    rec = {"card": smi, "batch": [B, S + 1], "microbatches": PIPELINE_M,
+           "runs": {}}
+
+    # the unpipelined step on the same card: loss and grads, and its time
+    _kernels.reset_launch_counts()
+    want_loss, want_grads = _grads(params, batch, cfg)
+    want_loss = want_loss.item()
+    rec["unpipelined"] = {"loss": want_loss,
+                          "launches": _kernels.launch_counts()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _grads(params, batch, cfg)
+    torch.cuda.synchronize()
+    rec["unpipelined"]["step_s"] = time.perf_counter() - t0
+
+    # 1. each schedule's forward_backward, then a timed step without
+    # the gradients' copy to the host
+    threads = {}
+    for schedule, stages in PIPELINE_RUNS:
+        name = f"{schedule}_{stages}st"
+        pcfg = PipelineConfig(stages=stages, schedule=schedule,
+                              microbatches=PIPELINE_M)
+        with MPMDPipeline(cfg, pcfg, params=params) as pipe:
+            loss, grads = pipe.forward_backward(batch)
+            r = _pipeline_parity(f"{name} forward_backward", loss, grads,
+                                 want_loss, want_grads)
+            if (schedule, stages) == ("1f1b", 2):
+                threads = {"loss": loss, "grads": grads}
+            del grads
+            # timed steps, each replayed as it ran; the run's bubble
+            # replays its ops at their stage-and-kind means over the
+            # steps: the schedule's bubble at this run's op and edge
+            # costs, without the host's per-op dispatch spread (single
+            # steps' replays spread 0.073-0.190 at 2 stages, PERF.md)
+            steps_s, reps, logs = [], [], []
+            for _ in range(PIPELINE_TIMED_STEPS.get(name, 3)):
+                t0 = time.perf_counter()
+                res = pipe.step(batch, apply_update=False)
+                steps_s.append(time.perf_counter() - t0)
+                reps.append(pipe.bubble_report())
+                logs.append(res["events"])
+            step_s = statistics.median(steps_s)
+            rep = replay_bubble(mean_op_events(logs))
+            rep["theoretical_fill_drain"] = reps[0]["theoretical_fill_drain"]
+            del logs
+        got = _stage_launches(res)
+        for s, per in enumerate(got):
+            want = _pipeline_launch_plan(cfg, schedule, stages, s)
+            check({k: per[k] for k in want} == want,
+                  f"{name} stage {s} launched {per} in a step, expected "
+                  f"{want}")
+        r.update({
+            "step_s": step_s, "tokens_per_s": B * S / step_s,
+            "bubble_mean": rep["mean"], "bubble_per_stage": rep["per_stage"],
+            "bubble_max": rep["max"], "replay_span_s": rep["span_s"],
+            "bubble_mean_by_step": [r["mean"] for r in reps],
+            "bubble_median_of_steps": statistics.median(
+                r["mean"] for r in reps),
+            "step_s_by_step": steps_s,
+            "theoretical_fill_drain": rep["theoretical_fill_drain"],
+            "p2p_bytes_per_step": res["p2p_bytes"],
+            "peak_stash": res["peak_stash"],
+            "launches_by_stage": got,
+            "launches_by_stage_and_op": res["launches"],
+            "op_seconds": _op_seconds(res), "events": res["events"]})
+        rec["runs"][name] = r
+        log(f"[pipeline] {name} M={PIPELINE_M} [{B}, {S + 1}]: loss "
+            f"{loss:.6f} (rel {r['loss_rel_err']:.2g} of unpipelined), "
+            f"grad norm rel {r['grad_norm_rel_err']:.2g}, min leaf cosine "
+            f"{r['min_cosine']:.6f}; step {step_s:.3f} s (median of "
+            f"{len(steps_s)}) = {r['tokens_per_s']:.0f} tokens/s "
+            f"(unpipelined {rec['unpipelined']['step_s']:.3f} s); "
+            f"bubble_mean {rep['mean']:.4f} (ops at their stage-and-kind "
+            f"means over {len(steps_s)} steps; each step as it ran "
+            f"{[round(x, 4) for x in r['bubble_mean_by_step']]}, median "
+            f"{r['bubble_median_of_steps']:.4f}; fill-drain "
+            f"theoretical {rep['theoretical_fill_drain']:.4f}); p2p "
+            f"{res['p2p_bytes'] / 1e6:.1f} MB/step; peak stash "
+            f"{res['peak_stash']}; K1/K2/K3 by stage "
+            f"{[[p[k] for k in PIPELINE_FLASH] for p in got]} ({smi})")
+        log(f"[pipeline] {name} ms per op kind by stage (count, mean, max): "
+            + "; ".join(
+                f"stage {s_}: " + ", ".join(
+                    f"{k} {v[0]} {1e3 * v[1]:.2f} {1e3 * v[2]:.2f}"
+                    for k, v in sorted(per.items()))
+                for s_, per in enumerate(r["op_seconds"])))
+        torch.cuda.empty_cache()
+    PIPELINE_OUT.parent.mkdir(parents=True, exist_ok=True)
+    PIPELINE_OUT.write_text(json.dumps(rec))
+    # the bubble gate, each 1f1b run's bubble (its ops replayed at their
+    # stage-and-kind means) strictly below fill-drain's theoretical at its
+    # stage count, is checked at the phase's end: the later sections run
+    # and report either way
+    rec["bubble_gate"] = {
+        name: {"bubble": rec["runs"][name]["bubble_mean"],
+               "fill_drain_theoretical":
+                   PipelineSchedule.theoretical_fill_drain_bubble(
+                       stages, PIPELINE_M)}
+        for name, stages in (("1f1b_2st", 2), ("1f1b_4st", 4))}
+
+    # 2. AdamW steps through 1f1b at 2 stages track the unpipelined
+    # steps; 3. the same steps with stage 1 killed during the second
+    # step give the uninterrupted losses bitwise
+    tx = training.adamw(3e-4, weight_decay=0.1)
+    init_state, step = training.make_train_step(cfg, tx=tx)
+    state = init_state(params=params)
+    ref = [step(state, batch)[1]["loss"].item()
+           for _ in range(PIPELINE_STEPS)]
+    del state
+    torch.cuda.empty_cache()
+    # one emergency snapshot a run, after step 1: what the recovery in
+    # step 2 folds back from
+    pcfg = PipelineConfig(stages=2, schedule="1f1b",
+                          microbatches=PIPELINE_M,
+                          snapshot_every=PIPELINE_STEPS)
+    runs = {}
+    for kind in ("uninterrupted", "recovered"):
+        emergency._clear_vault()
+        t0 = time.perf_counter()
+        with MPMDPipeline(cfg, pcfg, params=params, tx=tx,
+                          telemetry=True) as pipe:
+            out = [pipe.step(batch)]
+            if kind == "recovered":
+                pipe.inject_failure(stage=1, op_index=2)
+            out += [pipe.step(batch) for _ in range(PIPELINE_STEPS - 1)]
+            phases = pipe.telemetry_snapshots()[0]["steps"][-1]["phases"]
+        runs[kind] = {"losses": [o["loss"] for o in out],
+                      "recovered": [o["recovered"] for o in out],
+                      "seconds": time.perf_counter() - t0,
+                      "stage0_phases": phases}
+        torch.cuda.empty_cache()
+    emergency._clear_vault()
+    got = runs["uninterrupted"]["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, ref))
+    check(rel <= PIPELINE_LOSS_RTOL, f"AdamW through the pipeline: losses "
+          f"{got} vs unpipelined {ref} ({rel:.3g} relative > "
+          f"{PIPELINE_LOSS_RTOL})")
+    check(runs["recovered"]["recovered"] == [False, True, False],
+          f"stage 1's death was not recovered in step 2: "
+          f"{runs['recovered']['recovered']}")
+    check(runs["recovered"]["losses"] == got, f"the recovered run's losses "
+          f"{runs['recovered']['losses']} != the uninterrupted {got}")
+    for key in ("pipeline.fwd", "pipeline.bwd", "pipeline.bwd_w",
+                "pipeline.p2p", "pipeline.idle"):
+        check(key in runs["uninterrupted"]["stage0_phases"],
+              f"the flight recorder has no {key}")
+    rec["adamw"] = {"unpipelined_losses": ref, "loss_rel_err": rel, **runs}
+    log(f"[pipeline] 1f1b 2 stages, {PIPELINE_STEPS} AdamW steps: losses "
+        f"{[round(x, 5) for x in got]} (unpipelined "
+        f"{[round(x, 5) for x in ref]}, rel {rel:.2g}); stage 1 killed at "
+        f"op 2 of step 2 and respawned from its vault shard: losses "
+        f"equal, bitwise ({runs['uninterrupted']['seconds']:.1f} s and "
+        f"{runs['recovered']['seconds']:.1f} s); stage 0's recorder "
+        f"phases {json.dumps({k: round(v, 4) for k, v in runs['uninterrupted']['stage0_phases'].items()})}")
+
+    # 4. two stage actors at num_gpus 0.5 on the card, spawned together:
+    # the threads transport's result, bitwise
+    t0 = time.perf_counter()
+    rt.init(num_cpus=4)
+    times = {"init_s": time.perf_counter() - t0}
+    try:
+        t0 = time.perf_counter()
+        apcfg = PipelineConfig(stages=2, schedule="1f1b",
+                               microbatches=PIPELINE_M, transport="actors")
+        w0 = time.time()
+        pipe = MPMDPipeline(cfg, apcfg, params=params,
+                            actor_options={"num_gpus": 0.5})
+        try:
+            times["submit_s"] = time.perf_counter() - t0
+            # forward_backward's step, with its launch counts; the first
+            # waits for both actors, spawned together
+            res = pipe.step(batch, apply_update=False, return_grads=True)
+            times["spawn_and_step_s"] = time.perf_counter() - t0
+            # when each actor's runtime was built, from the spawn's start
+            times["actor_built_s"] = [
+                [b - w0 for b in rt.get(h._actor.built.remote(),
+                                        timeout=60)[:2]]
+                for h in pipe._handles]
+            t1 = time.perf_counter()
+            pipe.step(batch, apply_update=False)
+            times["second_step_s"] = time.perf_counter() - t1
+        finally:
+            t1 = time.perf_counter()
+            pipe.close()
+            times["close_s"] = time.perf_counter() - t1
+        loss, grads = res["loss"], res["grads"]
+        launches = _stage_launches(res)
+        actors_s = time.perf_counter() - t0
+    finally:
+        t1 = time.perf_counter()
+        rt.shutdown()
+        times["shutdown_s"] = time.perf_counter() - t1
+    same = loss == threads["loss"] and _pipeline_trees_equal(
+        grads, threads["grads"])
+    check(same, f"the actor transport's loss {loss} / grads differ from "
+          f"the threads transport's ({threads['loss']})")
+    for s, per in enumerate(launches):
+        want = _pipeline_launch_plan(cfg, "1f1b", 2, s)
+        check({k: per[k] for k in want} == want, f"stage actor {s} "
+              f"launched {per}, expected {want}")
+    rec["actors"] = {"loss": loss, "bitwise_threads": same,
+                     "seconds": actors_s, "launches_by_stage": launches,
+                     **times}
+    log(f"[pipeline] 1f1b over two stage actors at num_gpus 0.5: loss and "
+        f"grads == the threads transport's, bitwise; init "
+        f"{times['init_s']:.1f} s, the pipeline's host copies "
+        f"{times['submit_s']:.1f} s, spawn + first step "
+        f"{times['spawn_and_step_s']:.1f} s (each actor's runtime built "
+        f"{[[round(x, 1) for x in b] for b in times['actor_built_s']]} s "
+        f"after the spawn began), a second step "
+        f"{times['second_step_s']:.2f} s, close {times['close_s']:.1f} s, "
+        f"shutdown {times['shutdown_s']:.1f} s; K1/K2/K3 by stage "
+        f"{[[p[k] for k in PIPELINE_FLASH] for p in launches]}")
+    del threads, grads
+    torch.cuda.empty_cache()
+    if torch.cuda.device_count() >= 4:
+        rec["four_cards"] = four = _pipeline_four_cards(
+            cfg, params, batch, want_loss, want_grads)
+        for name, ranks in four["spmd"].items():
+            for rank, r in enumerate(ranks):
+                log(f"[pipeline] SPMD {name} rank {rank}: losses "
+                    f"{[round(x, 4) for x in r['losses']]} (rel "
+                    f"{r['loss_rel_err']:.2g} of unsharded); "
+                    f"{min(r['ms'][1:]):.2f} ms/step = "
+                    f"{r['tokens_per_s']:.0f} tokens/s; launches a step "
+                    f"{r['launches'][-1]}; collectives a step "
+                    f"{r['collectives'][-1]} ({smi})")
+        m = four["mpmd_actors"]
+        log(f"[pipeline] 1f1b over 4 stage actors, one per card: loss "
+            f"{m['loss']:.6f} (rel {m['loss_rel_err']:.2g}), min leaf "
+            f"cosine {m['min_cosine']:.6f}; step {m['step_s']:.3f} s = "
+            f"{B * S / m['step_s']:.0f} tokens/s; bubble mean "
+            f"{m['bubble_mean']:.4f}; K1/K2/K3 by stage "
+            f"{[[p[k] for k in PIPELINE_FLASH] for p in m['launches_by_stage']]}"
+            f" ({smi})")
+    else:
+        rec["four_cards"] = "not run: the run has fewer than four cards"
+        log(f"[pipeline] SPMD pp over NCCL and 4 stage actors: not run "
+            f"({torch.cuda.device_count()} card)")
+    del params, want_grads
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"[pipeline] phase {rec['seconds']:.1f} s")
+    PIPELINE_OUT.write_text(json.dumps(rec))
+    for name, g in rec["bubble_gate"].items():
+        check(g["bubble"] < g["fill_drain_theoretical"],
+              f"{name}'s replayed bubble {g['bubble']:.4f} (its ops at "
+              f"their stage-and-kind means over {PIPELINE_TIMED_STEPS[name]}"
+              f" timed steps) is not below "
+              f"fill-drain's theoretical {g['fill_drain_theoretical']:.4f}")
+    return rec
+
+
 def _kernel_entry(k, case, launches_by_path, **extra):
     # the main path: a step through the trainer on Data-fed batches (K1-K6;
     # K7 runs there only with the fused hop forced, and its entry says so)
@@ -6896,7 +7458,7 @@ def _kernel_entry(k, case, launches_by_path, **extra):
 PHASES = ("kernels", "forward", "serve", "serve-bench", "parity", "train",
           "kernels-quantize", "kernels-fused", "dp-train", "runtime",
           "serve-app", "train-app", "data-train", "dag", "cli-jobs",
-          "autoscale", "observe", "mesh")
+          "autoscale", "observe", "mesh", "pipeline")
 
 
 def _timed(seconds, name, fn, *args):
@@ -7013,6 +7575,10 @@ def main(argv=None):
         # last: its trainer's GPU worker comes and goes on the card too
         torch.cuda.empty_cache()
         report["mesh"] = _timed(seconds, "mesh", phase_mesh)
+    if "pipeline" in phases:
+        # last: its stage actors come and go on the card too
+        torch.cuda.empty_cache()
+        report["pipeline"] = _timed(seconds, "pipeline", phase_pipeline)
 
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps(report, indent=1))
@@ -7081,7 +7647,15 @@ def main(argv=None):
                     for r, rr in enumerate(report["mesh"]["four_cards"][
                         shape])}
                    if isinstance(report["mesh"]["four_cards"], dict)
-                   else {})}
+                   else {}),
+                # one step of each MPMD schedule, per stage (every
+                # backward rebuilds its stage forward: K1 again)
+                **{f"pipeline_{run}_stage{s}": per.get(name, 0)
+                   for run, r in report["pipeline"]["runs"].items()
+                   for s, per in enumerate(r["launches_by_stage"])},
+                **{f"pipeline_actors_1f1b_2st_stage{s}": per.get(name, 0)
+                   for s, per in enumerate(
+                       report["pipeline"]["actors"]["launches_by_stage"])}}
 
     k1 = report["kernels"][0]
     bwd = report["kernels_bwd"][0]

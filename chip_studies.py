@@ -24,14 +24,34 @@ steps in order:
   data-host          ``data_host_study``: Data's host iteration of 256 MiB
                      of tokens, with and without its prefetch thread,
                      staged, and as a bare loop, with a profile.
+  pipeline-noise     ``pipeline_noise_study``: where the spread of the MPMD
+                     pipeline's op durations comes from (GPT-2-small, 1f1b
+                     at 2 stages on one card, M = 8): steps as they run,
+                     with Python's collector off for the step, with the
+                     heap frozen first, and with the process's threads
+                     on 2 or 4 of its CPUs; each step's replayed bubble,
+                     the spread of its ops and the collector's work; each
+                     stage's backward alone, by parts and clocks.
+  pipeline-four-cards  chip_smoke's pipeline phase's four-card section
+                     alone (``_pipeline_four_cards``): the SPMD pp step
+                     over NCCL at {pp 2, dp 2} and {pp 4} against one
+                     card's unsharded steps, and 4 stage actors, one per
+                     card (needs four cards).
 
 For example ``python3 chip_studies.py profiler-records serve-bench
 profiler-records``.  Results go to chip_smoke_out/chip_studies.json.
+
+    python3 chip_studies.py pipeline-replay PIPELINE_JSON [...]
+
+needs no card: for each saved record of chip_smoke's pipeline phase
+(chip_smoke_out/pipeline.json), each run's last step replayed as it ran
+and with its ops at their stage-and-kind means (``mean_op_events``).
 """
 
 from __future__ import annotations
 
 import json
+import os
 import sys
 import time
 
@@ -381,15 +401,247 @@ def data_host_study(passes=2):
     return out
 
 
+def _pin_threads(cpus):
+    """Every thread of this process onto ``cpus`` (this process's own
+    scheduling affinity; nothing of the machine's)."""
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            os.sched_setaffinity(int(tid), set(cpus))
+        except OSError:
+            pass
+
+
+def pipeline_noise_study(steps=4):
+    """The replayed 1f1b bubble of chip_smoke's pipeline phase sits near
+    the fill-drain floor because a backward's host time spreads by +-20%
+    between microbatches.  Per condition, ``steps`` steps: the replayed
+    bubble, each stage's B ms (mean, min, max) and the collections of
+    Python's collector during the step with their seconds."""
+    import gc
+
+    from chip_smoke import PIPELINE_M, _pipeline_batch
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.parallel.mpmd import MPMDPipeline, PipelineConfig
+
+    cfg = gpt.GPTConfig.gpt2_small()
+    batch = _pipeline_batch(cfg)
+    params = gpt.init(cfg, seed=SEED)
+    seen = {"n": [0, 0, 0], "s": 0.0, "t0": None}
+
+    def on_gc(phase, info):
+        if phase == "start":
+            seen["t0"] = time.perf_counter()
+        elif seen["t0"] is not None:
+            seen["n"][info["generation"]] += 1
+            seen["s"] += time.perf_counter() - seen["t0"]
+
+    out = {}
+    pcfg = PipelineConfig(stages=2, schedule="1f1b", microbatches=PIPELINE_M)
+    gc.callbacks.append(on_gc)
+    try:
+        with MPMDPipeline(cfg, pcfg, params=params) as pipe:
+            pipe.step(batch, apply_update=False)
+            every = os.sched_getaffinity(0)
+            for cond in ("as-is", "collector-off", "frozen-heap",
+                         "pinned-2", "pinned-4"):
+                if cond == "frozen-heap":
+                    gc.collect()
+                    gc.freeze()
+                if cond.startswith("pinned"):
+                    gc.unfreeze()
+                    _pin_threads(sorted(every)[-int(cond[-1]):])
+                rows = []
+                for _ in range(steps):
+                    if cond == "collector-off":
+                        gc.collect()
+                        gc.disable()
+                    seen.update(n=[0, 0, 0], s=0.0)
+                    try:
+                        res = pipe.step(batch, apply_update=False)
+                    finally:
+                        gc.enable()
+                    rep = pipe.bubble_report()
+                    bs = [[e["dur"] * 1e3 for e in evs if e["kind"] == "B"]
+                          for evs in res["events"]]
+                    rows.append({
+                        "bubble_mean": rep["mean"],
+                        "bubble_per_stage": rep["per_stage"],
+                        "b_ms": [[sum(b) / len(b), min(b), max(b)]
+                                 for b in bs],
+                        "gc_collections": list(seen["n"]),
+                        "gc_s": seen["s"]})
+                    per = [round(x, 4) for x in rep["per_stage"]]
+                    b_ms = [[round(x, 1) for x in r]
+                            for r in rows[-1]["b_ms"]]
+                    log(f"[pipeline-noise] {cond}: bubble "
+                        f"{rep['mean']:.4f} {per}; B ms by stage (mean, "
+                        f"min, max) {b_ms}; collections {seen['n']} in "
+                        f"{1e3 * seen['s']:.1f} ms")
+                out[cond] = rows
+            gc.unfreeze()
+            _pin_threads(sorted(every))
+            # each stage's backward program alone in this thread, 16 times
+            # on one microbatch: the spread without the other stage
+            import torch
+
+            from ray_tpu_torch.parallel.mpmd import _stage_programs
+
+            tok = torch.as_tensor(batch["tokens"]).cuda()
+            x0, t0_ = tok[:2, :-1], tok[:2, 1:]
+            alone = []
+            for s_ in (0, 1):
+                rt = pipe._runtimes[s_]
+                progs = _stage_programs(cfg, s_, 2)
+                if s_ == 0:
+                    x, g = x0, torch.randn(2, x0.shape[1], cfg.d_model,
+                                           device="cuda", dtype=cfg.dtype)
+                else:
+                    x = _stage_programs(cfg, 0, 2)["fwd"](
+                        pipe._runtimes[0]._params, x0)
+                    g = t0_
+                ms, segs = [], []
+                for _ in range(17):
+                    st0 = torch.cuda.memory_stats()
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    progs["bwd"](rt._params, x, g)
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t) * 1e3)
+                    st1 = torch.cuda.memory_stats()
+                    segs.append(st1.get("segment.all.allocated", 0)
+                                - st0.get("segment.all.allocated", 0))
+                alone.append({"stage": s_, "b_ms": ms[1:],
+                              "new_segments": segs[1:]})
+                log(f"[pipeline-noise] stage {s_} B alone, 16 runs: ms "
+                    f"mean {sum(ms[1:]) / 16:.1f} min {min(ms[1:]):.1f} "
+                    f"max {max(ms[1:]):.1f}; new allocator segments "
+                    f"{sum(segs[1:])}")
+            out["alone"] = alone
+            out["variants"] = _backward_variants(cfg, pipe, x0, t0_)
+    finally:
+        gc.callbacks.remove(on_gc)
+    return out
+
+
+def _backward_variants(cfg, pipe, x0, t0_, n=16):
+    """The last stage's B alone, timed by parts and by clocks: its
+    forward half and its backward half (autograd on its device thread),
+    the process's CPU seconds beside the wall, with autograd's device
+    threads off, and a fixed pure-Python loop as the host's own
+    jitter."""
+    import statistics
+
+    import torch
+
+    from ray_tpu_torch.models import gpt, training
+    from ray_tpu_torch.parallel.mpmd import _stage_programs
+
+    rt = pipe._runtimes[1]
+    p = rt._params
+    x = _stage_programs(cfg, 0, 2)["fwd"](pipe._runtimes[0]._params, x0)
+    leaves = [t for _, t in training.param_leaves(p)]
+
+    def parts():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c0 = time.process_time()
+        with torch.enable_grad():
+            xin = x.detach().requires_grad_()
+            loss = gpt.stage_loss(p, xin, t0_, cfg, 1, 2)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            torch.autograd.grad(loss, [xin] + leaves)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        return (t1 - t0) * 1e3, (t2 - t1) * 1e3, (t2 - t0) * 1e3, \
+            (time.process_time() - c0) * 1e3
+
+    def py_loop():
+        t0 = time.perf_counter()
+        acc = 0
+        for i in range(400_000):
+            acc += i * i % 7
+        return (time.perf_counter() - t0) * 1e3
+
+    def summary(xs):
+        return [statistics.mean(xs), min(xs), max(xs),
+                statistics.pstdev(xs) / statistics.mean(xs)]
+
+    out = {}
+    parts()
+    rows = [parts() for _ in range(n)]
+    out["fwd_half_ms"] = summary([r[0] for r in rows])
+    out["bwd_half_ms"] = summary([r[1] for r in rows])
+    out["wall_ms"] = summary([r[2] for r in rows])
+    out["process_cpu_ms"] = summary([r[3] for r in rows])
+    with torch.autograd.set_multithreading_enabled(False):
+        parts()
+        rows = [parts() for _ in range(n)]
+    out["one_thread_wall_ms"] = summary([r[2] for r in rows])
+    out["one_thread_bwd_half_ms"] = summary([r[1] for r in rows])
+    py_loop()
+    out["python_loop_ms"] = summary([py_loop() for _ in range(n)])
+    for k, v in out.items():
+        log(f"[pipeline-noise] {k}: mean {v[0]:.2f} min {v[1]:.2f} max "
+            f"{v[2]:.2f} cov {v[3]:.3f}")
+    return out
+
+
+def pipeline_four_cards_study():
+    """``_pipeline_four_cards`` without the phase's one-card runs."""
+    from chip_smoke import _grads, _pipeline_batch, _pipeline_four_cards
+    from ray_tpu_torch.models import gpt
+
+    cfg = gpt.GPTConfig.gpt2_small()
+    batch = _pipeline_batch(cfg)
+    params = gpt.init(cfg, seed=SEED)
+    want_loss, want_grads = _grads(params, batch, cfg)
+    out = _pipeline_four_cards(cfg, params, batch, want_loss.item(),
+                               want_grads)
+    for name, ranks in out["spmd"].items():
+        for rank, r in enumerate(ranks):
+            log(f"[pipeline-four-cards] SPMD {name} rank {rank}: losses "
+                f"{[round(x, 4) for x in r['losses']]} (rel "
+                f"{r['loss_rel_err']:.2g} of unsharded); "
+                f"{min(r['ms'][1:]):.2f} ms/step; launches a step "
+                f"{r['launches'][-1]}; collectives {r['collectives'][-1]}")
+    m = out["mpmd_actors"]
+    log(f"[pipeline-four-cards] 1f1b over 4 stage actors: loss rel "
+        f"{m['loss_rel_err']:.2g}, min leaf cosine {m['min_cosine']:.6f}; "
+        f"step {m['step_s']:.3f} s, bubble {m['bubble_mean']:.4f}; "
+        f"launches {m['launches_by_stage']}")
+    return out
+
+
+def pipeline_replay(paths):
+    """Saved pipeline records replayed on the host (no card)."""
+    from ray_tpu_torch.parallel.mpmd import mean_op_events, replay_bubble
+
+    for path in paths:
+        for name, r in json.loads(open(path).read())["runs"].items():
+            if "events" not in r:
+                continue
+            raw = replay_bubble(r["events"])["mean"]
+            at_means = replay_bubble(mean_op_events([r["events"]]))["mean"]
+            log(f"[pipeline-replay] {path} {name}: last step as it ran "
+                f"{raw:.4f}, at its stage-and-kind means {at_means:.4f} "
+                f"(fill-drain theoretical "
+                f"{r['theoretical_fill_drain']:.4f})")
+
+
 STEPS = {"cold-l2": cold_l2_study,
          "profiler-records": lambda: profiler_record_study("cli"),
          "profiler-sessions": profiler_session_study,
          "serve-bench": phase_serve_bench,
          "train-app-host": train_app_host_study,
-         "data-host": data_host_study}
+         "data-host": data_host_study,
+         "pipeline-noise": pipeline_noise_study,
+         "pipeline-four-cards": pipeline_four_cards_study}
 
 
 def main(argv):
+    if argv[:1] == ["pipeline-replay"]:
+        return pipeline_replay(argv[1:])
     unknown = [s for s in argv if s not in STEPS]
     if not argv or unknown:
         sys.exit(f"usage: chip_studies.py STEP [STEP ...]; steps: "

@@ -20,13 +20,15 @@ experimental/channel/torch_tensor_nccl_channel.py).  The port's copy of
 cross-ACTOR edge stages through host memory, and what the channel removes
 is the serialization tax.  A tensor moves as one device->shm copy on the
 writer, straight into the ring slot and complete before the slot is
-published, and on the reader one copy out of the slot into an owned host
-buffer (the slot is released after it) and one host->device copy.  The
-raw bytes go through a ``torch.uint8`` view, so bf16 and float8 need no
-numpy dtype.  A tensor staged from a card lands where the object plane
-puts it (``serialization._receiving_device``: the reader's ``cuda``
-device when it sees a card, else the CPU); a CPU tensor stays a CPU
-tensor.
+published, and one copy out of the slot on the reader, before the slot
+is released: straight onto the reader's card for a tensor staged from a
+card (``serialization._receiving_device``: the reader's ``cuda`` device
+when it sees a card), into an owned host buffer otherwise; a CPU tensor
+stays a CPU tensor.  An endpoint that copies between a card and its
+mapping page-locks the mapping with CUDA first (``cudaHostRegister``),
+so those copies run at DMA rate, not through the driver's pageable
+staging.  The raw bytes go through a ``torch.uint8`` view, so bf16 and
+float8 need no numpy dtype.
 
 torch is looked up in ``sys.modules``, never imported here: a process
 that carries no tensor never pays torch's import.
@@ -147,6 +149,7 @@ class Channel:
         self._slot = self._lib.rt_chan_slot_size(self._chan)
         self._fd = os.open(path, os.O_RDWR)
         self._mm = None  # lazily map the whole (small) channel file
+        self._pinned = None  # the mapping's address once page-locked
         self._closed_handle = False
 
     def _map(self):
@@ -156,6 +159,24 @@ class Channel:
             size = os.fstat(self._fd).st_size
             self._mm = mmap.mmap(self._fd, size)
         return self._mm
+
+    def _pin(self):
+        """Page-lock this process's mapping of the channel with CUDA, once.
+        Raises when the driver refuses: a pageable mapping would stage
+        every copy through the driver at a tenth of the rate."""
+        if self._pinned is not None:
+            return
+        torch = sys.modules["torch"]
+        mm = self._map()
+        buf = ctypes.c_char.from_buffer(mm)
+        addr = ctypes.addressof(buf)
+        del buf                     # no export may outlive it: close() fails
+        rc = int(torch.cuda.cudart().cudaHostRegister(addr, len(mm), 0))
+        if rc != 0:
+            raise RuntimeError(
+                f"cudaHostRegister of channel {self.path}'s mapping "
+                f"({len(mm)} bytes) failed with CUDA error {rc}")
+        self._pinned = addr
 
     def _acquire_write(self, timeout_s: Optional[float]) -> int:
         t_us = -1 if timeout_s is None else int(timeout_s * 1e6)
@@ -190,6 +211,8 @@ class Channel:
     def _write_device(self, head: bytes, t, nbytes: int,
                       timeout_s: Optional[float]):
         torch = sys.modules["torch"]
+        if t.is_cuda:
+            self._pin()
         off = self._acquire_write(timeout_s)
         mm = self._map()
         mm[off] = TAG_DEVICE
@@ -274,11 +297,12 @@ class Channel:
             return tag, cloudpickle.loads(payload)
         return TAG_STOP, None
 
-    @staticmethod
-    def _stage_device(mm, off: int, end: int):
-        """Copy a device-tensor payload out of the ring slot into an OWNED
-        host buffer (one copy): a tensor aliasing the slot would be
-        overwritten by the next writer."""
+    def _stage_device(self, mm, off: int, end: int):
+        """Copy a device-tensor payload out of the ring slot into memory
+        this process owns (one copy): onto the reader's card for a tensor
+        staged from a card when the reader sees one, else an owned host
+        buffer.  A tensor aliasing the slot would be overwritten by the
+        next writer."""
         import torch
 
         view = memoryview(mm)[off + 1:off + end]
@@ -287,15 +311,20 @@ class Channel:
             shape, dtype, device_type = pickle.loads(
                 bytes(view[4:4 + meta_len]))
             n = len(view) - 4 - meta_len
-            host = torch.empty(n, dtype=torch.uint8)
+            dev = ("cpu" if device_type == "cpu"
+                   else serialization._receiving_device(torch))
+            staged = torch.empty(n, dtype=torch.uint8, device=dev)
+            if staged.is_cuda:
+                self._pin()
             if n:
                 src = torch.frombuffer(view, dtype=torch.uint8, count=n,
                                        offset=4 + meta_len)
-                host.copy_(src)
+                # synchronous: complete before the slot is released
+                staged.copy_(src)
                 del src
         finally:
             view.release()
-        return host, shape, dtype, device_type
+        return staged, shape, dtype
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -308,6 +337,13 @@ class Channel:
         if self._closed_handle:
             return
         self._closed_handle = True
+        try:
+            if self._pinned:
+                # unregistered before the mapping goes
+                sys.modules["torch"].cuda.cudart().cudaHostUnregister(
+                    self._pinned)
+        except Exception:
+            pass
         try:
             if self._mm is not None:
                 self._mm.close()
@@ -324,14 +360,9 @@ class Channel:
             pass
 
 
-def _restore_staged(host, shape, dtype: str, device_type: str):
-    """The owned host bytes as a tensor of ``dtype`` and ``shape``, on the
-    device the object plane's rule gives (one host -> device copy for a
-    tensor staged from a card)."""
+def _restore_staged(staged, shape, dtype: str):
+    """The owned bytes (host or the reader's card) as a tensor of
+    ``dtype`` and ``shape``."""
     import torch
 
-    t = host.view(getattr(torch, dtype)).reshape(shape)
-    if device_type == "cpu":
-        return t
-    dev = serialization._receiving_device(torch)
-    return t if dev == "cpu" else t.to(dev)
+    return staged.view(getattr(torch, dtype)).reshape(shape)

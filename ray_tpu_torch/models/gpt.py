@@ -28,12 +28,25 @@ in one rank-local region with explicit collectives
 (their gradient reduce-scattered), Megatron's column/row split over
 ``tp`` for the heads and the MLP, the vocab-parallel embedding and
 cross-entropy over ``tp``, ring attention (K1-K3 per chunk) over ``sp``,
-and every parameter's gradient summed over the data ranks it is
-replicated on.  The activations are laid out by ``ACTIVATION_RULES``
+GPipe over ``pp`` (``parallel/pipeline.py``: each pp rank runs its
+stage's layers on microbatches that rotate over pp), and every
+parameter's gradient summed over the data ranks it is replicated on.
+The activations are laid out by ``ACTIVATION_RULES``
 (batch over the data axes, seq over ``sp``, heads over ``tp``), and what
 leaves the region is a DTensor of that layout.  Without a mesh the same
 code runs as one rank (every axis 1), where each collective is the
-identity and runs nothing.  ``pp`` > 1 is ROADMAP A.6b and raises.
+identity and runs nothing.
+
+Under ``pp`` the leaves outside the layer stack are whole on every pp
+rank: the final norm and the cross-entropy run the same on each (their
+gradients are whole there), while only pp rank 0 feeds the embedding
+into the pipeline, so the embedding's output has its gradient summed
+over pp (the other ranks contribute zeros) and the tied table's total is
+the lookup's plus the unembedding's on every rank.
+
+MPMD pipelines (``parallel/mpmd.py``) slice the model into per-stage
+trees instead (``partition_stage_params``, ``stage_hidden``,
+``stage_loss``), each stage running the same block loop.
 """
 
 from __future__ import annotations
@@ -91,6 +104,7 @@ class GPTConfig:
     # how a >1 sp axis attends: "ring" (ring attention) or "none" (K/V
     # gathered over sp, each rank's rows at their global offset)
     sp_mode: str = "ring"
+    num_microbatches: Optional[int] = None  # pp microbatches; default = pp
 
     @classmethod
     def gpt2_small(cls, **kw):
@@ -372,12 +386,19 @@ def _remat_kwargs(cfg: GPTConfig) -> Dict[str, Any]:
     raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
 
 
-def _stack(x, params: Params, cfg: GPTConfig, rope, shards: "_Shards",
-           positions=None):
-    """Every block over x, then the final norm."""
+def _n_layers(params: Params) -> int:
+    """The stacked layers' count in ``params`` (a pp rank's or a stage's
+    slice holds fewer than ``cfg.n_layers``)."""
+    return next(iter(params["layers"].values())).shape[0]
+
+
+def _blocks(x, params: Params, cfg: GPTConfig, rope, shards: "_Shards",
+            positions=None):
+    """Every block of ``params``' layer stack over x: the one block loop
+    of the whole model, a pp rank's stage and an MPMD stage."""
     remat = cfg.remat and torch.is_grad_enabled()
     kw = _remat_kwargs(cfg) if cfg.remat else {}
-    for l in range(cfg.n_layers):
+    for l in range(_n_layers(params)):
         if remat:
             # the model draws no random numbers: no RNG state to replay
             x = checkpoint(_block, x, params, l, cfg, rope, shards,
@@ -385,6 +406,32 @@ def _stack(x, params: Params, cfg: GPTConfig, rope, shards: "_Shards",
                            preserve_rng_state=False, **kw)
         else:
             x = _block(x, params, l, cfg, rope, shards, positions)
+    return x
+
+
+def _stack(x, params: Params, cfg: GPTConfig, rope, shards: "_Shards",
+           positions=None):
+    """Every block over x, then the final norm.  Over a pp axis > 1 this
+    rank's layers are one stage of a GPipe pipeline over
+    ``cfg.num_microbatches`` (default pp) microbatches of its rows."""
+    pp = shards.ctx.size("pp")
+    if pp == 1:
+        x = _blocks(x, params, cfg, rope, shards, positions)
+    else:
+        from ray_tpu_torch.parallel.pipeline import (merge_microbatches,
+                                                     pipeline_apply,
+                                                     split_microbatches)
+
+        if cfg.n_layers % pp:
+            raise ValueError(f"n_layers {cfg.n_layers} not divisible by "
+                             f"pp {pp}")
+        M = cfg.num_microbatches or pp
+
+        def stage_fn(local, xm):
+            return _blocks(xm, local, cfg, rope, shards, positions)
+
+        x = merge_microbatches(pipeline_apply(
+            stage_fn, params, split_microbatches(x, M), shards.ctx))
     return _norm(x, params["final_norm"], params.get("final_norm_b"),
                  cfg.norm)
 
@@ -456,10 +503,6 @@ class _Shards:
             return
         from ray_tpu_torch.parallel.mesh import mesh_device
 
-        if self.ctx.size("pp") > 1:
-            raise NotImplementedError(
-                "a pp axis > 1 runs the GPT as pipeline stages, which come "
-                "with MPMD pipelines (ROADMAP A.6b)")
         self.device = mesh_device(mesh)
         self.specs = _tree_map(lambda l: spec_from_logical(l.axes, None, mesh),
                                logical_axes(cfg))
@@ -600,6 +643,9 @@ def _hidden(local: Params, tokens, cfg: GPTConfig, shards: _Shards):
         rope = rope_table(off + S, cfg.d_head, device=shards.device)
         if ctx.size("sp") > 1:
             positions = off + torch.arange(S, device=shards.device)
+    # only pp rank 0 feeds this into the pipeline: the lookup's gradient
+    # is that rank's, summed over pp so each rank holds the table's total
+    x = spmd.reduce_grad(x, ctx, ("pp",))
     return _stack(x, local, cfg, rope, shards, positions)
 
 
@@ -678,6 +724,111 @@ def _loss(local: Params, batch: Dict[str, Any], cfg: GPTConfig,
         return loss.mean()
     total = spmd.reduce_out(loss.sum(), ctx, over)
     return total / (loss.numel() * ctx.data_size * ctx.size("sp"))
+
+
+# ---------------------------------------------------------------------------
+# MPMD pipeline partitioning (parallel/mpmd.py): the model sliced into
+# per-stage param trees and per-stage forward functions, each stage run
+# by its own gang on its own device
+
+
+def partition_stage_params(params: Params, cfg: GPTConfig, stages: int
+                           ) -> list:
+    """Slice the param tree into ``stages`` contiguous per-stage trees
+    (views of ``params``' tensors).
+
+    Stage 0 owns embed (and learned positions); the last stage owns the
+    final norm and the vocab projection.  With tied embeddings BOTH end
+    stages hold the table (stage 0 for the lookup, the last for the
+    unembedding): ``parallel/mpmd.py`` keeps the two copies equal by
+    exchanging their gradients every step."""
+    if cfg.n_layers % stages:
+        raise ValueError(f"n_layers {cfg.n_layers} not divisible by "
+                         f"stages {stages}")
+    per = cfg.n_layers // stages
+    out = []
+    for s in range(stages):
+        st: Params = {"layers": {k: w[s * per:(s + 1) * per]
+                                 for k, w in params["layers"].items()}}
+        if s == 0:
+            st["embed"] = params["embed"]
+            if cfg.pos == "learned":
+                st["pos_embed"] = params["pos_embed"]
+        if s == stages - 1:
+            st["final_norm"] = params["final_norm"]
+            if cfg.norm == "ln":
+                st["final_norm_b"] = params["final_norm_b"]
+            if cfg.tie_embeddings:
+                st.setdefault("embed", params["embed"])
+            else:
+                st["unembed"] = params["unembed"]
+        out.append(st)
+    return out
+
+
+def merge_stage_trees(stage_trees: Sequence[Params], cfg: GPTConfig,
+                      grads: bool = False, tie_summed: bool = False
+                      ) -> Params:
+    """Inverse of ``partition_stage_params``: the whole tree.
+
+    For params (``grads=False``) the tied table's copies are equal and
+    stage 0's is taken; for gradients the two ends' partials are SUMMED
+    (the lookup's and the unembedding's contributions to the one table),
+    unless the pipeline's tied-table exchange already left the total in
+    both (``tie_summed=True``)."""
+    stages = len(stage_trees)
+    first, last = stage_trees[0], stage_trees[-1]
+    out: Params = {"layers": {
+        k: torch.cat([t["layers"][k] for t in stage_trees], dim=0)
+        for k in first["layers"]}}
+    out["embed"] = first["embed"]
+    if grads and cfg.tie_embeddings and stages > 1 and not tie_summed:
+        out["embed"] = out["embed"] + last["embed"]
+    if cfg.pos == "learned":
+        out["pos_embed"] = first["pos_embed"]
+    out["final_norm"] = last["final_norm"]
+    if cfg.norm == "ln":
+        out["final_norm_b"] = last["final_norm_b"]
+    if not cfg.tie_embeddings:
+        out["unembed"] = last["unembed"]
+    return out
+
+
+def stage_hidden(stage_params: Params, x, cfg: GPTConfig, stage: int,
+                 stages: int) -> torch.Tensor:
+    """One MPMD stage's forward: tokens [B, S] (stage 0) or hidden
+    [B, S, D] -> hidden [B, S, D] (final-normed on the last stage).  The
+    blocks are the unpipelined model's (``_blocks``, remat included), so
+    a stage computes exactly its slice of the whole stack."""
+    dev = next(iter(stage_params["layers"].values())).device
+    shards = _Shards(cfg, None, dev)
+    S = x.shape[1]
+    if stage == 0:
+        h = stage_params["embed"][x.to(dtype=torch.long)].to(cfg.dtype)
+        if cfg.pos == "learned":
+            h = h + stage_params["pos_embed"][:S][None].to(cfg.dtype)
+    else:
+        h = x.to(cfg.dtype)
+    rope = (None if cfg.pos == "learned"
+            else rope_table(S, cfg.d_head, device=dev))
+    h = _blocks(h, stage_params, cfg, rope, shards)
+    if stage == stages - 1:
+        h = _norm(h, stage_params["final_norm"],
+                  stage_params.get("final_norm_b"), cfg.norm)
+    return h
+
+
+def stage_loss(stage_params: Params, x, targets, cfg: GPTConfig,
+               stage: int, stages: int) -> torch.Tensor:
+    """Last-stage forward + next-token CE (the mean over this
+    microbatch; with equal microbatches the mean of the means is
+    ``loss_fn``'s global mean)."""
+    h = stage_hidden(stage_params, x, cfg, stage, stages)
+    table = (stage_params["embed"].T if cfg.tie_embeddings
+             else stage_params["unembed"]).to(cfg.dtype)
+    return softmax_cross_entropy(h.to(cfg.dtype) @ table,
+                                 targets.to(dtype=torch.long),
+                                 z_loss=cfg.z_loss).mean()
 
 
 # ---------------------------------------------------------------------------

@@ -45,8 +45,15 @@ class Kernel:
     name: str
     source: str
     replaces: str
-    launches: int = 0
     vector_launches: int = 0
+    # launches by CUDA device index (pipeline stages on several cards of
+    # one process read theirs)
+    by_device: Dict[int, int] = dataclasses.field(default_factory=dict)
+
+    @property
+    def launches(self) -> int:
+        with _count_lock:
+            return sum(self.by_device.values())
 
     @property
     def source_path(self) -> Path:
@@ -87,6 +94,7 @@ KERNELS: Tuple[Kernel, ...] = (FLASH_FWD, FLASH_BWD_DKV, FLASH_BWD_DQ,
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}   # guarded-by: _lock   (by source)
+_count_lock = threading.Lock()       # guards every Kernel's counts
 
 
 def launch_counts() -> Dict[str, int]:
@@ -99,10 +107,34 @@ def vector_launch_counts() -> Dict[str, int]:
             for k in (QUANTIZE, DEQUANTIZE, DEQUANTIZE_ACCUMULATE)}
 
 
+def device_launch_counts(device) -> Dict[str, int]:
+    """Launches on one device (a torch.device or an index; a CPU device
+    has none)."""
+    if isinstance(device, torch.device):
+        if device.type != "cuda":
+            return {k.name: 0 for k in KERNELS}
+        device = (device.index if device.index is not None
+                  else torch.cuda.current_device())
+    with _count_lock:
+        return {k.name: k.by_device.get(int(device), 0) for k in KERNELS}
+
+
 def reset_launch_counts() -> None:
-    for k in KERNELS:
-        k.launches = 0
-        k.vector_launches = 0
+    with _count_lock:
+        for k in KERNELS:
+            k.vector_launches = 0
+            k.by_device.clear()
+
+
+def _count(kernel: Kernel, device: torch.device, vector: bool = False
+           ) -> None:
+    """One launch of ``kernel`` on ``device``: wrappers run in several
+    threads at once (pipeline stages, the autograd engine's device
+    threads), so the counts are taken under a lock."""
+    with _count_lock:
+        kernel.vector_launches += bool(vector)
+        kernel.by_device[device.index] = kernel.by_device.get(
+            device.index, 0) + 1
 
 
 def _nvcc() -> str:
@@ -359,7 +391,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             _FLASH_DTYPES[q.dtype], int(bool(causal)), int(q_offset),
             float(scale), stream)
     _check(lib, err, "flash_fwd")
-    FLASH_FWD.launches += 1
+    _count(FLASH_FWD, q.device)
     return out, lse
 
 
@@ -378,7 +410,7 @@ def _bwd_launch(kernel: Kernel, outs: Tuple[torch.Tensor, ...], q, k, v,
                  B, H, Sq, Sk, D, _FLASH_DTYPES[q.dtype], int(bool(causal)),
                  int(q_offset), float(scale), stream)
     _check(lib, err, kernel.name)
-    kernel.launches += 1
+    _count(kernel, q.device)
 
 
 def flash_bwd_dkv(q, k, v, do, lse, di, *, causal: bool, scale: float,
@@ -507,8 +539,7 @@ def quantize(x: torch.Tensor, block_size: int, *, stochastic: bool = False,
                                int(bool(stochastic)), int(key) & 0xFFFFFFFF,
                                q.data_ptr(), s.data_ptr(), stream)
     _check(lib, err, "quantize")
-    QUANTIZE.launches += 1
-    QUANTIZE.vector_launches += quantize_vector_body(x, block_size)
+    _count(QUANTIZE, x.device, quantize_vector_body(x, block_size))
     return q, s
 
 
@@ -554,8 +585,7 @@ def dequantize(q: torch.Tensor, scales: torch.Tensor, n: int,
         q.data_ptr(), scales.data_ptr(), out.data_ptr(), _QUANT_DTYPES[dtype],
         n, block_size, stream))
     _check(lib, err, "dequantize")
-    DEQUANTIZE.launches += 1
-    DEQUANTIZE.vector_launches += vector_body(block_size, q, out)
+    _count(DEQUANTIZE, q.device, vector_body(block_size, q, out))
     return out
 
 
@@ -585,8 +615,7 @@ def dequantize_accumulate(q: torch.Tensor, scales: torch.Tensor, world: int,
         q.data_ptr(), scales.data_ptr(), out.data_ptr(), world, m,
         block_size, float(post_scale), stream))
     _check(lib, err, "dequantize_accumulate")
-    DEQUANTIZE_ACCUMULATE.launches += 1
-    DEQUANTIZE_ACCUMULATE.vector_launches += vector_body(block_size, q, out)
+    _count(DEQUANTIZE_ACCUMULATE, q.device, vector_body(block_size, q, out))
     return out
 
 
@@ -721,5 +750,5 @@ def fused_reduce_scatter(x: torch.Tensor, peers, block_size: int, *,
             out.data_ptr(), sub, peers.error_device_ptr,
             int(peers.timeout_s * 1e9), grid, int(loop), stream)
     _check(lib, err, "fused_reduce_scatter")
-    FUSED_REDUCE_SCATTER.launches += 1
+    _count(FUSED_REDUCE_SCATTER, x.device)
     return out

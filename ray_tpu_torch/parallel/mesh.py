@@ -10,7 +10,7 @@ it; collectives over an axis run on ``mesh.get_group(axis)``.
 
 Standard axis names (outer-to-inner):
 
-    pp    pipeline stages          (ROADMAP A.6b)
+    pp    pipeline stages          (GPipe, parallel/pipeline.py)
     dp    pure data parallel
     fsdp  data parallel + param sharding (ZeRO-3)
     sp    sequence/context parallel (ring attention)

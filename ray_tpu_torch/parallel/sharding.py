@@ -306,20 +306,20 @@ def with_constraint(x, logical: Tuple[Optional[str], ...],
     return x.redistribute(mesh, NamedSharding(mesh, spec).placements)
 
 
-def _flatten(tree) -> Tuple[List[torch.Tensor], Callable[[List], Any]]:
-    """Leaves of a nested dict / list / tuple of tensors, in order, and
-    the function that rebuilds the structure from new leaves."""
-    if isinstance(tree, torch.Tensor):
-        return [tree], lambda leaves: leaves[0]
+def _flatten(tree, path: str = ""
+             ) -> Tuple[List[Tuple[str, Any]], Callable[[List], Any]]:
+    """(path, leaf) of a nested dict / list / tuple, in order, and the
+    function that rebuilds the structure from new leaves; anything else
+    is a leaf.  A path reads like an index into the tree
+    (``['layers'][0]``), so an error can name its leaf."""
     if isinstance(tree, dict):
         keys = list(tree)
-        parts = [_flatten(tree[k]) for k in keys]
+        parts = [_flatten(tree[k], f"{path}[{k!r}]") for k in keys]
     elif isinstance(tree, (list, tuple)):
         keys = None
-        parts = [_flatten(v) for v in tree]
+        parts = [_flatten(v, f"{path}[{i}]") for i, v in enumerate(tree)]
     else:
-        raise TypeError(f"gradient trees hold tensors in dicts, lists and "
-                        f"tuples; got {type(tree).__name__}")
+        return [(path, tree)], lambda leaves: leaves[0]
     sizes = [len(p[0]) for p in parts]
     leaves = [leaf for p in parts for leaf in p[0]]
 
@@ -563,7 +563,12 @@ class GradientSynchronizer:
         """Sync a tree (nested dicts, lists, tuples) of gradient tensors;
         returns the same structure of synced tensors."""
         leaves, rebuild = _flatten(grads)
+        for path, g in leaves:
+            if not isinstance(g, torch.Tensor):
+                raise TypeError(
+                    f"gradient trees hold tensors in dicts, lists and "
+                    f"tuples; got {type(g).__name__} at {path or '<root>'}")
         self.begin()
-        for g in leaves:
+        for _, g in leaves:
             self.push(g)
         return rebuild(self.finish())

@@ -344,6 +344,13 @@ class ContinuousEngine:
         # long admission is progress, and the probes' cadence is moot
         self._progress_ts = time.monotonic()  # guarded-by: _lock
         self._last_prefill_s = 0.0
+        # what the stall check sees, for its readers: the device setup's
+        # seconds (before any slot is taken), the first prefill chunk's
+        # and decode step's host seconds, and the longest quiet stretch a
+        # probe found while slots were active
+        self._health = {"setup_s": None, "first_chunk_s": None,
+                        "first_step_s": None, "max_quiet_s": 0.0,
+                        "probes": 0}               # guarded-by: _lock
 
         # device state (built lazily on the engine thread)
         self._cache = None
@@ -455,6 +462,7 @@ class ContinuousEngine:
             ttfts = sorted(self._ttfts)
             window = [(t, n) for t, n in self._t_window if now - t <= 10.0]
             draining = self._draining
+            health = dict(self._health)
             req_ids = [s.request_id
                        for s in list(self._slots) + list(self._waiting)
                        if s is not None and s.request_id]
@@ -481,6 +489,7 @@ class ContinuousEngine:
             "ttft_p50_s": pct(0.50),
             "ttft_p99_s": pct(0.99),
             "tokens_per_s": (toks / span) if span > 0 else 0.0,
+            "health": health,
             **self._totals,
         }
 
@@ -540,6 +549,10 @@ class ContinuousEngine:
             active = sum(1 for s in self._slots if s is not None)
             queued = len(self._waiting)
             quiet_s = time.monotonic() - self._progress_ts
+            self._health["probes"] += 1
+            if active:
+                self._health["max_quiet_s"] = max(
+                    self._health["max_quiet_s"], quiet_s)
         thread = self._thread
         if thread is not None and not thread.is_alive() \
                 and (active or queued):
@@ -668,6 +681,18 @@ class ContinuousEngine:
         FIFO (a too-big head request waits for evictions rather than
         being overtaken)."""
         self._last_prefill_s = 0.0
+        if self._cache is None:
+            with self._lock:
+                pending = bool(self._waiting)
+            if pending:
+                # the device setup (the caches, and the programs' first
+                # launches) runs before the first sequence takes a slot:
+                # a probe meanwhile sees no active slot, so a slow host's
+                # one-time setup is not read as a stalled step
+                t0 = time.perf_counter()
+                self._ensure_device_state()
+                with self._lock:
+                    self._health["setup_s"] = time.perf_counter() - t0
         admitted = 0
         while True:
             with self._lock:
@@ -746,6 +771,8 @@ class ContinuousEngine:
                     self._cfg)
             with self._lock:
                 self._progress_ts = time.monotonic()
+                if self._health["first_chunk_s"] is None:
+                    self._health["first_chunk_s"] = time.perf_counter() - tp
         self._logits[slot] = logits.float()
         self._sync()
         self._last_prefill_s += time.perf_counter() - tp
@@ -765,6 +792,7 @@ class ContinuousEngine:
         along at pos 0 against the null page; their tokens are discarded
         here on the host."""
         gpt, cfg = self._gpt, self._cfg
+        t_step = time.perf_counter()
         active = [(i, s) for i, s in enumerate(self._slots)
                   if s is not None]
         keys: List[Optional[int]] = [None] * self.max_slots
@@ -787,6 +815,8 @@ class ContinuousEngine:
         self._totals["steps"] += 1
         with self._lock:
             self._progress_ts = time.monotonic()
+            if self._health["first_step_s"] is None:
+                self._health["first_step_s"] = time.perf_counter() - t_step
         now = time.perf_counter()
         emitted = 0
         finished = []
@@ -865,3 +895,22 @@ class ContinuousEngine:
         self._logits = torch.zeros(
             (self.max_slots, self._cfg.vocab_size), dtype=torch.float32,
             device=self.device)
+        if self.device.type == "cuda":
+            # the first matmul would otherwise create the BLAS handle
+            torch.cuda.current_blas_handle()
+        # a fresh process's first launches of the engine's device code
+        # carry one-time costs (lazy loading of the code, library state):
+        # one throwaway prefill position pays them here, before any slot
+        # is taken.  Its K/V land where nothing is read before it is
+        # written: the null page, or slot 0's position 0, which a
+        # contiguous admission writes first; its logits are dropped.
+        tok = torch.zeros(1, dtype=torch.long, device=self.device)
+        if self.cache_mode == "paged":
+            ptab = torch.zeros(self.max_pages_per_seq, dtype=torch.long,
+                               device=self.device)
+            self._gpt.paged_prefill(self._params, self._cache, tok, ptab, 0,
+                                    self._cfg)
+        else:
+            self._gpt.slot_prefill(self._params, self._cache, tok, 0, 0,
+                                   self._cfg)
+        self._sync()

@@ -231,8 +231,12 @@ class JaxConfig(BackendConfig):
         make_mesh``) on every worker once the gang's group is up (the
         reference's ``_install_default_mesh``): over the "spmd" group's
         ranks, or a world-1 mesh on a lone worker.
-    pipeline: MPMD pipelines, not ported yet (ROADMAP A.6b): any value
-        but None raises.
+    pipeline: MPMD pipeline parallelism across worker gangs: a
+        ``parallel.mpmd.PipelineConfig`` (stages/schedule/microbatches)
+        or a spec string ("stages=4,schedule=1f1b,microbatches=8").  The
+        spec is checked here, on the driver (a bad one raises), and
+        published to every worker as ``RAY_TPU_TORCH_TRAIN_PIPELINE``, so
+        the train fn builds its stage with ``PipelineConfig.from_env()``.
     telemetry: the flight recorder (``ray_tpu_torch.telemetry``): None
         (the default) and True turn it on, False turns it off; a dict or
         a ``TelemetryConfig`` sets its knobs, as in the reference.
@@ -252,12 +256,25 @@ class JaxConfig(BackendConfig):
             raise ValueError(f"mode must be 'auto', 'spmd' or 'local', got "
                              f"{self.mode!r}")
         if self.pipeline is not None:
-            raise NotImplementedError(
-                "JaxConfig(pipeline=...): MPMD pipelines are not ported "
-                "yet (ROADMAP A.6b)")
+            # checked on the driver, where the error is actionable, not
+            # inside N workers
+            _pipeline_spec(self.pipeline)
 
     def backend_cls(self):
         return _JaxBackend
+
+
+def _pipeline_spec(pipeline) -> str:
+    """The env form of ``JaxConfig.pipeline`` (a PipelineConfig or a spec
+    string), raising on a bad spec."""
+    from ray_tpu_torch.parallel.mpmd import PipelineConfig
+
+    if isinstance(pipeline, str):
+        pipeline = PipelineConfig.from_spec(pipeline)
+    if not isinstance(pipeline, PipelineConfig):
+        raise TypeError(f"JaxConfig(pipeline=...) takes a PipelineConfig "
+                        f"or a spec string, got {type(pipeline).__name__}")
+    return pipeline.to_spec()
 
 
 def _setup_spmd_group(group_name: str, world_size: int, rank: int,
@@ -335,6 +352,10 @@ class _JaxBackend(Backend):
             # the flag form reaches subprocesses a worker may itself
             # spawn; the group default below covers the workers directly
             env[COMPRESSION_ENV] = comp_spec
+        if backend_config.pipeline is not None:
+            from ray_tpu_torch.parallel.mpmd import PIPELINE_ENV
+
+            env[PIPELINE_ENV] = _pipeline_spec(backend_config.pipeline)
         ray_tpu_torch.get([
             w.actor.set_env_vars.remote(
                 {**env, "RAY_TPU_TORCH_TRAIN_WORLD_RANK": str(i)})

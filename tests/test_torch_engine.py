@@ -446,3 +446,124 @@ def test_stall_check_needs_no_probe_while_idle(model):
         eng.stop()
     assert errors == []
     assert res["completion"] == _expected(model, PROMPT, 4)
+
+
+class _SlowSetupGpt(_SlowPrefill):
+    """The gpt module whose cache allocation (the engine's device setup)
+    takes ``setup`` s, as a slow host's first admission does on the card;
+    decode steps after the ``hang_after``-th take ``hang`` s."""
+
+    def __init__(self, setup, hang_after=None, hang=0.0):
+        super().__init__(0.0)
+        self.setup, self.hang_after, self.hang = setup, hang_after, hang
+        self.steps = 0
+
+    def _slow(self, fn, *args, **kwargs):
+        time.sleep(self.setup)
+        return fn(*args, **kwargs)
+
+    def init_paged_cache(self, *args, **kwargs):
+        return self._slow(gpt.init_paged_cache, *args, **kwargs)
+
+    def init_slot_cache(self, *args, **kwargs):
+        return self._slow(gpt.init_slot_cache, *args, **kwargs)
+
+    def _step(self, fn, *args, **kwargs):
+        self.steps += 1
+        if self.hang_after is not None and self.steps > self.hang_after:
+            time.sleep(self.hang)
+        return fn(*args, **kwargs)
+
+    def paged_decode_step(self, *args, **kwargs):
+        return self._step(gpt.paged_decode_step, *args, **kwargs)
+
+    def slot_decode_step(self, *args, **kwargs):
+        return self._step(gpt.slot_decode_step, *args, **kwargs)
+
+
+@pytest.mark.parametrize("cache", ["paged", "contiguous"])
+def test_first_admission_device_setup_is_not_a_stall(model, cache):
+    # the device setup (1.5 s, three times stall_s) runs before the first
+    # sequence takes its slot: no probe finds an active slot quiet, so
+    # the replica is not restarted as its first requests arrive (the
+    # setup used to run inside the admission, after its progress mark)
+    cfg, params = model[:2]
+    eng = ContinuousEngine(_SlowSetupGpt(1.5), cfg, params, cache=cache,
+                           max_slots=4, page_size=8, stall_s=0.5,
+                           device="cpu")
+    try:
+        seq = eng.submit(PROMPT, max_new_tokens=4)
+        errors = _probe_while(eng, seq)
+        res = eng.collect(seq, timeout=60)
+        health = eng.engine_stats()["health"]
+    finally:
+        eng.stop()
+    assert errors == []
+    assert res["completion"] == _expected(model, PROMPT, 4)
+    assert health["setup_s"] >= 1.5 and health["probes"] > 10
+    assert health["first_chunk_s"] is not None \
+        and health["first_step_s"] is not None
+    assert health["max_quiet_s"] < 0.5
+
+
+def test_hung_step_after_a_slow_setup_still_fails_health(model):
+    # the same slow setup, then decode steps that stop for 1.5 s: those
+    # are stalls, and the probes say so
+    cfg, params = model[:2]
+    eng = ContinuousEngine(_SlowSetupGpt(1.5, hang_after=2, hang=1.5), cfg,
+                           params, cache="paged", max_slots=4, page_size=8,
+                           stall_s=0.5, device="cpu")
+    try:
+        seq = eng.submit(PROMPT, max_new_tokens=4)
+        errors = _probe_while(eng, seq)
+        eng.collect(seq, timeout=60)
+        health = eng.engine_stats()["health"]
+    finally:
+        eng.stop()
+    assert errors and all("stalled" in e for e in errors)
+    assert health["max_quiet_s"] > 0.5
+
+
+class _ColdFirstCall(_SlowPrefill):
+    """The gpt module whose first prefill call in the process costs
+    ``cold`` s (the device code's one-time loading on a fresh replica's
+    card), later ones nothing."""
+
+    def __init__(self, cold):
+        super().__init__(0.0)
+        self.cold, self.calls = cold, 0
+
+    def _first(self, fn, *args, **kwargs):
+        self.calls += 1
+        if self.calls == 1:
+            time.sleep(self.cold)
+        return fn(*args, **kwargs)
+
+    def paged_prefill(self, *args, **kwargs):
+        return self._first(gpt.paged_prefill, *args, **kwargs)
+
+    def slot_prefill(self, *args, **kwargs):
+        return self._first(gpt.slot_prefill, *args, **kwargs)
+
+
+@pytest.mark.parametrize("cache", ["paged", "contiguous"])
+def test_first_prefill_launches_cost_no_stall(model, cache):
+    # chip_smoke's serve-app: a fresh replica's first prefill chunk took
+    # most of the 2 s window (its device code loading on first launch);
+    # the engine pays that in its device setup, before the first
+    # sequence takes a slot, so no probe finds the slot quiet, and the
+    # completion is unchanged
+    cfg, params = model[:2]
+    slow = _ColdFirstCall(1.5)
+    eng = ContinuousEngine(slow, cfg, params, cache=cache, max_slots=4,
+                           page_size=8, stall_s=0.5, device="cpu")
+    try:
+        seq = eng.submit(PROMPT, max_new_tokens=4)
+        errors = _probe_while(eng, seq)
+        res = eng.collect(seq, timeout=60)
+        health = eng.engine_stats()["health"]
+    finally:
+        eng.stop()
+    assert errors == []
+    assert res["completion"] == _expected(model, PROMPT, 4)
+    assert health["setup_s"] >= 1.5 and health["first_chunk_s"] < 0.5

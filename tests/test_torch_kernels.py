@@ -921,3 +921,90 @@ def test_remat_dots_is_bitwise_full_on_the_card(gpu):
     assert a == b and na == nb and na["flash_fwd"] == 2 * 2 * cfg.n_layers
     for k in pa:
         assert torch.equal(pa[k], pb[k]), k
+
+
+def _pipeline_case(gpu):
+    import numpy as np
+
+    from ray_tpu_torch.models import gpt
+
+    cfg = gpt.GPTConfig.nano()          # bf16 compute, f32 params, remat
+    batch = {"tokens": np.random.RandomState(52).randint(0, 256, (8, 65))}
+    return cfg, gpt.init(cfg, seed=0, device=gpu), batch
+
+
+def _pipeline_run(cfg, params, batch, schedule="1f1b"):
+    from ray_tpu_torch.parallel.mpmd import MPMDPipeline, PipelineConfig
+
+    pcfg = PipelineConfig(stages=2, schedule=schedule, microbatches=4)
+    with MPMDPipeline(cfg, pcfg, params=params) as pipe:
+        res = pipe.step(batch, apply_update=False, return_grads=True)
+    return res
+
+
+def _plain_model_attention(q, k, v, causal=False):
+    from ray_tpu_torch.ops.attention import _flash
+
+    sq, sk = q.shape[-2], k.shape[-2]
+    return _flash(q, k, v, causal, None, (sk - sq) if causal else 0, False,
+                  plain=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["1f1b", "zb"])
+def test_pipeline_stages_run_k1_k3_against_plain(gpu, schedule):
+    """Two MPMD stages on the card: every stage launches K1, K2 and K3
+    (K1 again in each backward, which rebuilds the stage forward), and
+    the loss and grads agree with the same pipeline over the kernels'
+    plain versions."""
+    from unittest import mock
+
+    from ray_tpu_torch.models import gpt, training
+
+    cfg, params, batch = _pipeline_case(gpu)
+    got = _pipeline_run(cfg, params, batch, schedule)
+    with mock.patch.object(gpt, "attention", _plain_model_attention):
+        want = _pipeline_run(cfg, params, batch, schedule)
+    L, M = cfg.n_layers // 2, 4
+    for s, kinds in enumerate(got["launches"]):
+        tot = {k: sum(per.get(k, 0) for per in kinds.values())
+               for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")}
+        halves = 2 if schedule == "zb" and s > 0 else 1
+        assert tot == {"flash_fwd": M * L + 2 * M * L * halves,
+                       "flash_bwd_dkv": M * L * halves,
+                       "flash_bwd_dq": M * L * halves}, (s, kinds)
+    assert all(n == 0 for kinds in want["launches"]
+               for per in kinds.values() for n in per.values())
+    assert abs(got["loss"] - want["loss"]) <= 1e-3 * abs(want["loss"])
+    for (k, a), (_, b) in zip(training.param_leaves(got["grads"]),
+                              training.param_leaves(want["grads"])):
+        cos = torch.nn.functional.cosine_similarity(
+            a.flatten().double(), b.flatten().double(), dim=0).item()
+        assert cos >= 0.999, (k, cos)
+
+
+@pytest.mark.cuda
+def test_bf16_stage_pair_matches_the_unpipelined_step(gpu):
+    """A bf16 stage pair (1f1b, M = 4) against loss_fn and its gradients
+    on the card: the loss within 1e-3 relative, the global norm within
+    1e-2, each leaf's cosine >= 0.999."""
+    from ray_tpu_torch.models import gpt, training
+
+    cfg, params, batch = _pipeline_case(gpu)
+    got = _pipeline_run(cfg, params, batch)
+    leaves = {k: t.detach().clone().requires_grad_()
+              for k, t in training.param_leaves(params)}
+    tree = {"layers": {k.split(".", 1)[1]: t for k, t in leaves.items()
+                       if k.startswith("layers.")},
+            **{k: t for k, t in leaves.items() if "." not in k}}
+    loss = gpt.loss_fn(tree, batch, cfg)
+    loss.backward()
+    assert abs(got["loss"] - loss.item()) <= 1e-3 * abs(loss.item())
+    g = {k: v.to(gpu) for k, v in training.param_leaves(got["grads"])}
+    norm = training.global_norm(list(g.values())).item()
+    want = training.global_norm([t.grad for t in leaves.values()]).item()
+    assert abs(norm - want) <= 1e-2 * want
+    for k, t in leaves.items():
+        cos = torch.nn.functional.cosine_similarity(
+            g[k].flatten().double(), t.grad.flatten().double(), dim=0).item()
+        assert cos >= 0.999, (k, cos)

@@ -31,7 +31,10 @@ Port against port:
     reference's rule for a mesh a process does not wholly address);
   * a tensor with a spec through the object plane's serializer,
     re-placed on the receiver's default mesh;
-  * a pp axis > 1 raises, naming A.6b.
+  * a pp axis > 1 runs GPipe over the ranks (ROADMAP A.6b): at
+    {pp: 2, dp: 2} the sharded step's losses equal the unsharded step's
+    within 1e-6 (tests/test_torch_pipeline_parity.py holds it to the JAX
+    package's pp step).
 
 A world-1 mesh's steps on the card, bitwise the unsharded step's, are in
 tests/test_torch_kernels.py (a file that imports no JAX).
@@ -205,14 +208,10 @@ def _replaced(blob):
             tuple(spec_of(t)), tuple(t.shape), t.to_local().numpy())
 
 
-def _pp_raises():
-    from ray_tpu_torch.models import training
+def _pp_runs():
     from ray_tpu_torch.parallel import make_mesh
 
-    mesh = make_mesh(pp=2, dp=2, device_type="cpu")
-    with pytest.raises(NotImplementedError, match="A.6b"):
-        training.make_train_step(_cfg(), mesh)
-    return True
+    return _mesh_loop_losses(make_mesh(pp=2, dp=2, device_type="cpu"))
 
 
 # -- the JAX package's sharded step -----------------------------------------
@@ -389,4 +388,13 @@ def test_object_plane_replaces_a_spec_on_the_receivers_mesh(pool):
 
 
 def test_pp_axis_raises_naming_its_item(pool):
-    assert all(pool.run(_pp_raises))
+    """A pp axis > 1 no longer raises (it named A.6b): the GPipe step over
+    {pp: 2, dp: 2} is the unsharded step."""
+    from ray_tpu_torch.models import training
+
+    got = pool.run(_pp_runs)
+    init, step = training.make_train_step(_cfg(), tx=_sgd, device="cpu")
+    state = init(seed=0)
+    want = [float(step(state, {"tokens": b})[1]["loss"]) for b in BATCHES]
+    assert all(r == got[0] for r in got)
+    np.testing.assert_allclose(got[0], want, atol=ADAMW_LOSS_ATOL, rtol=0)

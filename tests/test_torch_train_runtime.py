@@ -107,22 +107,31 @@ def test_scaling_config_asks_for_gpus():
 
 @pytest.mark.parametrize("kw,item", [
     ({"mesh_shape": {"dp": -1}}, None),
-    ({"pipeline": "stages=2"}, "A.6b"),
+    ({"pipeline": "stages=2"}, None),
     ({"telemetry": True}, None),
     ({"telemetry": {"ring_size": 8}}, None),
 ])
 def test_unported_backend_options_raise(kw, item):
-    """Pipelines raise naming A.6b; a mesh shape is taken (the trainer
-    installs the mesh, tests/test_torch_mesh_parity.py); every
-    ``telemetry=`` value the reference takes is accepted, and None
-    (unset) means on, as in the reference."""
+    """A pipeline spec is taken, checked on the driver and published in
+    its full form; a mesh shape is taken (the trainer installs the mesh,
+    tests/test_torch_mesh_parity.py); every ``telemetry=`` value the
+    reference takes is accepted, and None (unset) means on, as in the
+    reference."""
     from ray_tpu_torch.telemetry import resolve_telemetry
+    from ray_tpu_torch.train import backend
 
     if item is not None:
         with pytest.raises(NotImplementedError, match=item):
             JaxConfig(mode="local", **kw)
     elif "mesh_shape" in kw:
         assert JaxConfig(mode="local", **kw).mesh_shape == kw["mesh_shape"]
+    elif "pipeline" in kw:
+        cfg = JaxConfig(mode="local", **kw)
+        assert cfg.pipeline == kw["pipeline"]
+        assert backend._pipeline_spec(cfg.pipeline) == (
+            "stages=2,schedule=1f1b,microbatches=2,transport=threads")
+        with pytest.raises(ValueError, match="unknown schedule"):
+            JaxConfig(mode="local", pipeline="stages=2,schedule=gpipe")
     else:
         cfg = JaxConfig(mode="local", **kw)
         tc = resolve_telemetry(cfg.telemetry)
@@ -155,6 +164,46 @@ def test_trainer_two_workers(cluster, tmp_path):
     assert result.metrics["step"] == 2
     assert result.metrics["world_size"] == 2
     assert os.path.isdir(result.path)
+
+
+def _loop_pipeline(config):
+    """Each worker builds its PipelineConfig from the env the backend
+    published, and its stage of GPT nano from it (rank = stage)."""
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.parallel import PipelineConfig
+
+    pcfg = PipelineConfig.from_env()
+    rank = train.get_context().get_world_rank()
+    cfg = gpt.GPTConfig.nano(dtype=torch.float32)
+    stage = gpt.partition_stage_params(gpt.init(cfg, seed=0, device="cpu"),
+                                       cfg, pcfg.stages)[rank]
+    train.report({"spec": os.environ["RAY_TPU_TORCH_TRAIN_PIPELINE"],
+                  "stages": pcfg.stages, "schedule": pcfg.schedule,
+                  "microbatches": pcfg.num_microbatches,
+                  "stage_layers": stage["layers"]["wq"].shape[0],
+                  "stage_keys": sorted(stage)})
+
+
+def test_trainer_publishes_the_pipeline_spec(cluster, tmp_path):
+    from ray_tpu_torch.parallel import PipelineConfig
+
+    pcfg = PipelineConfig(stages=2, schedule="zb", microbatches=4)
+    result = JaxTrainer(
+        _loop_pipeline,
+        scaling_config=ScalingConfig(num_workers=2),
+        backend_config=JaxConfig(mode="local", pipeline=pcfg),
+        run_config=RunConfig(name="pipe", storage_path=str(tmp_path)),
+    ).fit()
+    assert result.error is None, result.error
+    m = result.metrics
+    assert m["spec"] == pcfg.to_spec()
+    assert (m["stages"], m["schedule"], m["microbatches"]) == (2, "zb", 4)
+    # rank 0 holds stage 0: half the layers, the table and the positions
+    assert m["stage_layers"] == 2
+    assert m["stage_keys"] == ["embed", "layers", "pos_embed"]
+    # a bad spec string raises on the driver, before any worker starts
+    with pytest.raises(ValueError, match="bad pipeline spec item"):
+        JaxConfig(mode="local", pipeline="stages")
 
 
 def _read_step(restored, rank):

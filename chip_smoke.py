@@ -305,6 +305,44 @@ Phases, each of which must pass (any failure exits non-zero):
                 at {pp 2, dp 2} and {pp 4} against the unsharded losses
                 and 4 stage actors, one per card.  Per-op ms and events
                 in chip_smoke_out/pipeline.json.
+  moe           (MoE with expert parallelism) MoEConfig.small at full
+                width (12 layers, d 768, 12 heads, 8 experts of d_ff
+                2048, top-2, capacity factor 1.25, rms, rope, vocab
+                50304; 369,027,840 params), seed 0, bf16 compute, f32
+                params, remat "full": the [8, 1024] forward (K1 12)
+                against the same model with attention's plain version
+                within the GPT forward's limits (a token whose bf16
+                router scores nearly tie may take another expert with an
+                ulp of attention's rounding, so the plain run takes the
+                kernel run's experts; the free run's flips are printed),
+                1 warm-up
+                and 3 AdamW steps of make_train_step on [8, 1025]:
+                losses finite and falling, K1/K2/K3 24/12/12 a step,
+                ms/step (CUDA events), tokens/s, peak memory, the share
+                of dropped top-k assignments, a profiled step; the dense
+                [T, E, C] dispatch and combine of one layer timed alone
+                and its share of the step.  With four cards: {ep 4} and
+                {ep 2, dp 2} over NCCL at capacity factor 4 (= E/k: no
+                token can drop there or on one card) within 1e-3 of one
+                card's losses, K1-K3 per rank, all_to_all calls and
+                bytes a step, ms/step.
+  resnet        (ResNet) bench.py's bench_resnet_step: ResNet-50 at 224 x
+                224, 1000 classes, bf16, SGD(0.1, momentum 0.9), 128
+                images a card, images/s over 10 steps after a warm one,
+                the losses; one f32 step on [4, 64, 64, 3] on the card
+                against the CPU port (the loss within 1e-5, the
+                batch-norm state within 1e-4 of each leaf's largest
+                entry, every gradient's cosine >= 0.999 and the global
+                norm within 1e-3: the gradients at init are
+                ill-conditioned entry by entry).  With four cards: dp 4
+                with batch norm synchronised over the global batch, the
+                loss on 128 images within 5e-3 of one card's, images/s.
+  hf            (GPT-2 checkpoints) a GPT-2-small checkpoint in HF's
+                layout (vocab 50257) drawn from a seed, converted by
+                from_hf_gpt2 onto the card: its [4, 1024] bf16 forward
+                (K1 12) against attention's plain version, greedy
+                generation, and in f32 the first generated tokens ==
+                the forward's argmax.
 
 The flight recorder rides the paths above too: in serve (and serve-app's
 in-process engine) the engine's Prometheus series move by exactly the
@@ -335,6 +373,7 @@ process is reported beside it).
     python3 chip_smoke.py --phases serve,train-app,observe
     python3 chip_smoke.py --phases mesh
     python3 chip_smoke.py --phases pipeline
+    python3 chip_smoke.py --phases moe,resnet,hf
 
 runs the device and build phases and the named ones only (a development
 aid; with no arguments every phase runs).
@@ -6569,13 +6608,14 @@ def _state_bytes(state):
     return params, opt
 
 
-def _mesh_steps(cfg, mesh, tokens, steps):
+def _mesh_steps(cfg, mesh, tokens, steps, profile=False):
     """``steps`` steps of make_train_step (over ``mesh``, or unsharded
     with None) on the global batch ``tokens``: the state and a record of
     losses, grad norms, launches and ms (CUDA events) per step, and the
     collectives each step issued (every mesh collective reports itself
     to the flight recorder, from the backward's thread too): their
-    count by op and the host's seconds issuing them."""
+    count and bytes by op and the host's seconds issuing them.  With
+    ``profile``, one more step under torch.profiler (``_profile``)."""
     import torch
 
     from ray_tpu_torch.models import training
@@ -6587,13 +6627,14 @@ def _mesh_steps(cfg, mesh, tokens, steps):
     state = init_state(seed=SEED)
     batch = {"tokens": tokens}
     rec = {"losses": [], "grad_norms": [], "launches": [], "ms": [],
-           "collectives": [], "collective_host_ms": []}
+           "collectives": [], "collective_host_ms": [],
+           "collective_bytes": []}
     issued = []
     record = recorder.record_collective
 
-    def counting(op, seconds, *args, **kwargs):
-        issued.append((op, seconds))
-        return record(op, seconds, *args, **kwargs)
+    def counting(op, seconds, nbytes=0.0, *args, **kwargs):
+        issued.append((op, seconds, nbytes))
+        return record(op, seconds, nbytes, *args, **kwargs)
 
     recorder.record_collective = counting
     try:
@@ -6610,16 +6651,20 @@ def _mesh_steps(cfg, mesh, tokens, steps):
             rec["ms"].append(start.elapsed_time(end))
             rec["losses"].append(m["loss"].item())
             rec["grad_norms"].append(m["grad_norm"].item())
-            ops = {}
-            for op, _ in issued:
+            ops, nbytes = {}, {}
+            for op, _, n in issued:
                 ops[op] = ops.get(op, 0) + 1
+                nbytes[op] = nbytes.get(op, 0.0) + n
             rec["collectives"].append(ops)
+            rec["collective_bytes"].append(nbytes)
             rec["collective_host_ms"].append(
-                sum(sec for _, sec in issued) * 1e3)
+                sum(sec for _, sec, _ in issued) * 1e3)
     finally:
         recorder.record_collective = record
+    if profile:
+        rec["profile"] = _profile(lambda: step(state, batch), n=1)
     rec["param_bytes"], rec["opt_bytes"] = _state_bytes(state)
-    B, S = MESH_BATCH
+    B, S = tokens.shape[0], tokens.shape[1] - 1
     rec["tokens_per_s"] = B * S / (min(rec["ms"][1:] or rec["ms"]) / 1e3)
     return state, rec
 
@@ -7440,6 +7485,695 @@ def phase_pipeline():
     return rec
 
 
+# --- MoE with expert parallelism, ResNet, GPT-2 checkpoints (ROADMAP A.7) --
+
+MOE_BATCH = (8, 1024)             # tokens [8, 1025]
+MOE_STEPS = 3                     # AdamW steps after one warm-up
+MOE_NUM_PARAMS = 369_027_840      # ray_tpu/models/moe.py num_params(small)
+# the four-card runs route in groups of 2,048 (ep 4) and 4,096 (ep 2 x
+# dp 2) tokens against one card's 8,192, so they drop other tokens; at
+# factor E / k = 4 an expert's capacity is its group's token count (a
+# token takes an expert at most once) and none of the three can drop
+# one, so the groups decide nothing but the aux loss's means (at factor
+# 2 the one-card run on an H100 dropped 14% of its assignments)
+MOE_EP_FACTOR = 4.0
+MOE_EP_SHAPES_4 = ({"ep": 4}, {"ep": 2, "dp": 2})
+
+
+def _moe_tokens(cfg, device, batch=MOE_BATCH):
+    import numpy as np
+    import torch
+
+    B, S = batch
+    return torch.from_numpy(np.random.RandomState(SEED).randint(
+        0, cfg.vocab_size, (B, S + 1))).to(device)
+
+
+def _moe_routes(fn, pinned=None):
+    """fn()'s result and each routing's top-k expert choices [T, k], in
+    call order (the layers of a forward).  With ``pinned`` (such a list)
+    every routing takes those choices instead of its own top k, their
+    gates from its own probabilities."""
+    from ray_tpu_torch.ops import moe as moe_ops
+
+    real, seen = moe_ops._top_k, []
+
+    def top_k(probs, k):
+        if pinned is None:
+            vals, idx = real(probs, k)
+        else:
+            idx = pinned[len(seen)]
+            vals = probs.gather(-1, idx)
+        seen.append(idx)
+        return vals, idx
+
+    with mock.patch.object(moe_ops, "_top_k", top_k):
+        return fn(), seen
+
+
+def _drop_share(drops):
+    assigned = sum(a for a, _ in drops)
+    dropped = int(sum(int(d) for _, d in drops))
+    return {"assigned": assigned, "dropped": dropped,
+            "share": dropped / max(assigned, 1)}
+
+
+def _moe_forward(cfg, params, tokens):
+    """K1 once a layer; logits against the same model with attention's
+    plain version; forward ms."""
+    import torch
+
+    from ray_tpu_torch.models import gpt, moe
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.ops.moe import record_drops
+
+    with torch.no_grad():
+        _kernels.reset_launch_counts()
+        with record_drops() as drops:
+            (logits, extras), routes = _moe_routes(
+                lambda: moe.apply(params, tokens, cfg))
+        torch.cuda.synchronize()
+        launches = _kernels.launch_counts()
+        check(launches["flash_fwd"] == cfg.n_layers,
+              f"MoE forward launched flash_fwd {launches['flash_fwd']} "
+              f"times, expected {cfg.n_layers}")
+        check(torch.isfinite(logits).all().item()
+              and all(torch.isfinite(v).item() for v in extras.values()),
+              "non-finite MoE logits or router losses")
+        with mock.patch.object(gpt, "attention", _plain_attention):
+            # the plain run on its own: a bf16 router near-tie flips with
+            # an ulp of attention's rounding, and the token's expert, and
+            # through attention its sequence's later logits, change
+            (free, _), free_routes = _moe_routes(
+                lambda: moe.apply(params, tokens, cfg))
+            # the check: the plain run takes the kernel run's experts
+            (ref, ref_extras), _ = _moe_routes(
+                lambda: moe.apply(params, tokens, cfg), pinned=routes)
+        flipped = torch.zeros(tokens.numel(), dtype=torch.bool,
+                              device=tokens.device)
+        for a, b in zip(routes, free_routes):
+            flipped |= (a != b).any(-1)
+        free_row = (logits.float() - free.float()).abs().amax(-1).flatten()
+        free_share = (free_row <= LOGITS_MAX_ATOL).float().mean().item()
+        del free
+        diff = (logits.float() - ref.float()).abs()
+        max_err, mean_err = diff.max().item(), diff.mean().item()
+        del diff
+        check(max_err <= LOGITS_MAX_ATOL and mean_err <= LOGITS_MEAN_ATOL,
+              f"MoE forward logits kernel vs plain on the kernel run's "
+              f"experts: max {max_err:.3g} (<= {LOGITS_MAX_ATOL}), mean "
+              f"{mean_err:.3g} (<= {LOGITS_MEAN_ATOL})")
+        ms = cuda_time_ms(lambda: moe.apply(params, tokens, cfg), iters=3,
+                          warmup=1)
+    B, S = tokens.shape
+    return {"tokens": [B, S], "flash_launches": launches["flash_fwd"],
+            "max_err": max_err, "mean_err": mean_err,
+            "unpinned_rows_within_limit": free_share,
+            "unpinned_tokens_routed_differently": int(flipped.sum()),
+            "aux": extras["aux"].item(), "z": extras["z"].item(),
+            "aux_plain": ref_extras["aux"].item(), "drops": _drop_share(drops),
+            "ms": ms, "tokens_per_s": B * S / (ms / 1e3)}
+
+
+def _moe_dispatch_ms(cfg, T):
+    """CUDA-event ms of one layer's routing tensors and dense dispatch and
+    combine einsums at the main path's shapes: (forward, forward +
+    backward)."""
+    import torch
+
+    from ray_tpu_torch.ops.moe import expert_capacity, route_topk
+
+    E, D, k = cfg.n_experts, cfg.d_model, cfg.expert_top_k
+    C = expert_capacity(T, E, k, cfg.capacity_factor)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def leaf(*shape):
+        return torch.randn(shape, generator=g, device="cuda",
+                           dtype=cfg.dtype).requires_grad_()
+
+    x, logits, y = leaf(T, D), leaf(T, E), leaf(E, C, D)
+    gx, go = torch.ones(E, C, D, device="cuda", dtype=cfg.dtype), \
+        torch.ones(T, D, device="cuda", dtype=cfg.dtype)
+
+    def fwd():
+        r = route_topk(logits, k, C)
+        return (torch.einsum("td,tec->ecd", x, r.dispatch.to(cfg.dtype)),
+                torch.einsum("ecd,tec->td", y, r.combine.to(cfg.dtype)))
+
+    def fwd_bwd():
+        torch.autograd.backward(fwd(), (gx, go))
+
+    with torch.no_grad():
+        f = cuda_time_ms(fwd, iters=5, warmup=1)
+    fb = cuda_time_ms(fwd_bwd, iters=5, warmup=1)
+    return {"capacity": C, "dispatch_bytes_f32": T * E * C * 4,
+            "einsum_gflop": 2 * 2 * T * D * E * C / 1e9, "fwd_ms": f,
+            "fwd_bwd_ms": fb}
+
+
+def _moe_rank_entry(rank, world, init_method, out_path):
+    """One card's rank of the four-card MoE runs (NCCL)."""
+    sys.path.insert(0, str(ROOT))
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import moe
+    from ray_tpu_torch.ops.moe import record_drops
+    from ray_tpu_torch.parallel import make_mesh
+
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("nccl", init_method=init_method,
+                            world_size=world, rank=rank,
+                            device_id=torch.device("cuda", rank),
+                            timeout=datetime.timedelta(seconds=240))
+    try:
+        cfg = moe.MoEConfig.small(capacity_factor=MOE_EP_FACTOR)
+        tokens = _moe_tokens(cfg, "cuda")
+        rec = {}
+        for axes in MOE_EP_SHAPES_4:
+            with record_drops() as drops:
+                state, r = _mesh_steps(cfg, make_mesh(**axes), tokens,
+                                       1 + MOE_STEPS)
+                r["drops"] = _drop_share(drops)
+            r["peak_bytes"] = torch.cuda.max_memory_allocated()
+            del state
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            every = [None] * world
+            dist.all_gather_object(every, r)
+            rec["_".join(f"{a}{n}" for a, n in axes.items())] = every
+        if rank == 0:
+            Path(out_path).write_text(json.dumps(rec))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _moe_four_cards():
+    """{ep 4} and {ep 2, dp 2} over NCCL against one card's steps at the
+    same capacity factor, none of them dropping a token."""
+    import torch
+
+    from ray_tpu_torch.models import moe
+    from ray_tpu_torch.ops.moe import record_drops
+
+    cfg = moe.MoEConfig.small(capacity_factor=MOE_EP_FACTOR)
+    with record_drops() as drops:
+        state, plain = _mesh_steps(cfg, None, _moe_tokens(cfg, "cuda"),
+                                   1 + MOE_STEPS)
+        plain["drops"] = _drop_share(drops)
+    del state
+    torch.cuda.empty_cache()
+    check(plain["drops"]["dropped"] == 0, f"one card drops "
+          f"{plain['drops']} at capacity factor {MOE_EP_FACTOR}")
+    rec = {"factor": MOE_EP_FACTOR, "one_card": plain}
+    rec.update(_spawn_ranks(_moe_rank_entry, 4, timeout_s=600))
+    want = plain["losses"]
+    for name in ("ep4", "ep2_dp2"):
+        for rank, r in enumerate(rec[name]):
+            rel = max(abs(a - b) / abs(b) for a, b in zip(r["losses"], want))
+            check(rel <= MESH_LOSS_RTOL, f"MoE {name} rank {rank} losses "
+                  f"{r['losses']} vs one card's {want}: {rel:.3g} relative "
+                  f"(> {MESH_LOSS_RTOL})")
+            r["loss_rel_err"] = rel
+            check(r["drops"]["dropped"] == 0, f"MoE {name} rank {rank} "
+                  f"drops {r['drops']} at factor {MOE_EP_FACTOR}")
+            got = {k: r["launches"][-1][k] for k in FLASH_TRAIN_LAUNCHES}
+            check(got == FLASH_TRAIN_LAUNCHES, f"MoE {name} rank {rank} "
+                  f"launched {got} a step, expected {FLASH_TRAIN_LAUNCHES}")
+            check(r["collectives"][-1].get("mesh_all_to_all", 0) > 0,
+                  f"MoE {name} rank {rank} ran no all_to_all: "
+                  f"{r['collectives'][-1]}")
+    return rec
+
+
+def phase_moe():
+    """MoEConfig.small at full width on one card: the forward against
+    attention's plain version, AdamW steps with exact K1-K3 launches,
+    the dropped share, the dispatch's cost; the ep runs on four cards."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import moe
+    from ray_tpu_torch.ops.moe import record_drops
+
+    smi = _smi_line()
+    t_phase = time.perf_counter()
+    cfg = moe.MoEConfig.small()
+    n = moe.num_params(cfg)
+    check(n == MOE_NUM_PARAMS, f"MoE-small has {n} params, the reference "
+          f"{MOE_NUM_PARAMS}")
+    tokens = _moe_tokens(cfg, "cuda")
+    rec = {"card": smi, "params": n, "tokens": list(tokens.shape)}
+    params = moe.init(cfg, seed=SEED)
+    rec["forward"] = f = _moe_forward(cfg, params, tokens[:, :-1])
+    del params
+    torch.cuda.empty_cache()
+    log(f"[moe] MoE-small ({n:,} params) bf16 [{MOE_BATCH[0]}, "
+        f"{MOE_BATCH[1]}] forward: K1 {f['flash_launches']}; logits vs "
+        f"plain attention: max "
+        f"{f['max_err']:.3g} mean {f['mean_err']:.3g} on the kernel run's "
+        f"experts; routed freely, {f['unpinned_tokens_routed_differently']} "
+        f"tokens took another expert in some layer and "
+        f"{f['unpinned_rows_within_limit']:.4f} of the rows stayed within "
+        f"{LOGITS_MAX_ATOL}; aux {f['aux']:.5f} z {f['z']:.4f}; dropped "
+        f"{f['drops']['dropped']} of {f['drops']['assigned']} assignments "
+        f"({f['drops']['share']:.4%}) at factor {cfg.capacity_factor}; "
+        f"{f['ms']:.2f} ms = {f['tokens_per_s']:.0f} tokens/s ({smi})")
+
+    torch.cuda.reset_peak_memory_stats()
+    with record_drops() as drops:
+        state, tr = _mesh_steps(cfg, None, tokens, 1 + MOE_STEPS,
+                                profile=True)
+        tr["drops"] = _drop_share(drops)
+    tr["peak_bytes"] = torch.cuda.max_memory_allocated()
+    losses = tr["losses"]
+    check(all(np.isfinite(losses)) and all(np.isfinite(tr["grad_norms"])),
+          f"non-finite MoE loss or grad norm: {losses} {tr['grad_norms']}")
+    check(losses[-1] < losses[0], f"MoE loss did not fall on a repeated "
+          f"batch: {losses}")
+    for got in tr["launches"]:
+        check(got == TRAIN_LAUNCHES, f"MoE train step launched {got}, "
+              f"expected {TRAIN_LAUNCHES}")
+    step_ms = min(tr["ms"][1:])
+    del state
+    torch.cuda.empty_cache()
+    d = _moe_dispatch_ms(cfg, tokens.shape[0] * (tokens.shape[1] - 1))
+    d["per_step_ms"] = cfg.n_layers * (d["fwd_ms"] + d["fwd_bwd_ms"])
+    d["share_of_step"] = d["per_step_ms"] / step_ms
+    tr["dispatch"] = d
+    rec["train"] = tr
+    torch.cuda.empty_cache()
+    busy = tr["profile"]["device_ms_per_step"]
+    log(f"[moe] {MOE_STEPS} AdamW steps after a warm-up, remat full: losses "
+        f"{[round(x, 4) for x in losses]}; {step_ms:.2f} ms/step = "
+        f"{tr['tokens_per_s']:.0f} tokens/s (CUDA events, the fastest "
+        f"timed step; all {[round(x, 1) for x in tr['ms']]}); peak "
+        f"{tr['peak_bytes'] / 2**30:.2f} GiB; launches a step "
+        f"{tr['launches'][-1]}; dropped {tr['drops']['share']:.4%}; device "
+        f"busy {busy:.1f} ms of a profiled step ({smi})")
+    log(f"[moe] dense dispatch + combine, one layer at T = "
+        f"{tokens.shape[0] * (tokens.shape[1] - 1)}, C = {d['capacity']}: "
+        f"forward {d['fwd_ms']:.3f} ms, forward + backward "
+        f"{d['fwd_bwd_ms']:.3f} ms; x {cfg.n_layers} layers (forward, remat "
+        f"recompute, backward) {d['per_step_ms']:.1f} ms = "
+        f"{d['share_of_step']:.1%} of the step; the f32 dispatch tensor "
+        f"{d['dispatch_bytes_f32'] / 1e6:.0f} MB, the two einsums "
+        f"{d['einsum_gflop']:.0f} GFLOP a layer")
+    for name, ms in tr["profile"]["top"][:8]:
+        log(f"[moe]   {ms:8.3f} ms/step  {name}")
+    if torch.cuda.device_count() >= 4:
+        rec["four_cards"] = four = _moe_four_cards()
+        one = four["one_card"]
+        log(f"[moe] one card at capacity factor {MOE_EP_FACTOR}: losses "
+            f"{[round(x, 4) for x in one['losses']]}, {min(one['ms'][1:]):.2f}"
+            f" ms/step, dropped {one['drops']['dropped']}")
+        for name in ("ep4", "ep2_dp2"):
+            for rank, r in enumerate(four[name]):
+                log(f"[moe] {name} rank {rank}: losses "
+                    f"{[round(x, 4) for x in r['losses']]} (rel "
+                    f"{r['loss_rel_err']:.2g}); {min(r['ms'][1:]):.2f} "
+                    f"ms/step = {r['tokens_per_s']:.0f} tokens/s; launches "
+                    f"{r['launches'][-1]}; all_to_all "
+                    f"{r['collectives'][-1].get('mesh_all_to_all', 0)} calls "
+                    f"{r['collective_bytes'][-1].get('mesh_all_to_all', 0) / 1e6:.1f}"
+                    f" MB a step; collectives {r['collectives'][-1]}; "
+                    f"dropped {r['drops']['dropped']}; peak "
+                    f"{r['peak_bytes'] / 2**30:.2f} GiB ({smi})")
+    else:
+        rec["four_cards"] = "not run: the run has fewer than four cards"
+        log(f"[moe] ep 4 and ep 2 x dp 2: not run "
+            f"({torch.cuda.device_count()} card)")
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"[moe] phase {rec['seconds']:.1f} s")
+    return rec
+
+
+RESNET_SIZE = 224               # bench_resnet_step's BENCH_RESNET_SIZE
+RESNET_BATCH = 128              # images per card
+RESNET_STEPS = 10               # timed steps after one warm step
+RESNET_CHECK = (4, 64)          # the f32 step held against the CPU port
+RESNET_FOUR_BATCH = 32          # per card, the four-card loss check
+RESNET_LOSS_RTOL = 5e-3         # four cards vs one card, bf16
+# the f32 step against the CPU port: ResNet-50's gradients at init are
+# ill-conditioned per entry (the port's own f32 run against its f64 run
+# on the CPU: a leaf's worst entry 12% of its largest, but every leaf's
+# cosine >= 0.99996 and the global norm within 6.6e-6), so the gradients
+# are held by each leaf's cosine and the global norm, as pipeline's are
+RESNET_MIN_COS, RESNET_NORM_RTOL = 0.999, 1e-3
+# the new running statistics: f32 sums over N·H·W entries in another
+# order, per leaf against its largest entry
+RESNET_STATE_RTOL = 1e-4
+
+
+def _resnet_batch(n, size, device, seed=SEED):
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    return {"image": torch.rand(n, size, size, 3, generator=g,
+                                device=device),
+            "label": torch.randint(0, 1000, (n,), generator=g,
+                                   device=device)}
+
+
+def _leaf_list(tree):
+    out = []
+    for v in tree.values():
+        out += _leaf_list(v) if isinstance(v, dict) else [v]
+    return out
+
+
+def _resnet_steps(cfg, params, state, batch, steps, mesh=None):
+    """One warm SGD step (lr 0.1, momentum 0.9: bench_resnet_step's) and
+    ``steps`` timed ones: (losses, images/s by the host clock over the
+    timed steps, the final state)."""
+    import torch
+
+    from ray_tpu_torch.models import resnet
+
+    leaves = _leaf_list(params)
+    for t in leaves:
+        t.requires_grad_()
+    opt = torch.optim.SGD(leaves, lr=0.1, momentum=0.9)
+
+    def step(state):
+        opt.zero_grad(set_to_none=True)
+        loss, (state, _) = resnet.loss_fn(params, state, batch, cfg,
+                                          mesh=mesh)
+        loss.backward()
+        opt.step()
+        return loss.detach(), state
+
+    losses = []
+    loss, state = step(state)
+    losses.append(loss)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        loss, state = step(state)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = batch["image"].shape[0]
+    return [x.item() for x in losses], steps * n / dt, dt / steps, state
+
+
+def _resnet_rank_entry(rank, world, init_method, out_path):
+    """One card's rank of the four-card ResNet runs (NCCL, dp 4)."""
+    sys.path.insert(0, str(ROOT))
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import resnet
+    from ray_tpu_torch.parallel import make_mesh
+
+    torch.cuda.set_device(rank)
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("nccl", init_method=init_method,
+                            world_size=world, rank=rank,
+                            device_id=torch.device("cuda", rank),
+                            timeout=datetime.timedelta(seconds=240))
+    try:
+        cfg = resnet.ResNetConfig.resnet50()
+        mesh = make_mesh(dp=world)
+        params, state = resnet.init(cfg, seed=SEED)
+        glob = _resnet_batch(RESNET_FOUR_BATCH * world, RESNET_SIZE, "cuda")
+        # every rank passes the global batch and computes on its rows
+        loss = resnet.loss_fn(params, state, glob, cfg, mesh=mesh)[0]
+        rec = {"loss": loss.item()}
+        torch.cuda.reset_peak_memory_stats()
+        big = _resnet_batch(RESNET_BATCH * world, RESNET_SIZE, "cuda",
+                            SEED + 1)
+        losses, ips, step_s, _ = _resnet_steps(cfg, params, state, big,
+                                               RESNET_STEPS, mesh)
+        # ips counts the global batch: the four cards' images
+        rec.update(losses=losses, images_per_s=ips, step_s=step_s,
+                   peak_bytes=torch.cuda.max_memory_allocated())
+        every = [None] * world
+        dist.all_gather_object(every, rec)
+        if rank == 0:
+            Path(out_path).write_text(json.dumps(every))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_resnet():
+    """bench_resnet_step's counterpart: ResNet-50 at 224 x 224, 1000
+    classes, bf16, SGD with momentum; an f32 step against the CPU port;
+    dp 4 with synchronised batch norm on four cards."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import resnet
+    from ray_tpu_torch.ops import _kernels
+
+    smi = _smi_line()
+    t_phase = time.perf_counter()
+    cfg = resnet.ResNetConfig.resnet50()
+    params, state = resnet.init(cfg, seed=SEED)
+    batch = _resnet_batch(RESNET_BATCH, RESNET_SIZE, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    losses, ips, step_s, _ = _resnet_steps(cfg, params, state, batch,
+                                           RESNET_STEPS)
+    launches = _kernels.launch_counts()
+    check(all(np.isfinite(losses)), f"non-finite ResNet losses {losses}")
+    check(set(launches.values()) == {0}, f"the ResNet step launched "
+          f"{launches}: no kernel of the port is on its path")
+    rec = {"card": smi, "batch": RESNET_BATCH, "size": RESNET_SIZE,
+           "losses": losses, "images_per_s": ips, "step_ms": step_s * 1e3,
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    del params, state, batch
+    torch.cuda.empty_cache()
+    log(f"[resnet] ResNet-50 bf16 {RESNET_SIZE}x{RESNET_SIZE}, batch "
+        f"{RESNET_BATCH}, SGD(0.1, momentum 0.9): {ips:.1f} images/s over "
+        f"{RESNET_STEPS} steps after a warm one ({step_s * 1e3:.1f} "
+        f"ms/step); losses {[round(x, 4) for x in losses]}; peak "
+        f"{rec['peak_bytes'] / 2**30:.2f} GiB ({smi})")
+
+    # one f32 step on a small batch against the CPU port, same weights
+    cfg32 = resnet.ResNetConfig.resnet50(dtype=torch.float32)
+    n, size = RESNET_CHECK
+    host = _resnet_batch(n, size, "cpu", SEED + 2)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        p, s = resnet.init(cfg32, seed=SEED, device="cpu")
+        p = {k: _to(v, dev) for k, v in p.items()}
+        s = {k: _to(v, dev) for k, v in s.items()}
+        for t in _leaf_list(p):
+            t.requires_grad_()
+        loss, (ns, _) = resnet.loss_fn(p, s, {k: v.to(dev) for k, v in
+                                              host.items()}, cfg32,
+                                       device=dev)
+        loss.backward()
+        got[dev] = (loss.item(), [t.grad.cpu() for t in _leaf_list(p)],
+                    [t.cpu() for t in _leaf_list(ns)])
+    (lc, gc, sc), (lh, gh, sh) = got["cuda"], got["cpu"]
+    check(abs(lc - lh) <= LOSS_ATOL * max(1.0, abs(lh)),
+          f"ResNet-50 f32 loss on the card {lc} vs the CPU port {lh}")
+    cos = min(torch.nn.functional.cosine_similarity(
+        a.flatten().double(), b.flatten().double(), dim=0).item()
+        for a, b in zip(gc, gh))
+    norm, norm_cpu = (torch.stack([t.double().norm() for t in g]).norm()
+                      .item() for g in (gc, gh))
+    norm_rel = abs(norm - norm_cpu) / norm_cpu
+    check(cos >= RESNET_MIN_COS and norm_rel <= RESNET_NORM_RTOL,
+          f"ResNet-50 f32 grads card vs CPU port: min leaf cosine {cos:.6f} "
+          f"(>= {RESNET_MIN_COS}), global norm {norm_rel:.3g} relative "
+          f"(<= {RESNET_NORM_RTOL})")
+    state_err = max((a - b).abs().max().item() / b.abs().max().item()
+                    for a, b in zip(sc, sh))
+    check(state_err <= RESNET_STATE_RTOL, f"ResNet-50 f32 batch-norm state "
+          f"card vs CPU port: {state_err:.3g} of a leaf's largest entry (> "
+          f"{RESNET_STATE_RTOL})")
+    rec["f32_check"] = {"batch": [n, size], "loss": lc, "loss_cpu": lh,
+                        "min_cosine": cos, "grad_norm_rel_err": norm_rel,
+                        "state_max_err": state_err}
+    log(f"[resnet] f32 [{n}, {size}, {size}, 3] on the card vs the CPU port: "
+        f"loss {lc:.6f} / {lh:.6f}, min leaf cosine {cos:.6f}, global grad "
+        f"norm {norm_rel:.3g} relative, batch-norm state {state_err:.3g} "
+        f"of a leaf's largest entry")
+    torch.cuda.empty_cache()
+    if torch.cuda.device_count() >= 4:
+        rec["four_cards"] = four = _resnet_four_cards(cfg)
+        ranks = four["ranks"]
+        log(f"[resnet] dp 4 over NCCL, synchronised batch norm, global "
+            f"batch {RESNET_FOUR_BATCH * 4}: losses "
+            f"{[round(r['loss'], 5) for r in ranks]} vs one card's "
+            f"{four['one_card_loss']:.5f} (rel "
+            f"{max(r['loss_rel_err'] for r in ranks):.2g}); batch "
+            f"{RESNET_BATCH} a card: {ranks[0]['images_per_s']:.1f} images/s "
+            f"over the four cards ({ranks[0]['step_s'] * 1e3:.1f} ms/step) "
+            f"({smi})")
+    else:
+        rec["four_cards"] = "not run: the run has fewer than four cards"
+        log(f"[resnet] dp 4: not run ({torch.cuda.device_count()} card)")
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"[resnet] phase {rec['seconds']:.1f} s")
+    return rec
+
+
+def _resnet_four_cards(cfg):
+    """dp 4 over NCCL, one rank per card, against one card's loss on the
+    same global batch; images/s over the four cards."""
+    import torch
+
+    from ray_tpu_torch.models import resnet
+
+    p, s = resnet.init(cfg, seed=SEED)
+    glob = _resnet_batch(RESNET_FOUR_BATCH * 4, RESNET_SIZE, "cuda")
+    with torch.no_grad():
+        one = resnet.loss_fn(p, s, glob, cfg)[0].item()
+    del p, s, glob
+    torch.cuda.empty_cache()
+    ranks = _spawn_ranks(_resnet_rank_entry, 4, timeout_s=600)
+    for rank, r in enumerate(ranks):
+        rel = abs(r["loss"] - one) / abs(one)
+        check(rel <= RESNET_LOSS_RTOL, f"ResNet dp 4 rank {rank} loss "
+              f"{r['loss']} vs one card's {one} on the same global batch: "
+              f"{rel:.3g} (> {RESNET_LOSS_RTOL})")
+        r["loss_rel_err"] = rel
+    return {"one_card_loss": one, "ranks": ranks}
+
+
+def _to(v, dev):
+    return ({k: _to(x, dev) for k, x in v.items()} if isinstance(v, dict)
+            else v.to(dev))
+
+
+HF_TOKENS = (4, 1024)
+HF_PROMPT = (2, 16)
+HF_NEW = 8
+HF_CONFIG = {"n_embd": 768, "n_head": 12, "n_layer": 12, "vocab_size": 50257,
+             "n_positions": 1024, "n_inner": None,
+             "activation_function": "gelu_new", "layer_norm_epsilon": 1e-5}
+
+
+def _hf_state_dict(conf, seed=SEED):
+    """A GPT-2-small-shaped checkpoint in HF's layout (Conv1D weights
+    [in, out], ``c_attn`` packing q, k, v, the ``transformer.`` prefix),
+    drawn from a seed: N(0, 0.02) weights, unit norms, zero biases."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    D, L, V, P = (conf["n_embd"], conf["n_layer"], conf["vocab_size"],
+                  conf["n_positions"])
+    F = conf["n_inner"] or 4 * D
+
+    def w(*shape):
+        return rng.standard_normal(shape, dtype=np.float32) * 0.02
+
+    sd = {"transformer.wte.weight": w(V, D), "transformer.wpe.weight": w(P, D),
+          "transformer.ln_f.weight": np.ones(D, np.float32),
+          "transformer.ln_f.bias": np.zeros(D, np.float32)}
+    for i in range(L):
+        h = f"transformer.h.{i}."
+        sd.update({
+            h + "ln_1.weight": np.ones(D, np.float32),
+            h + "ln_1.bias": np.zeros(D, np.float32),
+            h + "attn.c_attn.weight": w(D, 3 * D),
+            h + "attn.c_attn.bias": np.zeros(3 * D, np.float32),
+            h + "attn.c_proj.weight": w(D, D),
+            h + "attn.c_proj.bias": np.zeros(D, np.float32),
+            h + "ln_2.weight": np.ones(D, np.float32),
+            h + "ln_2.bias": np.zeros(D, np.float32),
+            h + "mlp.c_fc.weight": w(D, F),
+            h + "mlp.c_fc.bias": np.zeros(F, np.float32),
+            h + "mlp.c_proj.weight": w(F, D),
+            h + "mlp.c_proj.bias": np.zeros(D, np.float32)})
+    sd["lm_head.weight"] = sd["transformer.wte.weight"]
+    return sd
+
+
+def phase_hf():
+    """A GPT-2-small checkpoint in HF's layout, built from a seed,
+    converted by from_hf_gpt2: its logits through K1 against attention's
+    plain version, and greedy generation."""
+    import torch
+
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.models.hf import from_hf_gpt2
+    from ray_tpu_torch.ops import _kernels
+
+    smi = _smi_line()
+    t_phase = time.perf_counter()
+    sd = _hf_state_dict(HF_CONFIG)
+    t0 = time.perf_counter()
+    cfg, params = from_hf_gpt2(sd, config=HF_CONFIG)
+    convert_s = time.perf_counter() - t0
+    shapes = gpt.param_shapes(cfg)
+    got = {k: tuple(v.shape) for k, v in params.items() if k != "layers"}
+    got.update({f"layers.{k}": tuple(v.shape)
+                for k, v in params["layers"].items()})
+    want = {k: tuple(v) for k, v in shapes.items() if k != "layers"}
+    want.update({f"layers.{k}": tuple(v)
+                 for k, v in shapes["layers"].items()})
+    check(got == want and cfg.attn_bias and cfg.tie_embeddings,
+          f"converted tree {got} != GPT's {want}")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    tokens = torch.randint(0, cfg.vocab_size, HF_TOKENS, generator=g,
+                           device="cuda")
+    with torch.no_grad():
+        _kernels.reset_launch_counts()
+        logits = gpt.apply(params, tokens, cfg)
+        torch.cuda.synchronize()
+        launches = _kernels.launch_counts()
+        check(launches["flash_fwd"] == cfg.n_layers, f"converted GPT-2's "
+              f"forward launched flash_fwd {launches['flash_fwd']} times")
+        with mock.patch.object(gpt, "attention", _plain_attention):
+            ref = gpt.apply(params, tokens, cfg)
+        diff = (logits.float() - ref.float()).abs()
+        max_err, mean_err = diff.max().item(), diff.mean().item()
+        check(torch.isfinite(logits).all().item()
+              and max_err <= LOGITS_MAX_ATOL and mean_err <= LOGITS_MEAN_ATOL,
+              f"converted GPT-2 logits kernel vs plain: max {max_err:.3g}, "
+              f"mean {mean_err:.3g}")
+        ms = cuda_time_ms(lambda: gpt.apply(params, tokens, cfg), iters=3,
+                          warmup=1)
+    prompt = torch.randint(0, cfg.vocab_size, HF_PROMPT, generator=g,
+                           device="cuda")
+    out = gpt.generate(params, cfg, prompt, HF_NEW)
+    new = out[:, HF_PROMPT[1]:]
+    check(tuple(out.shape) == (HF_PROMPT[0], HF_PROMPT[1] + HF_NEW)
+          and torch.equal(out[:, :HF_PROMPT[1]], prompt)
+          and bool(((new >= 0) & (new < cfg.vocab_size)).all()),
+          f"generate gave {tuple(out.shape)} / {new.tolist()}")
+    del params
+    torch.cuda.empty_cache()
+    # f32: greedy generation's first token is the argmax of the forward's
+    # last logits through K1
+    cfg32, p32 = from_hf_gpt2(sd, config=HF_CONFIG, dtype=torch.float32)
+    with torch.no_grad():
+        last = gpt.apply(p32, prompt, cfg32)[:, -1].argmax(-1)
+    first = gpt.generate(p32, cfg32, prompt, 1)[:, -1]
+    check(torch.equal(first, last), f"f32 greedy first tokens "
+          f"{first.tolist()} != the forward's argmax {last.tolist()}")
+    del p32
+    torch.cuda.empty_cache()
+    B, S = HF_TOKENS
+    rec = {"card": smi, "tokens": [B, S], "convert_s": convert_s,
+           "flash_launches": launches["flash_fwd"], "logits_max_err": max_err,
+           "logits_mean_err": mean_err, "ms": ms,
+           "tokens_per_s": B * S / (ms / 1e3), "generated": new.tolist(),
+           "f32_first_tokens": first.tolist(),
+           "seconds": time.perf_counter() - t_phase}
+    log(f"[hf] GPT-2-small checkpoint in HF's layout (seed {SEED}, vocab "
+        f"{cfg.vocab_size}) converted in {convert_s:.1f} s; bf16 [{B}, {S}] "
+        f"forward: K1 {launches['flash_fwd']}, logits vs plain max "
+        f"{max_err:.3g} mean {mean_err:.3g}; {ms:.2f} ms = "
+        f"{rec['tokens_per_s']:.0f} tokens/s; generated {new.tolist()}; f32 "
+        f"greedy first tokens == the forward's argmax {last.tolist()} "
+        f"({smi})")
+    return rec
+
+
 def _kernel_entry(k, case, launches_by_path, **extra):
     # the main path: a step through the trainer on Data-fed batches (K1-K6;
     # K7 runs there only with the fused hop forced, and its entry says so)
@@ -7458,7 +8192,8 @@ def _kernel_entry(k, case, launches_by_path, **extra):
 PHASES = ("kernels", "forward", "serve", "serve-bench", "parity", "train",
           "kernels-quantize", "kernels-fused", "dp-train", "runtime",
           "serve-app", "train-app", "data-train", "dag", "cli-jobs",
-          "autoscale", "observe", "mesh", "pipeline")
+          "autoscale", "observe", "mesh", "pipeline", "moe", "resnet",
+          "hf")
 
 
 def _timed(seconds, name, fn, *args):
@@ -7579,6 +8314,11 @@ def main(argv=None):
         # last: its stage actors come and go on the card too
         torch.cuda.empty_cache()
         report["pipeline"] = _timed(seconds, "pipeline", phase_pipeline)
+    for name, fn in (("moe", phase_moe), ("resnet", phase_resnet),
+                     ("hf", phase_hf)):
+        if name in phases:
+            torch.cuda.empty_cache()
+            report[name] = _timed(seconds, name, fn)
 
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps(report, indent=1))
@@ -7655,7 +8395,25 @@ def main(argv=None):
                    for s, per in enumerate(r["launches_by_stage"])},
                 **{f"pipeline_actors_1f1b_2st_stage{s}": per.get(name, 0)
                    for s, per in enumerate(
-                       report["pipeline"]["actors"]["launches_by_stage"])}}
+                       report["pipeline"]["actors"]["launches_by_stage"])},
+                # MoE-small: its forward, and one step of its train step
+                # (remat full: K1 twice a layer)
+                "moe_forward": (report["moe"]["forward"]["flash_launches"]
+                                if name == "flash_fwd" else 0),
+                "moe_train_step":
+                    report["moe"]["train"]["launches"][-1][name],
+                # a step on each ep rank of the four-card meshes
+                **({f"moe_{shape}_step_rank{r}": rr["launches"][-1][name]
+                    for shape in ("ep4", "ep2_dp2")
+                    for r, rr in enumerate(report["moe"]["four_cards"][
+                        shape])}
+                   if isinstance(report["moe"]["four_cards"], dict)
+                   else {}),
+                # ResNet-50's step runs no kernel of the port
+                "resnet_step": 0,
+                # the GPT-2 checkpoint converted from HF's layout
+                "hf_forward": (report["hf"]["flash_launches"]
+                               if name == "flash_fwd" else 0)}
 
     k1 = report["kernels"][0]
     bwd = report["kernels_bwd"][0]

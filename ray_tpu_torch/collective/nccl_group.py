@@ -613,8 +613,10 @@ def _scatter_along(g: torch.Tensor, dim: int, group: Group) -> torch.Tensor:
     out = _traced("mesh_reducescatter", g0, group, _reducescatter,
                   g0.reshape(-1), group, None, 0)
     world = dist.get_world_size(group)
+    # contiguous: a DTensor leaf's to_local() backward hangs on gloo
+    # given a strided gradient (a shard gathered along a dim other than 0)
     return out.view((g0.shape[0] // world,)
-                    + tuple(g0.shape[1:])).movedim(0, dim)
+                    + tuple(g0.shape[1:])).movedim(0, dim).contiguous()
 
 
 def _sum_over(x: torch.Tensor, groups: Sequence[Group],

@@ -1,10 +1,12 @@
 """Weights and training state carried between the JAX reference and
 the port.
 
-``from_jax_params`` takes the reference's GPT param tree with numpy
-leaves (``jax.tree.map(np.asarray, params)``) and returns the port's
-dict, key for key and shape for shape, so both packages compute the
-same function; ``to_numpy_params`` goes back.  ``from_optax_adamw_state``
+``from_jax_params`` takes a reference param tree with numpy leaves
+(``jax.tree.map(np.asarray, params)``) of GPT, the MoE model or ResNet
+(which the config names) and returns the port's dict, key for key and
+shape for shape, so both packages compute the same function;
+``from_jax_state`` does the same for ResNet's batch-norm state, and
+``to_numpy_params`` goes back.  ``from_optax_adamw_state``
 carries the reference's AdamW state over, so a run resumed from a JAX
 step continues as the JAX run would.  Nothing here imports JAX.
 """
@@ -18,49 +20,69 @@ import numpy as np
 import torch
 
 from ray_tpu_torch._device import DeviceLike, resolve_device
-from ray_tpu_torch.models.gpt import GPTConfig, param_shapes
+from ray_tpu_torch.models.gpt import GPTConfig
 from ray_tpu_torch.models.training import (OptimizerFactory, adamw,
-                                           param_leaves)
+                                           model_of, param_leaves)
 
 
-def from_jax_params(tree: Dict[str, Any], cfg: GPTConfig, *,
+def _param_shapes(cfg) -> Dict[str, Any]:
+    from ray_tpu_torch.models import resnet
+
+    if isinstance(cfg, resnet.ResNetConfig):
+        return resnet.param_shapes(cfg)
+    return model_of(cfg).param_shapes(cfg)
+
+
+def from_jax_params(tree: Dict[str, Any], cfg, *,
                     device: DeviceLike = None) -> Dict[str, Any]:
-    """Numpy param tree of ``ray_tpu.models.gpt.init`` -> port params in
+    """Numpy param tree of the reference's ``init`` for ``cfg``
+    (``GPTConfig``, ``MoEConfig`` or ``ResNetConfig``; ResNet's params,
+    the first of its ``init``'s pair) -> port params in
     ``cfg.param_dtype`` on ``device``.  Raises on a missing, extra or
     misshapen leaf."""
-    dev = resolve_device(device)
+    return _convert(tree, _param_shapes(cfg), cfg.param_dtype,
+                    resolve_device(device))
 
-    def convert(sub: Dict[str, Any], shapes: Dict[str, Any], path: str):
-        if set(sub) != set(shapes):
-            raise ValueError(
-                f"{path or 'params'}: keys {sorted(sub)} != expected "
-                f"{sorted(shapes)}")
-        out = {}
-        for name, want in shapes.items():
-            key = f"{path}.{name}" if path else name
-            if isinstance(want, dict):
-                out[name] = convert(sub[name], want, key)
-                continue
-            arr = np.asarray(sub[name], dtype=np.float32)
-            if arr.shape != tuple(want):
-                raise ValueError(f"{key}: shape {arr.shape} != {want}")
-            out[name] = torch.from_numpy(arr.copy()).to(
-                device=dev, dtype=cfg.param_dtype)
-        return out
 
-    return convert(tree, param_shapes(cfg), "")
+def from_jax_state(tree: Dict[str, Any], cfg, *,
+                   device: DeviceLike = None) -> Dict[str, Any]:
+    """ResNet's batch-norm state (the second of the reference's
+    ``init``'s pair, or a new state from its ``apply``) -> the port's,
+    f32 on ``device``; raises as ``from_jax_params`` does."""
+    from ray_tpu_torch.models import resnet
+
+    return _convert(tree, resnet.state_shapes(cfg), torch.float32,
+                    resolve_device(device))
+
+
+def _convert(sub: Dict[str, Any], shapes: Dict[str, Any],
+             dtype: torch.dtype, dev: torch.device, path: str = ""
+             ) -> Dict[str, Any]:
+    if set(sub) != set(shapes):
+        raise ValueError(f"{path or 'params'}: keys {sorted(sub)} != "
+                         f"expected {sorted(shapes)}")
+    out = {}
+    for name, want in shapes.items():
+        key = f"{path}.{name}" if path else name
+        if isinstance(want, dict):
+            out[name] = _convert(sub[name], want, dtype, dev, key)
+            continue
+        arr = np.asarray(sub[name], dtype=np.float32)
+        if arr.shape != tuple(want):
+            raise ValueError(f"{key}: shape {arr.shape} != {want}")
+        out[name] = torch.from_numpy(arr.copy()).to(device=dev, dtype=dtype)
+    return out
 
 
 def shard_jax_params(tree: Dict[str, Any], cfg: GPTConfig, mesh
                      ) -> Dict[str, Any]:
     """``from_jax_params`` onto the mesh's device, then each rank's shards
     as DTensors laid out by the reference's rules."""
-    from ray_tpu_torch.models.gpt import logical_axes
     from ray_tpu_torch.parallel.mesh import mesh_device
     from ray_tpu_torch.parallel.sharding import shard_tree
 
     params = from_jax_params(tree, cfg, device=mesh_device(mesh))
-    return shard_tree(params, logical_axes(cfg), mesh)
+    return shard_tree(params, model_of(cfg).logical_axes(cfg), mesh)
 
 
 def to_numpy_params(params: Dict[str, Any]) -> Dict[str, Any]:

@@ -291,10 +291,10 @@ def _qkv_proj(x, layer, cfg: GPTConfig, rope, positions=None, ctx=None):
     return q, k, v
 
 
-def _attn_out_and_mlp(x, o, layer, cfg: GPTConfig, ctx=None):
-    """Output projection + residual + MLP sublayer (shared, see
-    _qkv_proj).  o [B, H, S, dh], x [B, S, D].  Under tp the row-parallel
-    products are summed over tp before their biases."""
+def _attn_residual(x, o, layer, cfg: GPTConfig, ctx=None):
+    """Output projection + residual: o [B, H, S, dh], x [B, S, D] ->
+    x + o·wo.  Under tp the row-parallel product is summed over tp
+    before its bias."""
     B, H, S, dh = o.shape
     D = cfg.d_model
     att = (o.transpose(1, 2).reshape(B, S, H * dh)
@@ -303,7 +303,14 @@ def _attn_out_and_mlp(x, o, layer, cfg: GPTConfig, ctx=None):
         att = spmd.reduce_out(att, ctx)
     if cfg.attn_bias:
         att = att + layer["wo_b"].to(cfg.dtype)
-    x = x + att
+    return x + att
+
+
+def _attn_out_and_mlp(x, o, layer, cfg: GPTConfig, ctx=None):
+    """Output projection + residual + MLP sublayer (shared, see
+    _qkv_proj).  o [B, H, S, dh], x [B, S, D].  Under tp the row-parallel
+    products are summed over tp before their biases."""
+    x = _attn_residual(x, o, layer, cfg, ctx)
     h2 = _norm(x, layer["mlp_norm"], layer.get("mlp_norm_b"), cfg.norm)
     h2 = h2.to(cfg.dtype)
     if ctx is not None:
@@ -409,8 +416,8 @@ def _blocks(x, params: Params, cfg: GPTConfig, rope, shards: "_Shards",
     return x
 
 
-def _stack(x, params: Params, cfg: GPTConfig, rope, shards: "_Shards",
-           positions=None):
+def _stack(x, rope, positions, params: Params, cfg: GPTConfig,
+           shards: "_Shards"):
     """Every block over x, then the final norm.  Over a pp axis > 1 this
     rank's layers are one stage of a GPipe pipeline over
     ``cfg.num_microbatches`` (default pp) microbatches of its rows."""
@@ -488,6 +495,10 @@ class _Shards:
     rules, and the device the shards live on.  With no mesh it is the one
     rank of an unsharded model on ``device``."""
 
+    # the param tree's annotations (a model built on this region, such
+    # as models/moe.py, names its own)
+    logical_axes = staticmethod(logical_axes)
+
     def __init__(self, cfg: GPTConfig, mesh=None, device: DeviceLike = None):
         if mesh is not None and not (hasattr(mesh, "mesh_dim_names")
                                      and hasattr(mesh, "get_group")):
@@ -505,7 +516,7 @@ class _Shards:
 
         self.device = mesh_device(mesh)
         self.specs = _tree_map(lambda l: spec_from_logical(l.axes, None, mesh),
-                               logical_axes(cfg))
+                               self.logical_axes(cfg))
 
     def params(self, params: Params) -> Params:
         """The local shards of a DTensor tree (differentiable: gradients
@@ -552,7 +563,8 @@ class _Shards:
     def unembed(self, local: Params) -> torch.Tensor:
         """This rank's vocab columns of the unembedding, [D, V/tp]."""
         if self.cfg.tie_embeddings:
-            return local["embed"].T.to(self.cfg.dtype)
+            return self.gather_top("embed", local["embed"]).T.to(
+                self.cfg.dtype)
         return self.gather_top("unembed", local["unembed"]).to(
             self.cfg.dtype)
 
@@ -620,11 +632,18 @@ class _Shards:
 def _hidden(local: Params, tokens, cfg: GPTConfig, shards: _Shards):
     """The stack on this rank's rows and sp slice of the tokens: hidden
     [B/data, S/sp, D], replicated over tp."""
+    return _stack(*_embed(local, tokens, cfg, shards), local, cfg, shards)
+
+
+def _embed(local: Params, tokens, cfg: GPTConfig, shards: _Shards):
+    """The embedding of this rank's block of the tokens: (x [B/data,
+    S/sp, D] in cfg.dtype, the rope table or None, the sp slice's
+    positions or None)."""
     ctx = shards.ctx
     tokens = tokens.to(dtype=torch.long)
     S = tokens.shape[1]
     off = ctx.coords["sp"] * S
-    table = local["embed"]
+    table = shards.gather_top("embed", local["embed"])
     if ctx.size("tp") == 1:
         x = table[tokens]
     else:   # vocab-parallel lookup: this rank's rows, summed over tp
@@ -645,8 +664,7 @@ def _hidden(local: Params, tokens, cfg: GPTConfig, shards: _Shards):
             positions = off + torch.arange(S, device=shards.device)
     # only pp rank 0 feeds this into the pipeline: the lookup's gradient
     # is that rank's, summed over pp so each rank holds the table's total
-    x = spmd.reduce_grad(x, ctx, ("pp",))
-    return _stack(x, local, cfg, rope, shards, positions)
+    return spmd.reduce_grad(x, ctx, ("pp",)), rope, positions
 
 
 def _vocab_parallel_ce(logits: torch.Tensor, labels: torch.Tensor,
@@ -697,7 +715,14 @@ def _loss(local: Params, batch: Dict[str, Any], cfg: GPTConfig,
           shards: _Shards) -> torch.Tensor:
     """``loss_fn`` on this rank's shards (``_Shards.params``): the global
     mean, summed over the data ranks and sp."""
-    ctx = shards.ctx
+    inputs, targets, mask = _batch_block(batch, shards)
+    return _lm_loss(_hidden(local, inputs, cfg, shards), targets, mask,
+                    local, cfg, shards)
+
+
+def _batch_block(batch: Dict[str, Any], shards: _Shards):
+    """This rank's block of a batch: (inputs, targets, mask or None),
+    its rows and sp slice."""
     if "inputs" in batch:
         inputs, in_done = shards.batch_rows(batch["inputs"])
         targets, t_done = shards.batch_rows(batch["targets"])
@@ -705,19 +730,27 @@ def _loss(local: Params, batch: Dict[str, Any], cfg: GPTConfig,
         toks, _ = shards.batch_rows(batch["tokens"])
         inputs, targets = toks[:, :-1], toks[:, 1:]
         in_done = t_done = False
-    inputs = shards.seq_slice(inputs, in_done)
-    targets = shards.seq_slice(targets, t_done).to(torch.long)
+    mask = None
+    if "mask" in batch:
+        mask, m_done = shards.batch_rows(batch["mask"])
+        mask = shards.seq_slice(mask, m_done).float()
+    return (shards.seq_slice(inputs, in_done),
+            shards.seq_slice(targets, t_done).to(torch.long), mask)
+
+
+def _lm_loss(x, targets, mask, local: Params, cfg: GPTConfig,
+             shards: _Shards) -> torch.Tensor:
+    """The next-token CE of this rank's hidden block against its targets,
+    as the global mean (weighted by ``mask`` when given)."""
+    ctx = shards.ctx
     chunk = cfg.loss_chunk
     # the sequence is split over sp: chunking it would cut across ranks
     if not (chunk and ctx.size("sp") == 1
             and targets.shape[1] % chunk == 0):
         chunk = None
-    x = _hidden(local, inputs, cfg, shards)
     loss = _ce(x, shards.unembed(local), targets, cfg, ctx, chunk)
     over = spmd.DATA_AXES + ("sp",)
-    if "mask" in batch:
-        mask, m_done = shards.batch_rows(batch["mask"])
-        mask = shards.seq_slice(mask, m_done).float()
+    if mask is not None:
         num = spmd.reduce_out((loss * mask).sum(), ctx, over)
         return num / spmd.all_sum(mask.sum(), ctx, over).clamp_min(1.0)
     if ctx.data_size * ctx.size("sp") == 1:

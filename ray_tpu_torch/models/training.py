@@ -83,9 +83,18 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
         [torch.linalg.vector_norm(t, dtype=torch.float32) for t in tensors]))
 
 
+def model_of(cfg: gpt.GPTConfig):
+    """The model module a config belongs to: ``models.moe`` for a
+    ``MoEConfig``, ``models.gpt`` otherwise.  Both provide ``init``,
+    ``logical_axes``, ``_Shards`` and ``_loss``."""
+    from ray_tpu_torch.models import moe
+
+    return moe if isinstance(cfg, moe.MoEConfig) else gpt
+
+
 def param_shardings(cfg: gpt.GPTConfig, mesh):
     """Each param's NamedSharding under the reference's rules."""
-    return tree_shardings(gpt.logical_axes(cfg), mesh)
+    return tree_shardings(model_of(cfg).logical_axes(cfg), mesh)
 
 
 def opt_state_shardings(tx, params_shape, p_shardings, mesh):
@@ -101,8 +110,9 @@ def init_sharded(seed: int, cfg: gpt.GPTConfig, mesh):
     """Params drawn from ``seed`` and placed on the mesh: every rank draws
     the whole tree on its card (the same numbers) and keeps its shards,
     where the reference materializes only each device's shard."""
-    return shard_tree(gpt.init(cfg, seed=seed, device=mesh_device(mesh)),
-                      gpt.logical_axes(cfg), mesh)
+    model = model_of(cfg)
+    return shard_tree(model.init(cfg, seed=seed, device=mesh_device(mesh)),
+                      model.logical_axes(cfg), mesh)
 
 
 def shard_batch(batch: Dict[str, Any], mesh):
@@ -157,7 +167,8 @@ def make_train_step(cfg: gpt.GPTConfig, mesh=None,
     ``adamw(3e-4, weight_decay=0.1)``, the reference's default) and the
     count of steps taken (an int tensor on the device).
 
-    ``init_state(seed=0, params=None)`` draws params with ``gpt.init`` or
+    ``init_state(seed=0, params=None)`` draws params with ``gpt.init`` (or
+    ``moe.init`` for a ``MoEConfig``: the step is then ``moe.loss_fn``'s) or
     takes a copy of ``params`` (e.g. from ``convert.from_jax_params``).
     ``step(state, batch) -> (state, {"loss", "grad_norm"})``: batch as
     ``gpt.loss_fn`` takes it; the metrics are f32 tensors on the device,
@@ -176,7 +187,8 @@ def make_train_step(cfg: gpt.GPTConfig, mesh=None,
     if mesh is not None and device is not None:
         raise ValueError("a mesh step runs on the mesh's device; pass no "
                          "device")
-    shards = gpt._Shards(cfg, mesh, device)
+    model = model_of(cfg)
+    shards = model._Shards(cfg, mesh, device)
     dev = shards.device
     specs = None
     if mesh is not None:
@@ -186,7 +198,7 @@ def make_train_step(cfg: gpt.GPTConfig, mesh=None,
     def init_state(seed: int = 0,
                    params: Optional[gpt.Params] = None) -> State:
         if params is None:
-            params = gpt.init(cfg, seed=seed, device=dev)
+            params = model.init(cfg, seed=seed, device=dev)
         if mesh is None:
             local = _as_leaves(params, cfg, dev)
         else:
@@ -208,7 +220,7 @@ def make_train_step(cfg: gpt.GPTConfig, mesh=None,
         opt = state["opt_state"]
         leaves = [t for _, t in param_leaves(local)]
         opt.zero_grad(set_to_none=True)
-        loss = gpt._loss(shards.params(local), batch, cfg, shards)
+        loss = model._loss(shards.params(local), batch, cfg, shards)
         loss.backward()
         gnorm = _sharded_global_norm([t.grad for t in leaves], specs,
                                      shards.ctx)
@@ -235,10 +247,11 @@ def make_eval_step(cfg: gpt.GPTConfig, mesh=None, *,
     """Returns ``eval_step(params, batch) -> loss``: ``gpt.loss_fn`` with
     no graph recorded (the reference's ``make_eval_step``); over a mesh
     the params are DTensors (a train state's "params")."""
-    shards = gpt._Shards(cfg, mesh, device)
+    model = model_of(cfg)
+    shards = model._Shards(cfg, mesh, device)
 
     @torch.no_grad()
     def eval_step(params: gpt.Params, batch: Dict[str, Any]) -> torch.Tensor:
-        return gpt._loss(shards.params(params), batch, cfg, shards)
+        return model._loss(shards.params(params), batch, cfg, shards)
 
     return devtel.instrument(eval_step, name="train.eval_step")

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import os
 import re
@@ -200,13 +201,21 @@ def ptxas_entries(kernel: Kernel) -> Dict[str, Dict[str, int]]:
     return out
 
 
+@functools.lru_cache(maxsize=8)
+def _sass_text(lib: str, mtime_ns: int) -> str:
+    """``cuobjdump -sass`` of a built library (one run per build: the
+    kernels of a source share its library)."""
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(tool), "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+
+
 def sass_opcode_counts(kernel: Kernel, opcode: str) -> Dict[str, int]:
     """How many instructions of ``opcode`` (e.g. ``HMMA``, the tensor-core
     product) ``cuobjdump -sass`` shows in each function of ``kernel``'s
     built library, by mangled name."""
-    tool = Path(_nvcc()).with_name("cuobjdump")
-    text = subprocess.run([str(tool), "-sass", str(kernel.lib_path())],
-                          capture_output=True, text=True, check=True).stdout
+    lib = kernel.lib_path()
+    text = _sass_text(str(lib), lib.stat().st_mtime_ns)
     op = re.compile(rf"\b{opcode}\b")
     counts: Dict[str, int] = {}
     name = None

@@ -1,5 +1,7 @@
 """The PyTorch port stands alone: importing it loads neither JAX nor any
-module of the JAX package, its runtime modules load no torch either (nor
+module of the JAX package (its models, MoE, ResNet and the GPT-2
+checkpoint converter among them, which loads no ``transformers``
+either), its runtime modules load no torch either (nor
 do its compiled DAGs, its CLI, jobs, state API and client mode, even
 while a DAG channel carries values that are not tensors), its
 entry points refuse to fall back to the CPU silently (an NCCL collective
@@ -31,6 +33,11 @@ import ray_tpu_torch.ops._kernels
 import ray_tpu_torch.models.gpt as gpt
 import ray_tpu_torch.models.convert
 import ray_tpu_torch.models.training as training
+import ray_tpu_torch.models.moe as moe
+import ray_tpu_torch.models.resnet as resnet
+import ray_tpu_torch.models.hf as hf
+import ray_tpu_torch.ops.moe
+from ray_tpu_torch.models import MoEConfig, ResNetConfig
 import ray_tpu_torch.serve
 import ray_tpu_torch.ops.quantize as quantize
 import ray_tpu_torch.collective as collective
@@ -44,6 +51,7 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "ray_tpu" or m.startswith("ray_tpu."))
 assert not bad, bad
+assert "transformers" not in sys.modules
 cfg = gpt.GPTConfig.nano()
 params = gpt.init(cfg, seed=0, device="cpu")
 for call in (lambda: gpt.apply(params, [[1, 2, 3]], cfg),
@@ -52,6 +60,12 @@ for call in (lambda: gpt.apply(params, [[1, 2, 3]], cfg),
              lambda: gpt.loss_fn(params, {"tokens": [[1, 2, 3]]}, cfg),
              lambda: training.make_train_step(cfg),
              lambda: training.make_eval_step(cfg),
+             lambda: moe.init(MoEConfig.mixtral_nano()),
+             lambda: moe.apply(moe.init(MoEConfig.mixtral_nano(),
+                                        device="cpu"), [[1, 2]],
+                               MoEConfig.mixtral_nano()),
+             lambda: resnet.init(ResNetConfig.tiny()),
+             lambda: hf.from_hf_gpt2({}, config={}),
              lambda: collective.init_collective_group(1, 0, backend="nccl")):
     try:
         call()

@@ -30,7 +30,12 @@ and an inf block side by side in one tile; and so is K7, the fused
 reduce-scatter, in its one-card loopback launch (every rank of a group in
 one cooperative launch) against its plain version and the staged K4 ->
 K6 path, at blocks 256/128/32/100 with sub a whole number of tiles or
-not (the per-element tail).
+not (the per-element tail).  The MoE model on the card runs K1-K3 in its
+attention half and matches its plain-attention self in f32 (loss 1e-5,
+each gradient 1e-4 of its largest entry) and the CPU's forward, routing
+included, within 1e-4; tied router scores take the lower expert first
+there too; ResNet-tiny's f32 loss, batch-norm state and gradients on the
+card match the CPU port's (1e-5, 1e-4 of the largest entry).
 """
 
 import concurrent.futures
@@ -1008,3 +1013,169 @@ def test_bf16_stage_pair_matches_the_unpipelined_step(gpu):
         cos = torch.nn.functional.cosine_similarity(
             g[k].flatten().double(), t.grad.flatten().double(), dim=0).item()
         assert cos >= 0.999, (k, cos)
+
+
+def _grads_on(fn, params):
+    """(fn(tree) as a float, {leaf: grad}) on a fresh copy of params."""
+    from ray_tpu_torch.models import training
+
+    leaves = {k: t.detach().clone().requires_grad_()
+              for k, t in training.param_leaves(params)}
+    tree = {}
+    for k, t in leaves.items():
+        node = tree
+        *path, last = k.split(".")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[last] = t
+    loss = fn(tree)
+    loss.backward()
+    return loss.item(), {k: t.grad for k, t in leaves.items()}
+
+
+@pytest.mark.cuda
+def test_moe_step_runs_k1_k3_and_matches_plain_in_f32(gpu):
+    """Mixtral-nano in f32 on the card (remat on): its loss runs K1 twice
+    a layer and K2, K3 once, and the loss and every gradient, the
+    router's among them, agree with the same model over attention's
+    plain versions (the loss within 1e-5, each leaf within 1e-4 of its
+    largest entry)."""
+    from unittest import mock
+
+    import numpy as np
+
+    from ray_tpu_torch.models import gpt, moe
+
+    cfg = moe.MoEConfig.mixtral_nano(dtype=torch.float32)
+    params = moe.init(cfg, seed=0, device=gpu)
+    batch = {"tokens": torch.from_numpy(np.random.RandomState(53).randint(
+        0, 256, (4, 65))).to(gpu)}
+
+    def loss(tree):
+        return moe.loss_fn(tree, batch, cfg)
+
+    _kernels.reset_launch_counts()
+    got, g = _grads_on(loss, params)
+    n = _kernels.launch_counts()
+    assert (n["flash_fwd"], n["flash_bwd_dkv"], n["flash_bwd_dq"]) == (
+        2 * cfg.n_layers, cfg.n_layers, cfg.n_layers)
+    with mock.patch.object(gpt, "attention", _plain_model_attention):
+        want, w = _grads_on(loss, params)
+    assert abs(got - want) <= 1e-5
+    for k in w:
+        assert (g[k] - w[k]).abs().max() <= 1e-4 * w[k].abs().max(), k
+    assert g["layers.router"].abs().max() > 0
+
+
+@pytest.mark.cuda
+def test_moe_forward_on_the_card_matches_the_cpu(gpu):
+    """The whole MoE forward, routing included (softmax, the stable top-k
+    sort, queue positions, the dense dispatch), on the card against the
+    same f32 model on the CPU: logits within 1e-4, router losses 1e-5."""
+    import numpy as np
+
+    from ray_tpu_torch.models import moe
+
+    cfg = moe.MoEConfig.mixtral_nano(dtype=torch.float32,
+                                     capacity_factor=1.0)
+    params = moe.init(cfg, seed=1, device="cpu")
+    toks = torch.from_numpy(np.random.RandomState(54).randint(0, 256,
+                                                              (4, 64)))
+    with torch.no_grad():
+        want, wx = moe.apply(params, toks, cfg, device="cpu")
+        got, gx = moe.apply({k: (v.to(gpu) if not isinstance(v, dict) else
+                                 {a: b.to(gpu) for a, b in v.items()})
+                             for k, v in params.items()}, toks.to(gpu), cfg)
+    assert (got.cpu() - want).abs().max().item() <= 1e-4
+    for key in ("aux", "z"):
+        assert abs(gx[key].item() - wx[key].item()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_route_topk_orders_ties_on_the_card_as_jax_does(gpu):
+    """Tied router scores on the card: the lower expert index first
+    (``jax.lax.top_k``'s order), the same dispatch as on the CPU."""
+    from ray_tpu_torch.ops.moe import route_topk
+
+    logits = torch.tensor([[10.0, 0.0, 0.0, 0.0]]).repeat(64, 1)
+    logits[::3, 2] = 10.0
+    want = route_topk(logits, 2, 64)
+    got = route_topk(logits.to(gpu), 2, 64)
+    assert torch.equal(got.dispatch.cpu(), want.dispatch)
+    assert torch.equal(got.combine.cpu(), want.combine)
+    assert got.dispatch[1].sum(-1).tolist() == [1.0, 1.0, 0.0, 0.0]
+
+
+@pytest.mark.cuda
+def test_moe_bf16_train_steps_launch_k1_k3(gpu):
+    """Two AdamW steps of mixtral-nano in bf16 (the main path's recipe):
+    finite losses, K1/K2/K3 2L/L/L a step."""
+    import numpy as np
+
+    from ray_tpu_torch.models import moe, training
+
+    cfg = moe.MoEConfig.mixtral_nano()
+    init, step = training.make_train_step(cfg)
+    state = init(seed=0)
+    batch = {"tokens": torch.from_numpy(np.random.RandomState(55).randint(
+        0, 256, (4, 65))).to(gpu)}
+    for _ in range(2):
+        _kernels.reset_launch_counts()
+        _, m = step(state, batch)
+        n = _kernels.launch_counts()
+        assert np.isfinite(m["loss"].item())
+        assert (n["flash_fwd"], n["flash_bwd_dkv"], n["flash_bwd_dq"]) == (
+            2 * cfg.n_layers, cfg.n_layers, cfg.n_layers)
+
+
+@pytest.mark.cuda
+def test_resnet_f32_on_the_card_matches_the_cpu(gpu):
+    """ResNet-tiny's training loss, new batch-norm state and gradients on
+    the card (cuDNN convolutions, TF32 off) against the CPU port, on
+    images whose stride-2 layers meet odd and even sides: loss and state
+    within 1e-5, each gradient within 1e-4 of its largest entry."""
+    import numpy as np
+
+    from ray_tpu_torch.models import resnet
+
+    cfg = resnet.ResNetConfig.tiny(dtype=torch.float32)
+    images = torch.from_numpy(np.random.RandomState(56).rand(
+        4, 33, 30, 3).astype(np.float32))
+    labels = torch.from_numpy(np.random.RandomState(57).randint(0, 10, (4,)))
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        out = {}
+        for dev in ("cpu", gpu):
+            params, state = resnet.init(cfg, seed=0, device="cpu")
+            params = _to_device(params, dev)
+            state = _to_device(state, dev)
+            leaves = _leaves_of(params)
+            for t in leaves:
+                t.requires_grad_()
+            loss, (new_state, _) = resnet.loss_fn(
+                params, state, {"image": images.to(dev),
+                                "label": labels.to(dev)}, cfg, device=dev)
+            loss.backward()
+            out[str(dev)] = (loss.item(), [t.grad.cpu() for t in leaves],
+                             [t.cpu() for t in _leaves_of(new_state)])
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    (lc, gc, sc), (lg, gg, sg) = out["cpu"], out[str(gpu)]
+    assert abs(lc - lg) <= 1e-5
+    for a, b in zip(sc, sg):
+        assert (a - b).abs().max().item() <= 1e-5
+    for a, b in zip(gc, gg):
+        assert (a - b).abs().max() <= 1e-4 * a.abs().max()
+
+
+def _to_device(tree, dev):
+    return {k: (_to_device(v, dev) if isinstance(v, dict) else v.to(dev))
+            for k, v in tree.items()}
+
+
+def _leaves_of(tree):
+    out = []
+    for v in tree.values():
+        out += _leaves_of(v) if isinstance(v, dict) else [v]
+    return out

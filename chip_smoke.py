@@ -343,6 +343,28 @@ Phases, each of which must pass (any failure exits non-zero):
                 (K1 12) against attention's plain version, greedy
                 generation, and in f32 the first generated tokens ==
                 the forward's argmax.
+  rl            (RL, bench.py's bench_rl) Anakin at bench_rl's full
+                configuration (CartPole, 64 envs, rollout 16, 30 updates,
+                hidden (32, 32), seed 0) on the card, twice: equal params
+                digests, the timed loop under
+                torch.cuda.set_sync_debug_mode("error") (no host sync in
+                an update), no kernel of the port launched; env steps/s,
+                updates/s, the first call's excess, the final loss; the
+                same at 4096 envs and hidden (256, 256) (chip_studies.py
+                anakin-profile counts the kernels and the card's busy ms
+                per update).  PPO, IMPALA and APPO learning CartPole at
+                their tests' configurations, 12 train() each, past their
+                tests' return thresholds, ms per train().  Sebulba at
+                bench_rl's full configuration (3 gangs, 24 updates, 8
+                envs, rollout 8, hidden (16,), window 1) under its
+                sustained chaos (a kill, a straggler, a preemption), the
+                gangs GPU workers on the card: exactly-once consumption,
+                availability 1.0, staleness within its bound, and the
+                params digest == an in-process replay's (the learner's 24
+                updates over batches made here by fixed_shape_batch at
+                each update's version); bench_rl's Sebulba row.  With
+                four cards the learner on card 0 and the gangs on cards
+                1-3, the same digest.
 
 The flight recorder rides the paths above too: in serve (and serve-app's
 in-process engine) the engine's Prometheus series move by exactly the
@@ -374,6 +396,7 @@ process is reported beside it).
     python3 chip_smoke.py --phases mesh
     python3 chip_smoke.py --phases pipeline
     python3 chip_smoke.py --phases moe,resnet,hf
+    python3 chip_smoke.py --phases rl
 
 runs the device and build phases and the named ones only (a development
 aid; with no arguments every phase runs).
@@ -8174,6 +8197,247 @@ def phase_hf():
     return rec
 
 
+# the RL phase: bench.py's bench_rl (bench.py:2458) on the card.  Anakin
+# at its full configuration (bench.py:2467), Sebulba at its full one
+# (bench.py:2484-2500) under the same sustained chaos
+RL_ANAKIN = dict(env_name="CartPole-v1", num_envs=64, rollout_len=16,
+                 num_updates=30, hidden=(32, 32), seed=SEED)
+# the same loop at 64x the envs and 8x the widths: updates/s against the
+# 64-env run's says whether launches or the card bound it
+RL_ANAKIN_WIDE = dict(RL_ANAKIN, num_envs=4096, hidden=(256, 256))
+RL_SEBULBA = dict(num_gangs=3, num_updates=24, num_envs=8, rollout_len=8,
+                  hidden=(16,), seed=SEED, window=1, min_produce_s=0.2,
+                  straggler_multiple=3.0, straggler_sustain=2,
+                  remediation_max_episodes=1, remediation_effect_window=2,
+                  remediation_recover_tolerance=0.75, drain_grace_s=5.0)
+# PPO, IMPALA and APPO at their tests' configurations (tests/test_rl.py:
+# 102, test_rl_algorithms.py:45, test_rl_algorithms2.py:10): 12 train()
+# calls each, the last return held to the test's threshold
+RL_ALGOS = {
+    "ppo": ("PPOConfig", dict(rollout_len=128, num_epochs=4,
+                              minibatch_size=512, entropy_coeff=0.01),
+            40.0, 1.0),
+    "impala": ("ImpalaConfig", dict(rollout_len=128, entropy_coeff=0.01,
+                                    lr=5e-3), 30.0, 0.8),
+    "appo": ("APPOConfig", dict(rollout_len=128, entropy_coeff=0.01,
+                                lr=5e-3, target_update_freq=2), 25.0, 0.7),
+}
+RL_ITERS = 12
+
+
+def _anakin_row(cfg, r):
+    """bench_rl's Anakin row (bench.py:2470-2478), unrounded."""
+    return {"num_envs": cfg.num_envs, "rollout_len": cfg.rollout_len,
+            "num_updates": cfg.num_updates, "hidden": list(cfg.hidden),
+            "env_steps_per_s": r["env_steps_per_s"],
+            "updates_per_s": r["updates_per_s"],
+            "compile_s": r["compile_s"], "final_loss": r["final_loss"],
+            "run_s": r["run_s"], "params_digest": r["params_digest"]}
+
+
+def _rl_algo(name):
+    import numpy as np
+
+    from ray_tpu_torch import rl
+
+    cls, kw, floor, share = RL_ALGOS[name]
+    cfg = (getattr(rl, cls)().environment("CartPole-v1")
+           .env_runners(0, num_envs_per_runner=16).training(**kw))
+    algo = cfg.build()
+    try:
+        check(algo.learner_group.learner.device.type == "cuda",
+              f"{name}'s learner is on {algo.learner_group.learner.device}")
+        first = algo.train()
+        t0 = time.perf_counter()
+        last = None
+        for _ in range(RL_ITERS - 1):
+            last = algo.train()
+        ms = (time.perf_counter() - t0) * 1e3 / (RL_ITERS - 1)
+        ret0 = first.get("episode_return_mean", 0.0)
+        ret = last["episode_return_mean"]
+        check(np.isfinite(last["loss"]) and ret > max(floor, ret0 * share),
+              f"{name} on the card: return {ret} after {RL_ITERS} train() "
+              f"(first {ret0}; needs > max({floor}, {share} x first))")
+        if name == "appo":
+            check(last["kl"] >= 0.0 and "target_pi" in
+                  algo.learner_group.get_weights(), f"appo: kl {last['kl']}")
+        out = {"first_return": ret0, "return": ret,
+               "threshold": max(floor, ret0 * share), "loss": last["loss"],
+               "ms_per_train": ms,
+               "env_steps_per_train": kw["rollout_len"] * 16}
+        if name == "ppo":
+            # host-side minibatching: each update is one minibatch of
+            # five columns copied to the card, its metrics read back
+            n = kw["rollout_len"] * 16
+            out["updates_per_train"] = kw["num_epochs"] * -(
+                -n // kw["minibatch_size"])
+            out["h2d_copies_per_train"] = 5 * out["updates_per_train"]
+        return out
+    finally:
+        algo.stop()
+
+
+def _sebulba_row(r):
+    """bench_rl's Sebulba row (bench.py:2508-2524), unrounded."""
+    cfg = RL_SEBULBA
+    return {"num_gangs": cfg["num_gangs"], "num_updates": cfg["num_updates"],
+            "num_envs": cfg["num_envs"], "rollout_len": cfg["rollout_len"],
+            "learner_samples_per_s": r["learner_samples_per_s"],
+            "env_steps_per_s": r["env_steps_per_s"],
+            "staleness_p99": r["staleness"]["p99"],
+            "staleness_bound": r["staleness"]["bound"],
+            "availability": r["availability"],
+            "chaos_events": len(r["chaos_fired"]),
+            "deaths": len(r["deaths"]), "respawns": r["respawns"],
+            "final_goodput": (r["goodput_trace"][-1] if r["goodput_trace"]
+                              else None),
+            "params_digest": r["params_digest"],
+            "elapsed_s": r["elapsed_s"]}
+
+
+def _sebulba_chaos(trial, **extra):
+    """run_sebulba at bench_rl's full configuration under its sustained
+    chaos (one kill, one straggler, one preemption; seeded from
+    RAY_TPU_TORCH_CHAOS_SEED), the gangs GPU workers; its invariants."""
+    from ray_tpu_torch.rl.podracer import (ChaosSchedule, SebulbaConfig,
+                                           run_sebulba)
+
+    G, N = RL_SEBULBA["num_gangs"], RL_SEBULBA["num_updates"]
+    chaos = ChaosSchedule.sustained(N, G, kills=1, stragglers=1,
+                                    preemptions=1, straggle_delay_s=1.2,
+                                    grace_s=5.0)
+    r = run_sebulba(SebulbaConfig(trial=trial, **RL_SEBULBA, **extra),
+                    chaos)
+    keys = [(slot, seq) for slot, _inc, seq, _v in r["consumed"]]
+    check(len(keys) == N and len(set(keys)) == N
+          and all([q for s, q in keys if s == k]
+                  == list(range(len([1 for s, _ in keys if s == k])))
+                  for k in range(G)),
+          f"Sebulba consumed {keys}: not exactly once in order")
+    check(r["availability"] == 1.0, f"Sebulba availability "
+          f"{r['availability']} (the learner stalled past the bound)")
+    check(r["staleness"]["p99"] <= r["staleness"]["bound"],
+          f"Sebulba staleness {r['staleness']}")
+    check(len(r["chaos_fired"]) == 3 and r["respawns"] >= 2,
+          f"chaos fired {r['chaos_fired']}, respawns {r['respawns']}")
+    check(r["goodput_trace"][-1] == 1.0, f"goodput {r['goodput_trace']}")
+    return r
+
+
+def phase_rl():
+    """bench_rl on the card: Anakin at its full configuration (twice,
+    equal digests, the timed loop under set_sync_debug_mode("error")) and
+    at 4096 envs; PPO, IMPALA and APPO learning CartPole; Sebulba's chaos
+    run with GPU-worker gangs, its digest == the in-process replay's."""
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.rl.podracer import (AnakinConfig, SebulbaConfig,
+                                           replay_sebulba, run_anakin)
+
+    smi = _smi_line()
+    t_phase = time.perf_counter()
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on: the RL digests need full f32")
+    rec = {"card": smi}
+    # the main path: Anakin at bench_rl's configuration, its timed loop
+    # under the sync debug mode "error" (a host sync raises); no kernel
+    # of the port is on it
+    cfg = AnakinConfig(**RL_ANAKIN, sync_debug_mode="error")
+    _kernels.reset_launch_counts()
+    a1 = run_anakin(cfg)
+    rec["launches"] = _kernels.launch_counts()
+    check(not any(rec["launches"].values()),
+          f"Anakin launched kernels of the port: {rec['launches']}")
+    check(a1["sync_debug_mode"] == "error" and a1["device"].startswith(
+        "cuda"), f"Anakin ran on {a1['device']} under "
+        f"{a1['sync_debug_mode']}")
+    a2 = run_anakin(cfg)
+    check(a1["params_digest"] == a2["params_digest"],
+          f"Anakin's digests differ: {a1['params_digest']} "
+          f"{a2['params_digest']}")
+    check(math.isfinite(a1["final_loss"]), f"Anakin loss {a1['final_loss']}")
+    rec["anakin"] = _anakin_row(cfg, a1)
+    rec["anakin"]["second_run"] = _anakin_row(cfg, a2)
+    wide = AnakinConfig(**RL_ANAKIN_WIDE, sync_debug_mode="error")
+    aw = run_anakin(wide)
+    check(math.isfinite(aw["final_loss"]), f"wide Anakin loss "
+          f"{aw['final_loss']}")
+    rec["anakin_wide"] = _anakin_row(wide, aw)
+    log(f"[rl] Anakin {cfg.num_envs} envs x {cfg.rollout_len} steps x "
+        f"{cfg.num_updates} updates, hidden {cfg.hidden}: "
+        f"{a1['env_steps_per_s']:.0f} env steps/s, "
+        f"{a1['updates_per_s']:.1f} updates/s (second run "
+        f"{a2['updates_per_s']:.1f}), first call's excess "
+        f"{a1['compile_s']:.2f} s, final loss {a1['final_loss']:.4f}; "
+        f"digests equal, timed loop under sync debug mode 'error'; "
+        f"{wide.num_envs} envs, hidden {wide.hidden}: "
+        f"{aw['env_steps_per_s']:.0f} env steps/s, "
+        f"{aw['updates_per_s']:.1f} updates/s ({smi})")
+
+    rec["algorithms"] = {name: _rl_algo(name) for name in RL_ALGOS}
+    for name, r in rec["algorithms"].items():
+        log(f"[rl] {name}: return {r['first_return']:.1f} -> "
+            f"{r['return']:.1f} (> {r['threshold']:.1f}) in {RL_ITERS} "
+            f"train(), {r['ms_per_train']:.1f} ms per train() ({smi})")
+
+    # Sebulba: GPU-worker gangs on this card, the learner in this process
+    before = set(_runtime_procs())
+    rt.init(num_cpus=max(4, os.cpu_count() or 1))
+    try:
+        check(rt.cluster_resources().get("GPU", 0) >= 1,
+              f"the runtime offers no GPU: {rt.cluster_resources()}")
+        t0 = time.perf_counter()
+        s = _sebulba_chaos("chip_smoke_rl")
+        seb_s = time.perf_counter() - t0
+        four = None
+        if torch.cuda.device_count() >= 4:
+            # the learner on card 0, the gangs on cards 1-3
+            four = _sebulba_chaos(
+                "chip_smoke_rl_4", device="cuda:0",
+                gang_devices=("cuda:1", "cuda:2", "cuda:3"))
+    finally:
+        rt.shutdown()
+    _wait_for(lambda: not _card_holders(before), 60,
+              "runtime processes hold the card 60 s after shutdown")
+    t0 = time.perf_counter()
+    replay = replay_sebulba(SebulbaConfig(**RL_SEBULBA))
+    replay_s = time.perf_counter() - t0
+    check(replay["params_digest"] == s["params_digest"],
+          f"Sebulba's chaos run {s['params_digest']} != the in-process "
+          f"replay {replay['params_digest']}: a gang's batches differ "
+          f"from this process's")
+    rec["sebulba"] = _sebulba_row(s)
+    rec["sebulba"].update(
+        replay_digest=replay["params_digest"], replay_s=replay_s,
+        run_s=seb_s, chaos_fired=s["chaos_fired"],
+        death_records=s["deaths"],
+        resume_widths=s["resume_widths"],
+        remediation=s["remediation"], gang_devices=s["gang_devices"])
+    if four is not None:
+        check(four["params_digest"] == replay["params_digest"],
+              f"four cards: Sebulba {four['params_digest']} != the replay "
+              f"{replay['params_digest']}")
+        rec["sebulba_four_cards"] = dict(_sebulba_row(four),
+                                         gang_devices=four["gang_devices"])
+    else:
+        rec["sebulba_four_cards"] = (f"not run: "
+                                     f"{torch.cuda.device_count()} card(s)")
+    log(f"[rl] Sebulba {RL_SEBULBA['num_gangs']} GPU-worker gangs x "
+        f"{RL_SEBULBA['num_envs']} envs x {RL_SEBULBA['rollout_len']} "
+        f"steps, {RL_SEBULBA['num_updates']} updates under chaos "
+        f"{s['chaos_fired']}: {s['learner_samples_per_s']:.1f} learner "
+        f"samples/s, {s['env_steps_per_s']:.1f} env steps/s, availability "
+        f"{s['availability']}, staleness p99 {s['staleness']['p99']} of "
+        f"{s['staleness']['bound']}, {len(s['deaths'])} deaths, "
+        f"{s['respawns']} respawns, {s['elapsed_s']:.1f} s; digest == the "
+        f"in-process replay's ({replay_s:.1f} s); four cards: "
+        f"{'same digest' if four else rec['sebulba_four_cards']} ({smi})")
+    rec["seconds"] = time.perf_counter() - t_phase
+    return rec
+
+
 def _kernel_entry(k, case, launches_by_path, **extra):
     # the main path: a step through the trainer on Data-fed batches (K1-K6;
     # K7 runs there only with the fused hop forced, and its entry says so)
@@ -8193,7 +8457,7 @@ PHASES = ("kernels", "forward", "serve", "serve-bench", "parity", "train",
           "kernels-quantize", "kernels-fused", "dp-train", "runtime",
           "serve-app", "train-app", "data-train", "dag", "cli-jobs",
           "autoscale", "observe", "mesh", "pipeline", "moe", "resnet",
-          "hf")
+          "hf", "rl")
 
 
 def _timed(seconds, name, fn, *args):
@@ -8315,7 +8579,7 @@ def main(argv=None):
         torch.cuda.empty_cache()
         report["pipeline"] = _timed(seconds, "pipeline", phase_pipeline)
     for name, fn in (("moe", phase_moe), ("resnet", phase_resnet),
-                     ("hf", phase_hf)):
+                     ("hf", phase_hf), ("rl", phase_rl)):
         if name in phases:
             torch.cuda.empty_cache()
             report[name] = _timed(seconds, name, fn)
@@ -8413,7 +8677,9 @@ def main(argv=None):
                 "resnet_step": 0,
                 # the GPT-2 checkpoint converted from HF's layout
                 "hf_forward": (report["hf"]["flash_launches"]
-                               if name == "flash_fwd" else 0)}
+                               if name == "flash_fwd" else 0),
+                # Anakin's run (RL reaches no kernel of the port)
+                "rl_anakin": report["rl"]["launches"][name]}
 
     k1 = report["kernels"][0]
     bwd = report["kernels_bwd"][0]

@@ -37,6 +37,9 @@ steps in order:
                      over NCCL at {pp 2, dp 2} and {pp 4} against one
                      card's unsharded steps, and 4 stage actors, one per
                      card (needs four cards).
+  anakin-profile     ``anakin_profile_study``: Anakin at bench_rl's
+                     configuration under torch.profiler: kernels and the
+                     card's busy ms per update against the wall.
 
 For example ``python3 chip_studies.py profiler-records serve-bench
 profiler-records``.  Results go to chip_smoke_out/chip_studies.json.
@@ -55,10 +58,10 @@ import os
 import sys
 import time
 
-from chip_smoke import (COLD_REPS, HBM_BYTES_PER_S, L2_FLUSH_BYTES, ROOT,
-                        SEED, _clocks, _cold_call, _cold_cases,
-                        _int8_dp_rank, check, log, phase_build, phase_device,
-                        phase_serve_bench)
+from chip_smoke import (COLD_REPS, HBM_BYTES_PER_S, L2_FLUSH_BYTES,
+                        RL_ANAKIN, ROOT, SEED, _clocks, _cold_call,
+                        _cold_cases, _int8_dp_rank, check, log, phase_build,
+                        phase_device, phase_serve_bench)
 
 
 # the cases where the order of phases moved a cold reading (K6, K5: four
@@ -613,6 +616,40 @@ def pipeline_four_cards_study():
     return out
 
 
+def anakin_profile_study():
+    """One Anakin run at bench_rl's configuration and 4 updates under
+    torch.profiler, after an unprofiled one (the card's lazy setup): the
+    kernels and copies the card ran per update, and its busy ms per update
+    against the host's wall ms per update (chip_smoke's rl phase reads
+    updates/s at 64 and 4096 envs; this says where an update's time
+    goes)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.rl.podracer import AnakinConfig, run_anakin
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = AnakinConfig(**dict(RL_ANAKIN, num_updates=4))
+    run_anakin(cfg)                     # the card's lazy setup
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        r = run_anakin(cfg)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    updates = 2 * cfg.num_updates       # run_anakin calls its loop twice
+    out = {"num_updates": updates, "kernels": len(kernels),
+           "kernels_per_update": len(kernels) / updates,
+           "device_busy_ms_per_update": busy_us / 1e3 / updates,
+           "wall_ms_per_update": r["run_s"] * 1e3 / cfg.num_updates}
+    log(f"[anakin-profile] {cfg.num_envs} envs, hidden {cfg.hidden}: "
+        f"{out['kernels_per_update']:.2f} kernels and copies per update, "
+        f"the card busy {out['device_busy_ms_per_update']:.3f} ms of "
+        f"{out['wall_ms_per_update']:.3f} ms per update (profiled)")
+    return out
+
+
 def pipeline_replay(paths):
     """Saved pipeline records replayed on the host (no card)."""
     from ray_tpu_torch.parallel.mpmd import mean_op_events, replay_bubble
@@ -636,7 +673,8 @@ STEPS = {"cold-l2": cold_l2_study,
          "train-app-host": train_app_host_study,
          "data-host": data_host_study,
          "pipeline-noise": pipeline_noise_study,
-         "pipeline-four-cards": pipeline_four_cards_study}
+         "pipeline-four-cards": pipeline_four_cards_study,
+         "anakin-profile": anakin_profile_study}
 
 
 def main(argv):

@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: importing it loads neither JAX nor any
 module of the JAX package (its models, MoE, ResNet and the GPT-2
 checkpoint converter among them, which loads no ``transformers``
-either), its runtime modules load no torch either (nor
+either, and its RL library), its runtime modules load no torch either (nor
 do its compiled DAGs, its CLI, jobs, state API and client mode, even
 while a DAG channel carries values that are not tensors), its
 entry points refuse to fall back to the CPU silently (an NCCL collective
@@ -46,6 +46,22 @@ import ray_tpu_torch.collective.nccl_group
 import ray_tpu_torch.collective.peer_memory
 import ray_tpu_torch.parallel as parallel
 import ray_tpu_torch.parallel.sharding
+import ray_tpu_torch.rl as rl
+import ray_tpu_torch.rl.algorithms.algorithm
+import ray_tpu_torch.rl.algorithms.appo
+import ray_tpu_torch.rl.algorithms.impala
+import ray_tpu_torch.rl.algorithms.multi_agent_ppo
+import ray_tpu_torch.rl.algorithms.ppo
+import ray_tpu_torch.rl.connectors.connector
+import ray_tpu_torch.rl.connectors.env_to_module
+import ray_tpu_torch.rl.connectors.module_to_env
+import ray_tpu_torch.rl.core.learner
+import ray_tpu_torch.rl.core.multi_rl_module
+import ray_tpu_torch.rl.core.rl_module
+import ray_tpu_torch.rl.env.env_runner
+import ray_tpu_torch.rl.env.jax_env
+import ray_tpu_torch.rl.env.multi_agent_env
+import ray_tpu_torch.rl.podracer
 import torch
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
@@ -66,6 +82,10 @@ for call in (lambda: gpt.apply(params, [[1, 2, 3]], cfg),
                                MoEConfig.mixtral_nano()),
              lambda: resnet.init(ResNetConfig.tiny()),
              lambda: hf.from_hf_gpt2({}, config={}),
+             lambda: rl.run_anakin(rl.AnakinConfig(num_updates=1)),
+             lambda: rl.PPOConfig().environment("CartPole-v1").build(),
+             lambda: rl.make_impala_learner({"obs_dim": 4,
+                                             "num_actions": 2}),
              lambda: collective.init_collective_group(1, 0, backend="nccl")):
     try:
         call()
@@ -471,3 +491,31 @@ def test_telemetry_metrics_remediation_dashboard_load_no_torch_and_no_jax():
         have = {p.stem for p in (PORT / pkg).glob("*.py")}
         ref = {p.stem for p in (REPO / "ray_tpu" / pkg).glob("*.py")}
         assert have == set(mods) == ref, (pkg, have, ref)
+
+
+RL_MODULES = {
+    "rl": ("__init__", "podracer"),
+    "rl/core": ("__init__", "learner", "multi_rl_module", "rl_module"),
+    "rl/env": ("__init__", "env_runner", "jax_env", "multi_agent_env"),
+    "rl/connectors": ("__init__", "connector", "env_to_module",
+                      "module_to_env"),
+    "rl/algorithms": ("__init__", "algorithm", "appo", "impala",
+                      "multi_agent_ppo", "ppo"),
+}
+
+
+def test_rl_holds_the_reference_modules_of_a8a():
+    """``ray_tpu_torch/rl`` holds ROADMAP A.8a's modules, each of them a
+    module of the reference's ``rl/`` (A.8b's are absent, not stubbed),
+    and none imports anything of the reference or JAX."""
+    ref = re.compile(r"(^\s*(import|from)\s+(jax|ray_tpu)\b)"
+                     r"|import_module\(\s*['\"](jax|ray_tpu)\b", re.M)
+    for pkg, mods in RL_MODULES.items():
+        have = {p.stem for p in (PORT / pkg).glob("*.py")}
+        assert have == set(mods), (pkg, have)
+        theirs = {p.stem for p in (REPO / "ray_tpu" / pkg).glob("*.py")}
+        assert have <= theirs, (pkg, have - theirs)
+        for f in (PORT / pkg).glob("*.py"):
+            assert not ref.search(f.read_text()), f
+    assert not (PORT / "rl" / "utils").exists()
+    assert not (PORT / "rl" / "offline").exists()

@@ -35,7 +35,11 @@ attention half and matches its plain-attention self in f32 (loss 1e-5,
 each gradient 1e-4 of its largest entry) and the CPU's forward, routing
 included, within 1e-4; tied router scores take the lower expert first
 there too; ResNet-tiny's f32 loss, batch-norm state and gradients on the
-card match the CPU port's (1e-5, 1e-4 of the largest entry).
+card match the CPU port's (1e-5, 1e-4 of the largest entry).  RL on the
+card runs no kernel of the port but must be deterministic there: Anakin
+twice gives the same params digest (its timed loop under the sync debug
+mode "error": no host sync), two ``fixed_shape_batch`` calls give the
+same bits, and PPO learns CartPole past its test's threshold.
 """
 
 import concurrent.futures
@@ -1179,3 +1183,62 @@ def _leaves_of(tree):
     for v in tree.values():
         out += _leaves_of(v) if isinstance(v, dict) else [v]
     return out
+
+
+# ---------------------------------------------------------------------------
+# RL on the card: determinism and a learning run
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_anakin_digest_twice_on_the_card(gpu):
+    from ray_tpu_torch.rl.podracer import AnakinConfig, run_anakin
+
+    cfg = AnakinConfig(num_envs=16, rollout_len=8, num_updates=6,
+                       hidden=(16,), seed=3, sync_debug_mode="error")
+    r1 = run_anakin(cfg)
+    r2 = run_anakin(cfg)
+    assert r1["device"].startswith("cuda")
+    assert r1["sync_debug_mode"] == "error"
+    assert r1["params_digest"] == r2["params_digest"]
+    assert r1["metrics"]["loss"].shape == (6,)
+
+
+@pytest.mark.cuda
+def test_fixed_shape_batch_bitwise_on_the_card(gpu):
+    import numpy as np
+
+    from ray_tpu_torch.rl.core.rl_module import DiscretePolicyModule, fold_in
+    from ray_tpu_torch.rl.env import jax_env
+    from ray_tpu_torch.rl.env.env_runner import fixed_shape_batch
+
+    env = jax_env.make_env("CartPole-v1")
+    module = DiscretePolicyModule(4, 2, (16,), device=gpu)
+    params = module.init(5)
+    key = fold_in(777, 1 * 1_000_003 + 2)
+    a = fixed_shape_batch(env, module, params, key, 8, 8)
+    b = fixed_shape_batch(env, module, params, key, 8, 8)
+    assert set(a) == {"obs", "action", "reward", "done", "logp", "final_vf"}
+    for k in a:
+        assert a[k].tobytes() == b[k].tobytes(), k
+    c = fixed_shape_batch(env, module, params, key + 1, 8, 8)
+    assert not np.array_equal(a["obs"], c["obs"])
+
+
+@pytest.mark.cuda
+def test_ppo_learns_cartpole_on_the_card(gpu):
+    from ray_tpu_torch.rl import PPOConfig
+
+    algo = (PPOConfig().environment("CartPole-v1")
+            .env_runners(0, num_envs_per_runner=16)
+            .training(rollout_len=128, num_epochs=4, minibatch_size=512,
+                      entropy_coeff=0.01)).build()
+    try:
+        assert algo.learner_group.learner.device.type == "cuda"
+        first = algo.train()
+        for _ in range(11):
+            last = algo.train()
+        assert last["episode_return_mean"] > max(
+            40.0, first.get("episode_return_mean", 0.0))
+    finally:
+        algo.stop()

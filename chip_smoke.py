@@ -354,7 +354,12 @@ Phases, each of which must pass (any failure exits non-zero):
                 anakin-profile counts the kernels and the card's busy ms
                 per update).  PPO, IMPALA and APPO learning CartPole at
                 their tests' configurations, 12 train() each, past their
-                tests' return thresholds, ms per train().  Sebulba at
+                tests' return thresholds, ms per train().  DQN, SAC on
+                CartPole, CQL from parquet rollouts recorded on the card
+                into a temporary directory, MARWIL from PPO's rollouts, BC
+                and DreamerV3 at their tests' configurations, past their
+                thresholds, every learner on the card, no kernel launched
+                (SAC on Pendulum: chip_studies.py sac-pendulum).  Sebulba at
                 bench_rl's full configuration (3 gangs, 24 updates, 8
                 envs, rollout 8, hidden (16,), window 1) under its
                 sustained chaos (a kill, a straggler, a preemption), the
@@ -8223,6 +8228,17 @@ RL_ALGOS = {
                                 lr=5e-3, target_update_freq=2), 25.0, 0.7),
 }
 RL_ITERS = 12
+# A.8b at its tests' configurations (tests/test_rl.py:120,
+# test_rl_algorithms.py:89-175, test_rl_algorithms2.py:49-115,
+# test_rl_offline.py:48): each run's learner on the card, past its test's
+# threshold, with no launch of K1-K7.  SAC's Pendulum run (44 s on the
+# card) is chip_studies.py's sac-pendulum step
+RL_DQN = dict(rollout_len=32, learn_starts=256, updates_per_iter=8,
+              epsilon_decay_iters=5)
+RL_SAC = dict(rollout_len=32, learn_starts=128, updates_per_iter=8,
+              train_batch_size=64)
+RL_DREAMER = dict(rollout_len=32, horizon=5, deter=32, classes=8,
+                  hidden=(32, 32))
 
 
 def _anakin_row(cfg, r):
@@ -8277,6 +8293,140 @@ def _rl_algo(name):
         algo.stop()
 
 
+def _a8b_run(name, fn):
+    """One A.8b run on the card: ``fn() -> (algo, record)`` builds and
+    trains; the learner must be on the card and no kernel of the port may
+    launch."""
+    from ray_tpu_torch.ops import _kernels
+
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    algo, out = fn()
+    try:
+        dev = algo.learner_group.learner.device
+        check(dev.type == "cuda", f"{name}'s learner is on {dev}")
+    finally:
+        algo.stop()
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = _kernels.launch_counts()
+    check(not any(out["launches"].values()),
+          f"{name} launched kernels of the port: {out['launches']}")
+    return out
+
+
+def _expert_rollouts(ppo_iters, samples, num_envs, rollout_len):
+    """PPO's rollouts on the card after ``ppo_iters`` train() calls (the
+    'logged' data of the offline tests), as numpy [T, B] batches."""
+    import numpy as np
+
+    from ray_tpu_torch import rl
+
+    ppo = (rl.PPOConfig().environment("CartPole-v1")
+           .env_runners(0, num_envs_per_runner=num_envs)
+           .training(rollout_len=rollout_len, num_epochs=4,
+                     minibatch_size=512, entropy_coeff=0.01)).build()
+    try:
+        for _ in range(ppo_iters):
+            ppo.train()
+        out = []
+        for _ in range(samples):
+            for r in ppo.runners.sample(rollout_len):
+                out.append({k: np.asarray(v) for k, v in r["batch"].items()})
+        return out
+    finally:
+        ppo.stop()
+
+
+def _rl_a8b():
+    """DQN, SAC on CartPole, CQL from parquet rollouts
+    recorded on the card, MARWIL from PPO's expert rollouts, BC and
+    DreamerV3, each at its test's configuration and threshold."""
+    import tempfile
+
+    import numpy as np
+
+    from ray_tpu_torch import rl
+
+    def cartpole(cls, envs, **kw):
+        return (getattr(rl, cls)().environment("CartPole-v1")
+                .env_runners(0, num_envs_per_runner=envs).training(**kw))
+
+    def dqn():
+        algo = cartpole("DQNConfig", 8, **RL_DQN).build()
+        for _ in range(6):
+            r = algo.train()
+        check(r["buffer_size"] > 256 and np.isfinite(r["loss"])
+              and abs(r["epsilon"] - 0.05) < 1e-9
+              and {"q", "target_q"} <= set(algo.learner_group.get_weights()),
+              f"dqn: {r}")
+        return algo, {"loss": r["loss"], "epsilon": r["epsilon"],
+                      "buffer_size": r["buffer_size"]}
+
+    def sac():
+        algo = cartpole("SACConfig", 8, **RL_SAC).build()
+        for _ in range(6):
+            r = algo.train()
+        check(np.isfinite(r["loss"]) and r["alpha"] > 0, f"sac: {r}")
+        return algo, {"loss": r["loss"], "alpha": r["alpha"]}
+
+    def cql():
+        data = _expert_rollouts(0, 2, 8, 64)
+        with tempfile.TemporaryDirectory(prefix="rl_offline_") as tmp:
+            path = os.path.join(tmp, "rollouts")
+            files = rl.record_rollouts(data, path, gamma=0.99)
+            check(files and all(f.endswith(".parquet") for f in files),
+                  f"record_rollouts wrote {files}")
+            # the build reads the files through the port's Data
+            algo = (cartpole("CQLConfig", 2, cql_alpha=1.0, num_epochs=1,
+                             minibatch_size=128).offline(path)).build()
+        bellman = []
+        for _ in range(6):
+            r = algo.train()
+            bellman.append(float(r["bellman_loss"]))
+        check(min(bellman[2:]) < bellman[0] and r["cql_loss"] >= 0.0
+              and np.isfinite(r["loss"]), f"cql: bellman {bellman}, {r}")
+        return algo, {"files": len(files), "bellman_loss": bellman,
+                      "cql_loss": r["cql_loss"]}
+
+    def marwil():
+        data = _expert_rollouts(8, 3, 16, 128)
+        algo = (cartpole("MARWILConfig", 4, num_epochs=3,
+                         minibatch_size=512, lr=2e-3).offline(data)).build()
+        for _ in range(3):
+            m = algo.train()
+        algo.runners.sync_weights(algo.learner_group.get_weights())
+        stats = algo._merge_runner_results(algo.runners.sample(200))[1]
+        ret = stats["episode_return_mean"]
+        check(np.isfinite(m["loss"]) and ret > 25.0,
+              f"marwil: cloned return {ret} (needs > 25)")
+        return algo, {"return": ret, "threshold": 25.0, "loss": m["loss"]}
+
+    def bc():
+        algo = cartpole("BCConfig", 4).build()
+        m = algo.train()
+        check(np.isfinite(m["loss"]) and abs(m["mean_weight"] - 1.0) < 1e-6,
+              f"bc: {m}")
+        return algo, {"loss": m["loss"], "mean_weight": m["mean_weight"]}
+
+    def dreamer():
+        algo = cartpole("DreamerV3Config", 4, **RL_DREAMER).build()
+        for _ in range(3):
+            r = algo.train()
+        keys = ("wm_loss", "recon_loss", "kl", "actor_loss", "critic_loss",
+                "dream_return")
+        check(all(np.isfinite(r[k]) for k in keys), f"dreamer: {r}")
+        for _ in range(5):
+            r2 = algo.train()
+        check(r2["recon_loss"] < r["recon_loss"] * 1.5,
+              f"dreamer: recon {r['recon_loss']} -> {r2['recon_loss']}")
+        return algo, {"recon_loss": [r["recon_loss"], r2["recon_loss"]],
+                      "threshold": r["recon_loss"] * 1.5, "kl": r2["kl"]}
+
+    runs = {"dqn": dqn, "sac": sac, "cql": cql, "marwil": marwil,
+            "bc": bc, "dreamerv3": dreamer}
+    return {name: _a8b_run(name, fn) for name, fn in runs.items()}
+
+
 def _sebulba_row(r):
     """bench_rl's Sebulba row (bench.py:2508-2524), unrounded."""
     cfg = RL_SEBULBA
@@ -8327,8 +8477,10 @@ def _sebulba_chaos(trial, **extra):
 def phase_rl():
     """bench_rl on the card: Anakin at its full configuration (twice,
     equal digests, the timed loop under set_sync_debug_mode("error")) and
-    at 4096 envs; PPO, IMPALA and APPO learning CartPole; Sebulba's chaos
-    run with GPU-worker gangs, its digest == the in-process replay's."""
+    at 4096 envs; PPO, IMPALA and APPO learning CartPole; DQN, SAC, CQL,
+    MARWIL, BC and DreamerV3 at their tests' configurations; Sebulba's
+    chaos run with GPU-worker gangs, its digest == the in-process
+    replay's."""
     import torch
 
     import ray_tpu_torch as rt
@@ -8382,12 +8534,21 @@ def phase_rl():
             f"{r['return']:.1f} (> {r['threshold']:.1f}) in {RL_ITERS} "
             f"train(), {r['ms_per_train']:.1f} ms per train() ({smi})")
 
-    # Sebulba: GPU-worker gangs on this card, the learner in this process
+    # Sebulba: GPU-worker gangs on this card, the learner in this process;
+    # first, in the same cluster, A.8b's algorithms (the offline ones read
+    # parquet through the port's Data)
     before = set(_runtime_procs())
     rt.init(num_cpus=max(4, os.cpu_count() or 1))
     try:
         check(rt.cluster_resources().get("GPU", 0) >= 1,
               f"the runtime offers no GPU: {rt.cluster_resources()}")
+        t0 = time.perf_counter()
+        rec["a8b"] = _rl_a8b()
+        rec["a8b_seconds"] = time.perf_counter() - t0
+        for name, r in rec["a8b"].items():
+            log(f"[rl] {name}: " + ", ".join(
+                f"{k} {v}" for k, v in r.items() if k != "launches")
+                + f", no kernel launched ({smi})")
         t0 = time.perf_counter()
         s = _sebulba_chaos("chip_smoke_rl")
         seb_s = time.perf_counter() - t0
@@ -8414,7 +8575,9 @@ def phase_rl():
         run_s=seb_s, chaos_fired=s["chaos_fired"],
         death_records=s["deaths"],
         resume_widths=s["resume_widths"],
-        remediation=s["remediation"], gang_devices=s["gang_devices"])
+        remediation=s["remediation"], gang_devices=s["gang_devices"],
+        gang_cpu_threads=s["gang_cpu_threads"],
+        chaos_outcomes=s["chaos_outcomes"], rounds=s["rounds"])
     if four is not None:
         check(four["params_digest"] == replay["params_digest"],
               f"four cards: Sebulba {four['params_digest']} != the replay "

@@ -40,6 +40,9 @@ steps in order:
   anakin-profile     ``anakin_profile_study``: Anakin at bench_rl's
                      configuration under torch.profiler: kernels and the
                      card's busy ms per update against the wall.
+  sac-pendulum       ``sac_pendulum_study``: SAC on Pendulum-v1 at its
+                     test's configuration to the test's -300, the learner
+                     on the card, no kernel of the port launched.
 
 For example ``python3 chip_studies.py profiler-records serve-bench
 profiler-records``.  Results go to chip_smoke_out/chip_studies.json.
@@ -59,7 +62,7 @@ import sys
 import time
 
 from chip_smoke import (COLD_REPS, HBM_BYTES_PER_S, L2_FLUSH_BYTES,
-                        RL_ANAKIN, ROOT, SEED, _clocks, _cold_call,
+                        RL_ANAKIN, ROOT, SEED, _a8b_run, _clocks, _cold_call,
                         _cold_cases, _int8_dp_rank, check, log, phase_build,
                         phase_device, phase_serve_bench)
 
@@ -650,6 +653,43 @@ def anakin_profile_study():
     return out
 
 
+# SAC on Pendulum at its test's configuration (tests/test_rl_algorithms.py:
+# 62): 44 s on an H100, past chip_smoke's rl phase's budget, so
+# the phase runs SAC's CartPole smoke test and this step the learning run
+RL_SAC_PENDULUM = dict(rollout_len=64, learn_starts=1000,
+                       updates_per_iter=48, train_batch_size=256, lr=1e-3)
+
+
+def sac_pendulum_study():
+    """Continuous SAC learns Pendulum-v1 on the card: the best episode
+    return reaches the test's -300 within its 220 train() calls."""
+    import numpy as np
+
+    from ray_tpu_torch import rl
+
+    def run():
+        algo = (rl.SACConfig().environment("Pendulum-v1")
+                .env_runners(0, num_envs_per_runner=8)
+                .training(**RL_SAC_PENDULUM)).build()
+        best, iters = -np.inf, 0
+        for iters in range(1, 221):
+            r = algo.train()
+            if "episode_return_mean" in r:
+                best = max(best, r["episode_return_mean"])
+            if best >= -300.0:
+                break
+        check(best >= -300.0, f"sac on Pendulum: best return {best} "
+              f"after {iters} train()")
+        return algo, {"best_return": best, "threshold": -300.0,
+                      "train_calls": iters}
+
+    out = _a8b_run("sac_pendulum", run)
+    log(f"[sac-pendulum] best return {out['best_return']:.1f} (>= -300) "
+        f"in {out['train_calls']} train(), {out['seconds']:.1f} s, no "
+        f"kernel launched")
+    return out
+
+
 def pipeline_replay(paths):
     """Saved pipeline records replayed on the host (no card)."""
     from ray_tpu_torch.parallel.mpmd import mean_op_events, replay_bubble
@@ -674,7 +714,8 @@ STEPS = {"cold-l2": cold_l2_study,
          "data-host": data_host_study,
          "pipeline-noise": pipeline_noise_study,
          "pipeline-four-cards": pipeline_four_cards_study,
-         "anakin-profile": anakin_profile_study}
+         "anakin-profile": anakin_profile_study,
+         "sac-pendulum": sac_pendulum_study}
 
 
 def main(argv):

@@ -132,6 +132,15 @@ def makedirs(path: str) -> None:
         os.makedirs(path, exist_ok=True)
 
 
+def move(src: str, dst: str) -> None:
+    """Rename a file, local or remote (both paths on one filesystem)."""
+    if is_uri(src):
+        fs, sp = fs_for(src)
+        fs.mv(sp, fs_for(dst)[1])
+    else:
+        os.replace(src, dst)
+
+
 def expand_paths(paths, suffixes: Optional[List[str]] = None) -> List[str]:
     """Expand dirs (recursive) and globs into concrete file paths, local
     or remote (reference: file_based_datasource.py path resolution —

@@ -9,18 +9,21 @@ loop of device work with no host round-trip (see env/jax_env.py); the
 Podracer (Anakin, Sebulba) builds on it.  Entry points run on the card
 unless the caller asks for the CPU.
 
-This package holds the on-policy half of the reference's RL library
-(ROADMAP A.8a).  The value-based, offline and model-based algorithms,
-the replay buffer and offline data (DQN, SAC, CQL, MARWIL/BC, DreamerV3,
-``ReplayBuffer``, ``OfflineData``, ``record_rollouts``) are ROADMAP
-A.8b: importing one of them raises ``ImportError``.
+DQN, SAC, CQL, MARWIL/BC and DreamerV3 learn from the replay buffer
+(``utils/replay_buffer.py``) or from logged experience (``offline/``, over
+the port's Data).
 """
 
 from .algorithms.algorithm import Algorithm, AlgorithmConfig
 from .algorithms.appo import APPO, APPOConfig
+from .algorithms.cql import CQL, CQLConfig
+from .algorithms.dqn import DQN, DQNConfig
+from .algorithms.dreamerv3 import DreamerV3, DreamerV3Config
 from .algorithms.impala import (IMPALA, Impala, ImpalaConfig,
                                 make_impala_learner)
+from .algorithms.marwil import BC, BCConfig, MARWIL, MARWILConfig
 from .algorithms.ppo import PPO, PPOConfig
+from .algorithms.sac import SAC, SACConfig
 from .core.learner import Learner, LearnerGroup
 from .core.rl_module import (DiscretePolicyModule, QModule, RLModule,
                              module_for_env)
@@ -34,34 +37,23 @@ from .env.multi_agent_env import (CooperativeMatchEnv, MultiAgentEnv,
 from .env.multi_agent_env import register_env as register_multi_agent_env
 from .podracer import (AnakinConfig, ChaosEvent, ChaosSchedule, Sebulba,
                        SebulbaConfig, run_anakin, run_sebulba)
+from .utils.replay_buffer import ReplayBuffer
 from . import connectors
+from .offline import OfflineData, record_rollouts
 
 __all__ = [
-    "Algorithm", "AlgorithmConfig", "PPO", "PPOConfig",
-    "Impala", "IMPALA", "ImpalaConfig",
-    "APPO", "APPOConfig",
+    "Algorithm", "AlgorithmConfig", "PPO", "PPOConfig", "DQN", "DQNConfig",
+    "Impala", "IMPALA", "ImpalaConfig", "SAC", "SACConfig",
+    "MARWIL", "MARWILConfig", "BC", "BCConfig",
+    "APPO", "APPOConfig", "CQL", "CQLConfig",
+    "DreamerV3", "DreamerV3Config",
     "Learner", "LearnerGroup", "RLModule", "DiscretePolicyModule", "QModule",
     "module_for_env", "EnvRunnerGroup", "JaxEnvRunner", "GymEnvRunner",
-    "JaxEnv", "CartPole", "make_env", "register_env",
+    "JaxEnv", "CartPole", "make_env", "register_env", "ReplayBuffer",
     "MultiAgentEnv", "MultiAgentEnvRunner", "MultiAgentEnvRunnerGroup",
     "MultiAgentPPO", "MultiAgentPPOConfig", "MultiRLModule",
     "CooperativeMatchEnv", "register_multi_agent_env",
-    "connectors",
+    "connectors", "OfflineData", "record_rollouts",
     "AnakinConfig", "ChaosEvent", "ChaosSchedule", "Sebulba",
     "SebulbaConfig", "make_impala_learner", "run_anakin", "run_sebulba",
 ]
-
-#: the reference's exports that are ROADMAP A.8b, not ported yet
-NOT_PORTED = ("DQN", "DQNConfig", "SAC", "SACConfig", "CQL", "CQLConfig",
-              "MARWIL", "MARWILConfig", "BC", "BCConfig", "DreamerV3",
-              "DreamerV3Config", "ReplayBuffer", "OfflineData",
-              "record_rollouts")
-
-
-def __getattr__(name):
-    if name in NOT_PORTED:
-        raise ImportError(
-            f"ray_tpu_torch.rl.{name} is not ported yet: DQN, SAC, CQL, "
-            f"MARWIL/BC, DreamerV3, the replay buffer and offline data are "
-            f"ROADMAP A.8b")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -197,10 +197,15 @@ class Learner:
             metrics["grad_norm"] = global_norm(grads)
         return params, opt_state, metrics
 
-    def update(self, batch: Dict[str, Any]) -> Dict[str, float]:
+    def update(self, batch: Dict[str, Any],
+               rng=None) -> Dict[str, float]:
+        """One update on ``batch``.  ``rng`` replaces the learner's
+        generator for this update: another generator, or a dict of
+        pre-drawn noise tensors by draw name (``rl_module.draw``)."""
         batch = batch_to_device(batch, self.device)
         self.params, self.opt_state, metrics = self._update_fn(
-            self.params, self.opt_state, batch, self.rng)
+            self.params, self.opt_state, batch,
+            self.rng if rng is None else rng)
         self.params = self.extra_update(self.params, metrics)
         return {k: float(v) for k, v in metrics.items()}
 
@@ -224,9 +229,13 @@ class Learner:
 
 
 class _LearnerActor:
-    """A learner in a runtime actor; weights cross as numpy trees."""
+    """A learner in a runtime actor; weights cross as numpy trees.  Its
+    torch computes with the ``num_cpus`` its lease grants."""
 
-    def __init__(self, factory, shard_idx: int):
+    def __init__(self, factory, shard_idx: int, num_cpus: float = 1):
+        from ..env.env_runner import use_cpu_threads
+
+        use_cpu_threads(num_cpus)
         self.learner = factory()
         self.shard_idx = shard_idx
 
@@ -267,10 +276,10 @@ class LearnerGroup:
         else:
             import ray_tpu_torch as rt
 
-            remote_cls = rt.remote(_LearnerActor)
-            if actor_options:
-                remote_cls = remote_cls.options(**actor_options)
-            self.actors = [remote_cls.remote(learner_factory, i)
+            opts = {"num_cpus": 1, **(actor_options or {})}
+            remote_cls = rt.remote(_LearnerActor).options(**opts)
+            self.actors = [remote_cls.remote(learner_factory, i,
+                                             opts["num_cpus"])
                            for i in range(num_learners)]
 
     def update(self, batch: Dict[str, Any]) -> Dict[str, float]:

@@ -212,6 +212,40 @@ def take_action_logp(logp_all: torch.Tensor,
     return (logp_all * onehot).sum(-1)
 
 
+# ---------------------------------------------------------------------------
+# Random draws, with a seam for pre-drawn noise
+# ---------------------------------------------------------------------------
+
+
+def gumbel(rng: torch.Generator, shape, dtype=torch.float32) -> torch.Tensor:
+    """Standard Gumbel noise ``-log(-log(u))`` of ``shape`` from ``rng``,
+    ``u`` uniform and at least the dtype's smallest normal number."""
+    u = torch.rand(shape, generator=rng, device=rng.device, dtype=dtype)
+    tiny = torch.finfo(dtype).tiny
+    return -torch.log(-torch.log(u.clamp_min(tiny)))
+
+
+def categorical(rng, logits: torch.Tensor,
+                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A sample of softmax(logits) over the last axis by Gumbel-max: no
+    host sync.  ``noise`` is the Gumbel draw at ``logits``' shape and
+    replaces the draw from ``rng`` (``jax.random.categorical(key,
+    logits)`` is ``argmax(gumbel(key, logits.shape) + logits)``, so the
+    parity tests feed both packages JAX's draw)."""
+    if noise is None:
+        noise = gumbel(rng, logits.shape, logits.dtype)
+    return torch.argmax(logits + noise, dim=-1)
+
+
+def draw(rng, name: str, make: Callable[[torch.Generator], torch.Tensor]):
+    """The noise of a loss's draw ``name``: ``rng[name]`` when ``rng``
+    maps draw names to pre-drawn noise tensors (the seam the parity
+    tests feed the JAX package's draws through), else ``make(rng)``."""
+    if isinstance(rng, dict):
+        return rng[name]
+    return make(rng)
+
+
 class RLModule:
     """Base: subclasses define init() and the forward fns as pure fns."""
 
@@ -255,11 +289,7 @@ class DiscretePolicyModule(RLModule):
         """Sample a ~ softmax(logits) by Gumbel-max with ``rng``: no host
         sync, and the same generator state gives the same actions."""
         logits = self.logits(params, obs)
-        u = torch.rand(logits.shape, generator=rng, device=logits.device,
-                       dtype=logits.dtype)
-        tiny = torch.finfo(logits.dtype).tiny
-        gumbel = -torch.log(-torch.log(u.clamp_min(tiny)))
-        action = torch.argmax(logits + gumbel, dim=-1)
+        action = categorical(rng, logits)
         logp = torch.log_softmax(logits, dim=-1)
         logp_a = take_action_logp(logp, action)
         return action, {"logp": logp_a, "vf": self.value(params, obs)}

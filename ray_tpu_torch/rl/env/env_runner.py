@@ -74,11 +74,14 @@ class JaxEnvRunner:
     def __init__(self, env_name: str, module_spec: Dict[str, Any],
                  num_envs: int = 8, seed: int = 0,
                  explore_kwargs: Optional[Dict[str, Any]] = None,
-                 env_to_module=None, device=None):
+                 env_to_module=None, device=None,
+                 cpu_threads: Optional[int] = None):
         from ..._device import resolve_device
         from ..core.rl_module import module_for_env
         from . import jax_env
 
+        if cpu_threads is not None:         # a remote runner's grant
+            use_cpu_threads(cpu_threads)
         self.device = resolve_device(device)
         self.env = jax_env.make_env(env_name)
         self.module = module_for_env(self.env.spec,
@@ -211,9 +214,12 @@ class GymEnvRunner:
     def __init__(self, env_name: str, module_spec: Dict[str, Any],
                  num_envs: int = 8, seed: int = 0,
                  explore_kwargs: Optional[Dict[str, Any]] = None,
-                 env_to_module=None, module_to_env=None, device=None):
+                 env_to_module=None, module_to_env=None, device=None,
+                 cpu_threads: Optional[int] = None):
         import gymnasium as gym
 
+        if cpu_threads is not None:         # a remote runner's grant
+            use_cpu_threads(cpu_threads)
         from ..._device import resolve_device
         from ..connectors import default_env_to_module, default_module_to_env
         from ..core.rl_module import make_generator, module_for_env
@@ -326,6 +332,18 @@ def make_runner(kind: str, **kwargs):
     return (JaxEnvRunner if kind == "jax" else GymEnvRunner)(**kwargs)
 
 
+def use_cpu_threads(num_cpus) -> None:
+    """Give this worker's torch as many intra-op threads as the CPUs its
+    lease grants (``num_cpus``, at least one).  torch's default, a thread
+    per core, oversubscribes a host that other workers share: beside six
+    busy test processes on eight cores a gang's rollout of small ops
+    took 0.25-0.6 s of wall time, and 0.48 s of CPU in spinning threads,
+    against 2 ms with one thread (ROADMAP §C)."""
+    import torch
+
+    torch.set_num_threads(max(1, int(num_cpus)))
+
+
 def gpu_share(device, count: int) -> Dict[str, Any]:
     """Actor options for ``count`` actors that share one card when
     ``device`` (a resolved ``torch.device``) is a card, as pipeline's
@@ -374,15 +392,14 @@ class EnvRunnerGroup:
         else:
             RemoteRunner = rt.remote(
                 JaxEnvRunner if runner_kind == "jax" else GymEnvRunner)
-            opts = gpu_share(dev, num_runners)
-            if opts:
-                RemoteRunner = RemoteRunner.options(**opts)
+            opts = {"num_cpus": 1, **gpu_share(dev, num_runners)}
+            RemoteRunner = RemoteRunner.options(**opts)
             self.actors = [
                 RemoteRunner.remote(
                     env_name=env_name, module_spec=module_spec,
                     num_envs=num_envs_per_runner, seed=seed + 1000 * i,
                     explore_kwargs=explore_kwargs, device=dev.type,
-                    **conn_kw)
+                    cpu_threads=opts["num_cpus"], **conn_kw)
                 for i in range(num_runners)
             ]
 

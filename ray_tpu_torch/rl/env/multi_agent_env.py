@@ -135,11 +135,15 @@ class MultiAgentEnvRunner:
     def __init__(self, env_name: str, policies: List[str],
                  policy_mapping_fn: Callable[[str], str],
                  module_spec: Dict[str, Any], num_envs: int = 4,
-                 seed: int = 0, device=None):
+                 seed: int = 0, device=None,
+                 cpu_threads: Optional[int] = None):
         from ..._device import resolve_device
         from ..core.multi_rl_module import MultiRLModule
         from ..core.rl_module import make_generator
+        from .env_runner import use_cpu_threads
 
+        if cpu_threads is not None:         # a remote runner's grant
+            use_cpu_threads(cpu_threads)
         self.device = resolve_device(device)
 
         self.envs = [make_multi_agent_env(env_name)
@@ -295,12 +299,12 @@ class MultiAgentEnvRunnerGroup:
                                               **kwargs)
             self.actors = []
         else:
-            Remote = rt.remote(MultiAgentEnvRunner)
-            opts = gpu_share(dev, num_runners)
-            if opts:
-                Remote = Remote.options(**opts)
+            opts = {"num_cpus": 1, **gpu_share(dev, num_runners)}
+            Remote = rt.remote(MultiAgentEnvRunner).options(**opts)
             self.actors = [Remote.remote(seed=seed + 1000 * i,
-                                         device=dev.type, **kwargs)
+                                         device=dev.type,
+                                         cpu_threads=opts["num_cpus"],
+                                         **kwargs)
                            for i in range(num_runners)]
 
     def env_spec(self):

@@ -329,6 +329,10 @@ class SebulbaConfig:
     gang_devices: Optional[Sequence[str]] = None
 
 
+#: the CPUs a gang's lease holds, and its torch's intra-op threads
+GANG_CPUS = 1
+
+
 class _GangWorker:
     """One actor gang: vectorized env stepping on the gang's host,
     streaming fixed-shape batches.  Async control methods (put_weights /
@@ -343,11 +347,13 @@ class _GangWorker:
 
         from .core.rl_module import DiscretePolicyModule
         from .env import jax_env
+        from .env.env_runner import use_cpu_threads
 
         if spec["device"].startswith("cuda"):
             # f32 matmuls as the driver computes them: the batches must
             # be the bits an in-process replay makes
             torch.backends.cuda.matmul.allow_tf32 = spec["allow_tf32"]
+        use_cpu_threads(spec["num_cpus"])
         self._slot = int(slot)
         self._incarnation = int(incarnation)
         self._start_seq = int(start_seq)
@@ -384,6 +390,11 @@ class _GangWorker:
 
     async def ping(self) -> str:
         return "ok"
+
+    async def cpu_threads(self) -> int:
+        import torch
+
+        return torch.get_num_threads()
 
     async def node_id(self) -> Optional[str]:
         return os.environ.get("RAY_TPU_TORCH_NODE_ID")
@@ -481,6 +492,7 @@ class Sebulba:
             "min_produce_s": cfg.min_produce_s,
             "weights_wait_s": cfg.weights_wait_s,
             "allow_tf32": self._allow_tf32,
+            "num_cpus": GANG_CPUS,
         }
 
     def _gang_device(self, slot: int) -> str:
@@ -499,9 +511,10 @@ class Sebulba:
         started = []
         for slot, incarnation, start_seq in gangs:
             spec = dict(self._spec, device=self._gang_device(slot))
-            remote = self._RemoteGang
+            opts = {"num_cpus": GANG_CPUS}
             if spec["device"].startswith("cuda"):
-                remote = remote.options(num_gpus=self._gang_num_gpus)
+                opts["num_gpus"] = self._gang_num_gpus
+            remote = self._RemoteGang.options(**opts)
             started.append((slot, incarnation,
                             remote.remote(slot, incarnation, start_seq,
                                           spec)))
@@ -520,6 +533,8 @@ class Sebulba:
             self._nodes[slot] = nid
             self._incs[slot] = incarnation
             self._gang_devs[slot] = self._gang_device(slot)
+            self._gang_threads[slot] = rt.get(
+                h.cpu_threads.remote(), timeout=self.cfg.get_timeout_s)
 
     def _respawn(self, slot: int, t: int):
         """Regrow a dead/retired slot at the next unconsumed seq.  The
@@ -623,28 +638,38 @@ class Sebulba:
                                  step=round_idx)
 
     def _fire_chaos(self, ev: ChaosEvent, t: int):
+        """Inject one fault.  Its outcome goes into ``chaos_outcomes``;
+        a fault whose injection failed is not counted as fired."""
         import ray_tpu_torch as rt
 
+        error: Optional[str] = None
         if ev.kind == "kill":
             # hard kill: no drain, no warning — the consumer discovers
             # it when the stream errors
             try:
                 rt.kill(self._handles[ev.slot])
-            except Exception:
-                pass
+            except Exception as e:
+                error = repr(e)
         elif ev.kind == "straggle":
             try:
                 rt.get(
                     self._handles[ev.slot].inject_delay.remote(ev.value),
                     timeout=self.cfg.get_timeout_s)
-            except Exception:
-                pass
+            except Exception as e:
+                error = repr(e)
         elif ev.kind == "preempt":
             self._preempt_victim = ev.slot
             self._src.trigger(reason=f"chaos-preempt-u{t}",
                               grace_s=ev.value or self.cfg.drain_grace_s)
         else:
             raise ValueError(f"unknown chaos kind {ev.kind!r}")
+        self._chaos_outcomes.append({
+            "kind": ev.kind, "at_update": t, "slot": ev.slot,
+            "incarnation": self._incs.get(ev.slot), "ok": error is None,
+            "error": error})
+        if error is not None:
+            logger.warning("chaos %s on slot %d at update %d failed: %s",
+                           ev.kind, ev.slot, t, error)
 
     # -- the consumption loop ----------------------------------------------
 
@@ -752,6 +777,7 @@ class Sebulba:
         self._versions: Dict[int, Any] = {0: _to_numpy(learners.get_weights())}
         self._handles: Dict[int, Any] = {}
         self._gang_devs: Dict[int, str] = {}
+        self._gang_threads: Dict[int, int] = {}
         self._gens: Dict[int, Any] = {}
         self._nodes: Dict[int, Optional[str]] = {}
         self._incs: Dict[int, int] = {s: -1 for s in range(G)}
@@ -767,6 +793,8 @@ class Sebulba:
         self._quarantined_nodes: set = set()
         self.deaths: List[Dict[str, Any]] = []
         self.drains: List[Dict[str, Any]] = []
+        self._chaos_outcomes: List[Dict[str, Any]] = []
+        rounds: List[Dict[str, Any]] = []
         consumed: List[Tuple[int, int, int, int]] = []
         consumed_keys: set = set()
         staleness: List[int] = []
@@ -827,13 +855,14 @@ class Sebulba:
                          "phases": {"compute": produce_last.get(s, 0.0)},
                          "rank": s, "incarnation": self._incs[s]}
                         for s in range(G)])
-                    try:
-                        from ..telemetry import device as _devtel
-
-                        for adv in _devtel.get_ledger().drain_advisories():
-                            self._eng.observe_advisory(adv)
-                    except Exception:
-                        pass
+                    busy = dict(self._agg.last_view()["busy"])
+                    rounds.append({
+                        "round": round_idx, "busy": busy,
+                        "median": float(np.median(list(busy.values()))),
+                        "incarnations": dict(self._incs)})
+                    # no device advisory is this run's: its learner
+                    # update is eager, no program of the ledger, and the
+                    # ledger's advisories are other programs' (ROADMAP §C)
                     decision = self._eng.observe_round(self._agg)
                     if decision is not None:
                         self._enforce(decision, t, round_idx)
@@ -893,14 +922,17 @@ class Sebulba:
             "goodput_trace": self._goodput_trace,
             "notices": {"fired": self._watcher.notices_fired,
                         "suppressed": self._watcher.notices_suppressed},
-            "chaos_fired": [(e.kind, e.at_update, e.slot)
-                            for e in self.chaos.fired],
+            "chaos_fired": [(o["kind"], o["at_update"], o["slot"])
+                            for o in self._chaos_outcomes if o["ok"]],
+            "chaos_outcomes": list(self._chaos_outcomes),
+            "rounds": rounds,
             "quarantined_nodes": sorted(self._quarantined_nodes),
             "drained_nodes": sorted(self._drained_nodes),
             "final_metrics": metrics,
             "elapsed_s": elapsed,
             "device": str(self._device),
             "gang_devices": dict(self._gang_devs),
+            "gang_cpu_threads": dict(self._gang_threads),
             "gang_num_gpus": (self._gang_num_gpus
                               if self._device.type == "cuda" else 0.0),
         }

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: importing it loads neither JAX nor any
 module of the JAX package (its models, MoE, ResNet and the GPT-2
 checkpoint converter among them, which loads no ``transformers``
-either, and its RL library), its runtime modules load no torch either (nor
+either, and its RL library, A.8b's algorithms, replay buffer and offline
+data too), its runtime modules load no torch either (nor
 do its compiled DAGs, its CLI, jobs, state API and client mode, even
 while a DAG channel carries values that are not tensors), its
 entry points refuse to fall back to the CPU silently (an NCCL collective
@@ -49,9 +50,14 @@ import ray_tpu_torch.parallel.sharding
 import ray_tpu_torch.rl as rl
 import ray_tpu_torch.rl.algorithms.algorithm
 import ray_tpu_torch.rl.algorithms.appo
+import ray_tpu_torch.rl.algorithms.cql
+import ray_tpu_torch.rl.algorithms.dqn
+import ray_tpu_torch.rl.algorithms.dreamerv3
 import ray_tpu_torch.rl.algorithms.impala
+import ray_tpu_torch.rl.algorithms.marwil
 import ray_tpu_torch.rl.algorithms.multi_agent_ppo
 import ray_tpu_torch.rl.algorithms.ppo
+import ray_tpu_torch.rl.algorithms.sac
 import ray_tpu_torch.rl.connectors.connector
 import ray_tpu_torch.rl.connectors.env_to_module
 import ray_tpu_torch.rl.connectors.module_to_env
@@ -62,6 +68,12 @@ import ray_tpu_torch.rl.env.env_runner
 import ray_tpu_torch.rl.env.jax_env
 import ray_tpu_torch.rl.env.multi_agent_env
 import ray_tpu_torch.rl.podracer
+import ray_tpu_torch.rl.offline
+import ray_tpu_torch.rl.offline.offline_data
+import ray_tpu_torch.rl.utils.replay_buffer
+from ray_tpu_torch.rl import (DQNConfig, SACConfig, CQLConfig, MARWILConfig,
+                              BCConfig, DreamerV3Config, ReplayBuffer,
+                              OfflineData, record_rollouts)
 import torch
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
@@ -84,6 +96,9 @@ for call in (lambda: gpt.apply(params, [[1, 2, 3]], cfg),
              lambda: hf.from_hf_gpt2({}, config={}),
              lambda: rl.run_anakin(rl.AnakinConfig(num_updates=1)),
              lambda: rl.PPOConfig().environment("CartPole-v1").build(),
+             lambda: rl.DQNConfig().environment("CartPole-v1").build(),
+             lambda: rl.SACConfig().environment("Pendulum-v1").build(),
+             lambda: rl.DreamerV3Config().environment("CartPole-v1").build(),
              lambda: rl.make_impala_learner({"obs_dim": 4,
                                              "num_actions": 2}),
              lambda: collective.init_collective_group(1, 0, backend="nccl")):
@@ -499,15 +514,18 @@ RL_MODULES = {
     "rl/env": ("__init__", "env_runner", "jax_env", "multi_agent_env"),
     "rl/connectors": ("__init__", "connector", "env_to_module",
                       "module_to_env"),
-    "rl/algorithms": ("__init__", "algorithm", "appo", "impala",
-                      "multi_agent_ppo", "ppo"),
+    "rl/algorithms": ("__init__", "algorithm", "appo", "cql", "dqn",
+                      "dreamerv3", "impala", "marwil", "multi_agent_ppo",
+                      "ppo", "sac"),
+    "rl/offline": ("__init__", "offline_data"),
+    "rl/utils": ("__init__", "replay_buffer"),
 }
 
 
 def test_rl_holds_the_reference_modules_of_a8a():
-    """``ray_tpu_torch/rl`` holds ROADMAP A.8a's modules, each of them a
-    module of the reference's ``rl/`` (A.8b's are absent, not stubbed),
-    and none imports anything of the reference or JAX."""
+    """``ray_tpu_torch/rl`` holds ROADMAP A.8a's modules and, since
+    A.8b, the rest of the reference's ``rl/``: every module of it, and
+    none imports anything of the reference or JAX."""
     ref = re.compile(r"(^\s*(import|from)\s+(jax|ray_tpu)\b)"
                      r"|import_module\(\s*['\"](jax|ray_tpu)\b", re.M)
     for pkg, mods in RL_MODULES.items():
@@ -515,7 +533,12 @@ def test_rl_holds_the_reference_modules_of_a8a():
         assert have == set(mods), (pkg, have)
         theirs = {p.stem for p in (REPO / "ray_tpu" / pkg).glob("*.py")}
         assert have <= theirs, (pkg, have - theirs)
+        assert have == theirs, (pkg, theirs - have)
         for f in (PORT / pkg).glob("*.py"):
             assert not ref.search(f.read_text()), f
-    assert not (PORT / "rl" / "utils").exists()
-    assert not (PORT / "rl" / "offline").exists()
+    theirs = {str(p.parent.relative_to(REPO / "ray_tpu"))
+              for p in (REPO / "ray_tpu" / "rl").rglob("*.py")}
+    assert theirs == set(RL_MODULES), theirs ^ set(RL_MODULES)
+    import ray_tpu_torch.rl as rl
+
+    assert not hasattr(rl, "NOT_PORTED")

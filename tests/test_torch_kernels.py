@@ -39,7 +39,9 @@ card match the CPU port's (1e-5, 1e-4 of the largest entry).  RL on the
 card runs no kernel of the port but must be deterministic there: Anakin
 twice gives the same params digest (its timed loop under the sync debug
 mode "error": no host sync), two ``fixed_shape_batch`` calls give the
-same bits, and PPO learns CartPole past its test's threshold.
+same bits, PPO learns CartPole past its test's threshold, DQN's smoke
+run trains there, and two learners of DQN, SAC (both action spaces),
+CQL, MARWIL or DreamerV3 from one seed make bit-identical updates.
 """
 
 import concurrent.futures
@@ -1223,6 +1225,89 @@ def test_fixed_shape_batch_bitwise_on_the_card(gpu):
         assert a[k].tobytes() == b[k].tobytes(), k
     c = fixed_shape_batch(env, module, params, key + 1, 8, 8)
     assert not np.array_equal(a["obs"], c["obs"])
+
+
+def _same_bits(a, b):
+    from ray_tpu_torch.rl.core.rl_module import to_numpy_params, tree_leaves
+
+    return all(x.tobytes() == y.tobytes() for x, y in zip(
+        tree_leaves(to_numpy_params(a)), tree_leaves(to_numpy_params(b))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dqn", "sac", "sac_continuous", "cql",
+                                  "marwil", "dreamer"])
+def test_a8b_updates_are_bitwise_on_the_card(gpu, kind):
+    """Two learners from one seed make bit-identical updates on the card:
+    Q(s, a) and logp(a) are one-hot products (no atomics), and each
+    sampling loss draws from the learner's generator on the card."""
+    import numpy as np
+
+    from ray_tpu_torch.rl.algorithms import (cql, dqn, dreamerv3, marwil,
+                                             sac)
+    from ray_tpu_torch.rl.core import rl_module as rm
+
+    rng = np.random.default_rng(0)
+    n = 64
+    flat = {"obs": rng.normal(size=(n, 4)).astype(np.float32),
+            "next_obs": rng.normal(size=(n, 4)).astype(np.float32),
+            "action": rng.integers(0, 2, n),
+            "reward": rng.normal(size=n).astype(np.float32),
+            "done": rng.random(n) < 0.2,
+            "return": rng.normal(size=n).astype(np.float32)}
+
+    def make():
+        if kind == "dqn":
+            return dqn.DQNLearner(rm.QModule(4, 2, (32,), device=gpu),
+                                  target_update_freq=2, seed=1)
+        if kind == "cql":
+            return cql.CQLLearner(rm.QModule(4, 2, (32,), device=gpu),
+                                  seed=1)
+        if kind == "sac":
+            return sac.SACLearner(sac.SACModule(4, 2, (32,), device=gpu),
+                                  seed=1)
+        if kind == "sac_continuous":
+            return sac.SACContinuousLearner(sac.SACContinuousModule(
+                4, 2, (32,), low=-2.0, high=2.0, device=gpu), seed=1)
+        if kind == "marwil":
+            return marwil.MarwilLearner(rm.DiscretePolicyModule(
+                4, 2, (32,), device=gpu), seed=1)
+        return dreamerv3.DreamerLearner(dreamerv3.DreamerModule(
+            4, 2, (16, 16), deter=8, classes=4, device=gpu), horizon=3,
+            seed=1)
+
+    batch = flat
+    if kind == "sac_continuous":
+        batch = dict(flat, action=rng.uniform(-2, 2, (n, 2)).astype(
+            np.float32))
+    elif kind == "dreamer":
+        batch = {"obs": rng.normal(size=(4, 6, 4)).astype(np.float32),
+                 "action": rng.integers(0, 2, (4, 6)),
+                 "reward": rng.normal(size=(4, 6)).astype(np.float32),
+                 "done": rng.random((4, 6)) < 0.2}
+    a, b = make(), make()
+    assert a.device.type == "cuda"
+    for _ in range(3):
+        ma, mb = a.update(batch), b.update(batch)
+        assert ma == mb and all(np.isfinite(v) for v in ma.values())
+    assert _same_bits(a.params, b.params)
+
+
+@pytest.mark.cuda
+def test_dqn_smoke_on_the_card(gpu):
+    from ray_tpu_torch.rl import DQNConfig
+
+    algo = (DQNConfig().environment("CartPole-v1")
+            .env_runners(0, num_envs_per_runner=8)
+            .training(rollout_len=32, learn_starts=256, updates_per_iter=8,
+                      epsilon_decay_iters=5)).build()
+    try:
+        assert algo.learner_group.learner.device.type == "cuda"
+        for _ in range(6):
+            r = algo.train()
+        assert r["buffer_size"] > 256 and r["epsilon"] == pytest.approx(0.05)
+    finally:
+        algo.stop()
 
 
 @pytest.mark.cuda

@@ -103,6 +103,63 @@ def test_sebulba_batches_equal_an_in_process_replay(ray_cluster):
     assert replay["final_metrics"] == r["final_metrics"]
 
 
+@pytest.fixture(scope="module")
+def seb_probe_run(ray_cluster):
+    """A two-gang run whose chaos schedule names a slot the run does not
+    have, started with another program's storm advisory in the process's
+    ledger (an earlier test file in the same worker can leave one)."""
+    from ray_tpu_torch.telemetry import device as devtel
+
+    foreign = {"event": "device_advisory", "kind": "recompile_storm",
+               "program": "some.other.program", "ts": 0.0}
+    devtel.get_ledger().push_advisory(foreign, publish=False)
+    chaos = ChaosSchedule([ChaosEvent(at_update=1, kind="straggle", slot=7,
+                                      value=1.0)])
+    cfg = SebulbaConfig(num_gangs=2, num_envs=4, rollout_len=8,
+                        num_updates=4, hidden=(16,), seed=5,
+                        trial="seb_probe", device="cpu")
+    yield run_sebulba(cfg, chaos)
+    devtel.reset_for_tests()
+
+
+def test_sebulba_cpu_gangs_use_the_cpus_their_lease_grants(seb_probe_run):
+    """A gang on the CPU holds one CPU and computes with one torch
+    thread.  torch's default, a thread per core, made a gang's 2 ms
+    rollout take 0.25-0.6 s beside six busy test workers: the healthy
+    gangs' median rose past 1.4 s / 3 and hid the chaos run's straggler
+    (test_sebulba_chaos_e2e, ROADMAP §C, Repaired)."""
+    r = seb_probe_run
+    assert r["gang_cpu_threads"] == {0: 1, 1: 1}
+    # each round's view of the gangs' busy seconds, with its median, is
+    # in the result
+    assert [v["round"] for v in r["rounds"]] == [0, 1]
+    for v in r["rounds"]:
+        assert set(v["busy"]) == {0, 1}
+        assert v["median"] == pytest.approx(np.median(list(
+            v["busy"].values())))
+
+
+def test_sebulba_records_a_failed_injection_and_does_not_count_it(
+        seb_probe_run):
+    r = seb_probe_run
+    assert r["chaos_fired"] == []
+    (out,) = r["chaos_outcomes"]
+    assert out["kind"] == "straggle" and out["slot"] == 7
+    assert out["ok"] is False and "KeyError" in out["error"]
+    _check_exactly_once(r, 4, 2)
+
+
+def test_sebulba_takes_no_other_programs_advisories(seb_probe_run):
+    """Another program's storm advisory in the process's ledger is not a
+    cause of this run (its learner update is eager, no program of the
+    ledger): no record, and the advisory stays for its own readers."""
+    from ray_tpu_torch.telemetry import device as devtel
+
+    assert seb_probe_run["remediation_records"] == []
+    assert any(a.get("program") == "some.other.program"
+               for a in devtel.get_ledger().drain_advisories())
+
+
 def test_sebulba_chaos_e2e(ray_cluster):
     """The acceptance scenario: one hard kill, one sustained straggler,
     one preemption drain — all while the learner keeps consuming.

@@ -9,7 +9,8 @@ import numpy as np
 import pytest
 import torch
 
-from ray_tpu_torch.rl import APPOConfig, ImpalaConfig
+from ray_tpu_torch.rl import (APPOConfig, BCConfig, ImpalaConfig,
+                              MARWILConfig, PPOConfig, SACConfig)
 
 torch.set_num_threads(1)
 
@@ -113,11 +114,106 @@ def test_appo_target_is_frozen_between_copies():
                        learner.params["pi"][0]["w"])
 
 
-@pytest.mark.parametrize("name", ["SACConfig", "BCConfig", "MARWILConfig",
-                                  "CQLConfig", "DreamerV3Config",
-                                  "OfflineData", "record_rollouts"])
-def test_a8b_algorithms_raise_import_error(name):
-    import ray_tpu_torch.rl as rl
+def test_sac_continuous_learns_pendulum():
+    """Continuous-action SAC (SquashedGaussian + reparameterized twin-Q,
+    reference: rllib/algorithms/sac/sac.py:320-322) demonstrably LEARNS
+    its canonical domain: Pendulum swing-up from ~-1350 (random) to
+    >= -300 mean episode return (the conventional solved band is
+    >= -200; -300 keeps the test fast and flake-proof)."""
+    cfg = (SACConfig().environment("Pendulum-v1")
+           .env_runners(0, num_envs_per_runner=8)
+           .training(rollout_len=64, learn_starts=1000,
+                     updates_per_iter=48, train_batch_size=256, lr=1e-3)
+           .resources(device="cpu"))
+    algo = cfg.build()
+    try:
+        best = -np.inf
+        for _ in range(220):
+            r = algo.train()
+            if "episode_return_mean" in r:
+                best = max(best, r["episode_return_mean"])
+            if best >= -300.0:
+                break
+        assert best >= -300.0, best
+        w = algo.learner_group.get_weights()
+        assert {"pi", "q1", "q2", "target_q1", "target_q2",
+                "log_alpha"} <= set(w)
+    finally:
+        algo.stop()
 
-    with pytest.raises(ImportError, match="ROADMAP A.8b"):
-        getattr(rl, name)
+
+def test_sac_smoke_local():
+    cfg = (SACConfig().environment("CartPole-v1")
+           .env_runners(0, num_envs_per_runner=8)
+           .training(rollout_len=32, learn_starts=128, updates_per_iter=8,
+                     train_batch_size=64)
+           .resources(device="cpu"))
+    algo = cfg.build()
+    try:
+        r = None
+        for _ in range(6):
+            r = algo.train()
+        assert np.isfinite(r["loss"])
+        assert r["alpha"] > 0
+        w = algo.learner_group.get_weights()
+        assert {"pi", "q1", "q2", "target_q1", "target_q2",
+                "log_alpha"} <= set(w)
+    finally:
+        algo.stop()
+
+
+def test_marwil_offline_learns_from_expert():
+    """Train PPO briefly to get decent rollouts, then MARWIL-clone them
+    offline and check the cloned policy beats random."""
+    ppo = (PPOConfig().environment("CartPole-v1")
+           .env_runners(0, num_envs_per_runner=16)
+           .training(rollout_len=128, num_epochs=4, minibatch_size=512,
+                     entropy_coeff=0.01)
+           .resources(device="cpu")).build()
+    try:
+        for _ in range(8):
+            ppo.train()
+        expert_batches = []
+        for _ in range(3):
+            results = ppo.runners.sample(128)
+            if not isinstance(results, list):
+                results = [results]
+            for r in results:
+                expert_batches.append(r["batch"])
+    finally:
+        ppo.stop()
+
+    cfg = (MARWILConfig().environment("CartPole-v1")
+           .env_runners(0, num_envs_per_runner=4)
+           .training(num_epochs=3, minibatch_size=512, lr=2e-3)
+           .offline(expert_batches)
+           .resources(device="cpu"))
+    algo = cfg.build()
+    try:
+        m = None
+        for _ in range(3):
+            m = algo.train()
+        assert np.isfinite(m["loss"])
+        # evaluate the cloned policy: sample with the trained weights
+        algo.runners.sync_weights(algo.learner_group.get_weights())
+        results = algo.runners.sample(200)
+        if not isinstance(results, list):
+            results = [results]
+        stats = algo._merge_runner_results(results)[1]
+        assert stats["episode_return_mean"] > 25.0  # random is ~20
+    finally:
+        algo.stop()
+
+
+def test_bc_is_marwil_beta_zero():
+    cfg = BCConfig()
+    assert cfg.beta == 0.0
+    cfg.environment("CartPole-v1").env_runners(0, num_envs_per_runner=4)
+    cfg.resources(device="cpu")
+    algo = cfg.build()
+    try:
+        m = algo.train()  # BC smoke mode: clones own rollouts
+        assert np.isfinite(m["loss"])
+        assert m["mean_weight"] == pytest.approx(1.0)
+    finally:
+        algo.stop()

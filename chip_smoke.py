@@ -370,6 +370,20 @@ Phases, each of which must pass (any failure exits non-zero):
                 each update's version); bench_rl's Sebulba row.  With
                 four cards the learner on card 0 and the gangs on cards
                 1-3, the same digest.
+  analyze       (the analyzers) ``python -m ray_tpu_torch analyze`` over
+                ray_tpu_torch/ against the port's baseline
+                (analysis_baseline_torch.json): exit 0, 0 new and 0
+                stale findings, and the scan loaded nothing of JAX,
+                ray_tpu or torch.
+  tune          (Tune) a Tuner over JaxTrainer.as_trainable() for
+                GPT-2-small at full width, the train recipe (remat
+                "full", AdamW, [16, 513]): two trials over a learning-rate
+                grid, 3 steps each, each trainer's single GPU worker at
+                0.5 of the card so both step on it at once (a barrier in
+                the runtime's KV), a scheduler that reads every report;
+                each step's K1/K2/K3 launches 24/12/12 in each trial, and
+                the best trial's losses bitwise the same steps in this
+                process on the same card.
 
 The flight recorder rides the paths above too: in serve (and serve-app's
 in-process engine) the engine's Prometheus series move by exactly the
@@ -402,6 +416,7 @@ process is reported beside it).
     python3 chip_smoke.py --phases pipeline
     python3 chip_smoke.py --phases moe,resnet,hf
     python3 chip_smoke.py --phases rl
+    python3 chip_smoke.py --phases analyze,tune
 
 runs the device and build phases and the named ones only (a development
 aid; with no arguments every phase runs).
@@ -8601,6 +8616,250 @@ def phase_rl():
     return rec
 
 
+_ANALYZE_PROBE = """\
+import json, runpy, sys
+sys.argv = ["ray_tpu_torch", "analyze", "--format", "json"]
+rc = 0
+try:
+    runpy.run_module("ray_tpu_torch", run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    rc = e.code
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "ray_tpu", "torch"))
+print(json.dumps({"rc": rc, "loaded": loaded}))
+sys.exit(rc)
+"""
+
+
+def phase_analyze():
+    """The port's CLI ``analyze`` (``python -m ray_tpu_torch analyze``)
+    over ``ray_tpu_torch/`` against the port's baseline, on this machine,
+    which has no JAX: it exits 0 with 0 new and 0 stale findings, and the
+    scan loaded no JAX, no ``ray_tpu`` and no torch."""
+    import importlib.util
+
+    t_phase = time.perf_counter()
+    spec = importlib.util.find_spec("jax")
+    jax_here = None if spec is None else str(
+        spec.origin or list(spec.submodule_search_locations or []))
+    r = subprocess.run([sys.executable, "-c", _ANALYZE_PROBE], cwd=ROOT,
+                       env=dict(os.environ, PYTHONPATH=str(ROOT)),
+                       capture_output=True, text=True, timeout=300)
+    lines = r.stdout.strip().splitlines()
+    check(r.returncode == 0 and lines,
+          f"analyze exited {r.returncode}: {r.stdout[-2000:]} "
+          f"{r.stderr[-2000:]}")
+    probe = json.loads(lines[-1])
+    got = json.loads("\n".join(lines[:-1]))
+    check(got["new"] == [] and got["stale"] == [],
+          f"analyze: new {got['new']}, stale {got['stale']}")
+    check(probe["loaded"] == [], f"analyze loaded {probe['loaded']}")
+    rec = {"exit": r.returncode, "new": len(got["new"]),
+           "baselined": got["suppressed"], "stale": len(got["stale"]),
+           "loaded": probe["loaded"], "jax_installed": jax_here,
+           "seconds": time.perf_counter() - t_phase}
+    log(f"[analyze] python -m ray_tpu_torch analyze: exit 0, 0 new, "
+        f"{rec['baselined']} baselined, 0 stale, nothing of JAX, ray_tpu "
+        f"or torch loaded (a jax package on this machine: {jax_here}), "
+        f"{rec['seconds']:.1f} s")
+    return rec
+
+
+# tune: two GPT-2-small trials of the train recipe, one GPU worker each at
+# half the card, over a learning-rate grid
+TUNE_STEPS = 3
+TUNE_LRS = (3e-4, 1e-3)
+TUNE_MODEL = "gpt2_small"           # a GPTConfig preset
+TUNE_BATCH = TRAIN_APP_BATCH        # tokens [16, 513]
+TUNE_GPUS = 0.5
+TUNE_BARRIER_S = 120.0              # every trial's worker up, or fail
+
+
+def _tune_steps(lr, device):
+    """The train recipe (remat full, AdamW(lr, weight decay 0.1)) from the
+    seed-0 params on one seeded batch: yields each step's loss (as the
+    host reads it), its K1-K7 launches and its end time."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import gpt, training
+    from ray_tpu_torch.ops import _kernels
+
+    cfg = getattr(gpt.GPTConfig, TUNE_MODEL)()
+    init_state, step = training.make_train_step(
+        cfg, tx=training.adamw(lr, weight_decay=0.1), device=device)
+    state = init_state(seed=SEED)
+    B, S = TUNE_BATCH
+    tokens = torch.from_numpy(np.random.RandomState(SEED).randint(
+        0, cfg.vocab_size, (B, S + 1))).to(device)
+    for i in range(TUNE_STEPS):
+        _kernels.reset_launch_counts()
+        _, m = step(state, {"tokens": tokens})
+        loss = m["loss"].item()
+        yield {"step": i + 1, "loss": loss,
+               "launches": _kernels.launch_counts(), "t": time.time()}
+
+
+def _tune_trial_loop(config):
+    """One trial's worker: ``_tune_steps`` at the trial's lr on the card
+    the trainer gave it, every step reported.  It steps only once every
+    trial's worker is up (a barrier in the runtime's KV, bounded): two
+    trials that could not hold the card at once fail here."""
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.experimental import internal_kv as kv
+    from ray_tpu_torch.train.torch import get_device
+
+    device = get_device()
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kv._internal_kv_put(f"tune-up-{config['lr']}", b"1",
+                        namespace="chip_smoke")
+    deadline = time.time() + TUNE_BARRIER_S
+    while len(kv._internal_kv_list("tune-up-", namespace="chip_smoke")) \
+            < len(TUNE_LRS):
+        if time.time() > deadline:
+            raise RuntimeError(f"the other trials' workers were not up "
+                               f"within {TUNE_BARRIER_S} s")
+        time.sleep(0.05)
+    t0 = time.time()
+    for rec in _tune_steps(config["lr"], device):
+        train.report(dict(rec, t_start=t0, device=str(device),
+                          pid=os.getpid()))
+
+
+def _tune_scheduler():
+    """ASHA with its first rung past the run: it reads every report and
+    continues each, recording what it read."""
+    from ray_tpu_torch.tune import AsyncHyperBandScheduler
+
+    class Reading(AsyncHyperBandScheduler):
+        def __init__(self):
+            super().__init__(metric="loss", mode="min",
+                             grace_period=TUNE_STEPS + 1,
+                             max_t=TUNE_STEPS + 1)
+            self.read = []
+
+        def on_trial_result(self, trial, result):
+            d = super().on_trial_result(trial, result)
+            self.read.append({"trial": trial.trial_id,
+                              "lr": trial.config["lr"], "decision": d,
+                              **{k: result[k] for k in
+                                 ("step", "loss", "launches", "t",
+                                  "t_start", "device", "pid")}})
+            return d
+
+    return Reading()
+
+
+def _tune_fit(storage):
+    """The Tuner over ``JaxTrainer.as_trainable()``: one trial per lr, each
+    a gang of one worker at ``TUNE_GPUS`` of a card."""
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.train import JaxTrainer, RunConfig, ScalingConfig
+
+    trainer = JaxTrainer(
+        _tune_trial_loop,
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=True,
+                                     gpus_per_worker=TUNE_GPUS),
+        run_config=RunConfig(name="tune-gpt2", storage_path=storage))
+    sched = _tune_scheduler()
+    grid = tune.Tuner(
+        trainer, param_space={"lr": tune.grid_search(list(TUNE_LRS))},
+        tune_config=tune.TuneConfig(metric="loss", mode="min",
+                                    scheduler=sched)).fit()
+    return grid, sched.read
+
+
+def phase_tune():
+    """Two trials of GPT-2-small's train recipe under the port's Tune at
+    once on this card (each trainer's single GPU worker at half of it),
+    their K1-K3 launches per step, and the best trial's losses bitwise
+    the same steps run in this process."""
+    import shutil
+
+    import torch
+
+    import ray_tpu_torch as rt
+
+    smi = _smi_line()
+    t_phase = time.perf_counter()
+    before = set(_runtime_procs())
+    storage = tempfile.mkdtemp(prefix="tune-")
+    rt.init(num_cpus=4)
+    try:
+        check(rt.cluster_resources().get("GPU", 0) >= 1,
+              f"the runtime offers no GPU: {rt.cluster_resources()}")
+        t0 = time.perf_counter()
+        grid, read = _tune_fit(storage)
+        fit_s = time.perf_counter() - t0
+    finally:
+        rt.shutdown()
+        shutil.rmtree(storage, ignore_errors=True)
+    _wait_for(lambda: not _card_holders(before), 60,
+              "runtime processes hold the card 60 s after shutdown")
+    check(not grid.errors, f"tune trials failed: {grid.errors}")
+    by_trial = {}
+    for r in read:
+        by_trial.setdefault(r["trial"], []).append(r)
+    check(len(by_trial) == len(TUNE_LRS)
+          and all([r["step"] for r in rs] == list(range(1, TUNE_STEPS + 1))
+                  and all(r["decision"] == "CONTINUE" for r in rs)
+                  for rs in by_trial.values()),
+          f"the scheduler read {[(r['trial'], r['step'], r['decision']) for r in read]}")
+    want = {k: FLASH_TRAIN_LAUNCHES.get(k, 0) for k in read[0]["launches"]}
+    for r in read:
+        check(r["launches"] == want,
+              f"trial {r['trial']} step {r['step']} launched "
+              f"{r['launches']}, want {want}")
+        check(r["device"].startswith("cuda"), f"a trial ran on {r['device']}")
+    # both at once on one card: each trial's steps began before the
+    # other's last step ended
+    spans = [(rs[0]["t_start"], rs[-1]["t"]) for rs in by_trial.values()]
+    overlap = min(e for _, e in spans) - max(s for s, _ in spans)
+    check(overlap > 0, f"the trials did not run at once: spans {spans}")
+    if torch.cuda.device_count() == 1:
+        check(len({r["device"] for r in read}) == 1,
+              f"trials on {sorted({r['device'] for r in read})}")
+    best_id = min(by_trial, key=lambda t: by_trial[t][-1]["loss"])
+    best = by_trial[best_id]
+    # the same steps in this process on the same card
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        t0 = time.perf_counter()
+        local = list(_tune_steps(best[0]["lr"], torch.device("cuda")))
+        local_s = time.perf_counter() - t0
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    got = [r["loss"] for r in best]
+    check(got == [r["loss"] for r in local],
+          f"the best trial's losses {got} != this process's "
+          f"{[r['loss'] for r in local]}")
+    check(all(math.isfinite(x) for x in got) and got[-1] < got[0],
+          f"tune losses {got}")
+    rec = {"card": smi, "fit_s": fit_s, "local_s": local_s,
+           "overlap_s": overlap, "best": best_id, "best_lr": best[0]["lr"],
+           "trials": {t: {"lr": rs[0]["lr"], "losses":
+                          [r["loss"] for r in rs], "device": rs[0]["device"],
+                          "pid": rs[0]["pid"],
+                          "step_end_t": [r["t"] for r in rs],
+                          "t_start": rs[0]["t_start"]}
+                      for t, rs in by_trial.items()},
+           "launches_per_step": read[-1]["launches"]}
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"[tune] {len(TUNE_LRS)} GPT-2-small trials (lr {TUNE_LRS}) at "
+        f"once on one card ({TUNE_GPUS} GPU each, {overlap:.1f} s "
+        f"overlap), {TUNE_STEPS} steps of [16, 513] each, K1/K2/K3 "
+        f"{want['flash_fwd']}/{want['flash_bwd_dkv']}/{want['flash_bwd_dq']} "
+        f"a step in every trial; best lr {best[0]['lr']} losses {got} == "
+        f"this process's, bitwise; Tuner.fit {fit_s:.1f} s, in-process "
+        f"{local_s:.1f} s ({smi})")
+    return rec
+
+
 def _kernel_entry(k, case, launches_by_path, **extra):
     # the main path: a step through the trainer on Data-fed batches (K1-K6;
     # K7 runs there only with the fused hop forced, and its entry says so)
@@ -8620,7 +8879,7 @@ PHASES = ("kernels", "forward", "serve", "serve-bench", "parity", "train",
           "kernels-quantize", "kernels-fused", "dp-train", "runtime",
           "serve-app", "train-app", "data-train", "dag", "cli-jobs",
           "autoscale", "observe", "mesh", "pipeline", "moe", "resnet",
-          "hf", "rl")
+          "hf", "rl", "analyze", "tune")
 
 
 def _timed(seconds, name, fn, *args):
@@ -8742,7 +9001,8 @@ def main(argv=None):
         torch.cuda.empty_cache()
         report["pipeline"] = _timed(seconds, "pipeline", phase_pipeline)
     for name, fn in (("moe", phase_moe), ("resnet", phase_resnet),
-                     ("hf", phase_hf), ("rl", phase_rl)):
+                     ("hf", phase_hf), ("rl", phase_rl),
+                     ("analyze", phase_analyze), ("tune", phase_tune)):
         if name in phases:
             torch.cuda.empty_cache()
             report[name] = _timed(seconds, name, fn)
@@ -8842,7 +9102,10 @@ def main(argv=None):
                 "hf_forward": (report["hf"]["flash_launches"]
                                if name == "flash_fwd" else 0),
                 # Anakin's run (RL reaches no kernel of the port)
-                "rl_anakin": report["rl"]["launches"][name]}
+                "rl_anakin": report["rl"]["launches"][name],
+                # a step of a Tune trial's GPU worker (half the card)
+                "tune_trial_step":
+                    report["tune"]["launches_per_step"][name]}
 
     k1 = report["kernels"][0]
     bwd = report["kernels_bwd"][0]

@@ -26,10 +26,59 @@ from .protocol import Client, free_port
 _SESSION_ROOT = "/dev/shm/ray_tpu_torch"
 
 
-def _wait_ping(addr: Tuple[str, int], timeout: float = 30.0, what: str = "daemon"):
+# how many fresh ports a daemon is started on before its failure to bind
+# one is raised: free_port() releases the port it found, and under load
+# another process can take it before the daemon binds it
+BIND_ATTEMPTS = 3
+
+
+class DaemonExited(RuntimeError):
+    """A daemon process ended before it came up.  ``port_in_use`` when it
+    could not bind its port."""
+
+    def __init__(self, msg: str, port_in_use: bool):
+        super().__init__(msg)
+        self.port_in_use = port_in_use
+
+
+def _log_size(path: str) -> int:
+    try:
+        return os.path.getsize(path)
+    except OSError:
+        return 0
+
+
+def _check_alive(proc: Optional[subprocess.Popen], log: Tuple[str, int],
+                 what: str, addr):
+    """Raise ``DaemonExited`` with what the process wrote to its log
+    since ``log``'s offset, if it has ended."""
+    if proc is None or proc.poll() is None:
+        return
+    path, start = log
+    try:
+        with open(path, "rb") as f:
+            f.seek(start)
+            tail = f.read().decode(errors="replace")[-2000:]
+    except OSError:
+        tail = ""
+    raise DaemonExited(
+        f"{what} at {addr} exited with {proc.returncode} before it came "
+        f"up: {tail}", port_in_use="Address already in use" in tail)
+
+
+def _wait_ping(addr: Tuple[str, int], timeout: float = 30.0, what: str = "daemon",
+               proc: Optional[subprocess.Popen] = None,
+               log: Tuple[str, int] = ("", 0)):
+    """Wait until ``addr`` answers a ping.  Given the daemon's ``proc``
+    (and its log with the offset its output starts at), its end raises
+    ``DaemonExited`` at once.  Another process that holds the port may
+    answer the ping: a caller that must know it reached this daemon
+    checks that another way (the control's addr-file, a raylet's
+    registration)."""
     deadline = time.monotonic() + timeout
     last = None
     while time.monotonic() < deadline:
+        _check_alive(proc, log, what, addr)
         try:
             cli = Client(addr, connect_timeout=2.0)
             cli.call("ping", timeout=5.0)
@@ -101,11 +150,31 @@ class Cluster:
         self._n = 0
 
     def start_control(self) -> Tuple[str, int]:
-        port = free_port()
-        self._spawn_control(port)
-        self.control_addr = ("127.0.0.1", port)
-        _wait_ping(self.control_addr, what="control plane")
-        return self.control_addr
+        log = os.path.join(self.log_dir, "control.log")
+        for attempt in range(BIND_ATTEMPTS):
+            port = free_port()
+            start = _log_size(log)
+            self._spawn_control(port)
+            self.control_addr = ("127.0.0.1", port)
+            try:
+                # the control names its address in the addr-file once it
+                # has bound it: only then is a ping answered by this one
+                deadline = time.monotonic() + 30.0
+                while common.read_addr_file(self.control_addr_file) \
+                        != self.control_addr:
+                    _check_alive(self.control_proc, (log, start),
+                                 "control plane", self.control_addr)
+                    if time.monotonic() > deadline:
+                        raise RuntimeError(
+                            f"control plane at {self.control_addr} did not "
+                            f"write {self.control_addr_file}")
+                    time.sleep(0.05)
+                _wait_ping(self.control_addr, what="control plane",
+                           proc=self.control_proc, log=(log, start))
+                return self.control_addr
+            except DaemonExited as e:
+                if not e.port_in_use or attempt + 1 == BIND_ATTEMPTS:
+                    raise
 
     @property
     def control_addr_file(self) -> str:
@@ -171,38 +240,54 @@ class Cluster:
         assert self.control_addr is not None, "start_control() first"
         self._n += 1
         nid = common.node_id()
-        port = free_port()
         node_session = os.path.join(self.session_dir, f"node-{self._n}")
         ctrl = tuple(control_addr) if control_addr else self.control_addr
-        cmd = [sys.executable, "-m", "ray_tpu_torch._private.node",
-               "--control", f"{ctrl[0]}:{ctrl[1]}",
-               "--host", "127.0.0.1", "--port", str(port),
-               "--node-id", nid, "--session-dir", node_session]
-        if use_addr_file:
-            cmd += ["--addr-file", self.control_addr_file]
-        if resources is not None:
-            cmd += ["--resources", json.dumps(resources)]
         env = {}
         if labels:
             env["RAY_TPU_TORCH_NODE_LABELS"] = json.dumps(labels)
-        proc = _spawn(cmd, os.path.join(self.log_dir, f"raylet-{self._n}.log"), env)
-        h = NodeHandle(proc, ("127.0.0.1", port), nid, node_session)
-        self.nodes.append(h)
-        if wait:
-            _wait_ping(h.addr, what="raylet")
-            # The raylet answers ping before its register_node round-trip
-            # completes; callers doing get_nodes/report_draining right
-            # after add_node raced that window.  Wait for the control
-            # plane's view too (skipped for proxy-routed raylets, whose
-            # registration may be deliberately severed mid-flight).
-            if control_addr is None:
-                self._wait_registered(nid)
+        log = os.path.join(self.log_dir, f"raylet-{self._n}.log")
+        for attempt in range(BIND_ATTEMPTS):
+            port = free_port()
+            cmd = [sys.executable, "-m", "ray_tpu_torch._private.node",
+                   "--control", f"{ctrl[0]}:{ctrl[1]}",
+                   "--host", "127.0.0.1", "--port", str(port),
+                   "--node-id", nid, "--session-dir", node_session]
+            if use_addr_file:
+                cmd += ["--addr-file", self.control_addr_file]
+            if resources is not None:
+                cmd += ["--resources", json.dumps(resources)]
+            start = _log_size(log)
+            proc = _spawn(cmd, log, env)
+            h = NodeHandle(proc, ("127.0.0.1", port), nid, node_session)
+            self.nodes.append(h)
+            if not wait:
+                break
+            try:
+                _wait_ping(h.addr, what="raylet", proc=proc,
+                           log=(log, start))
+                # The raylet answers ping before its register_node
+                # round-trip completes; callers doing
+                # get_nodes/report_draining right after add_node raced
+                # that window.  Wait for the control plane's view too
+                # (skipped for proxy-routed raylets, whose registration
+                # may be deliberately severed mid-flight); it also shows
+                # that the ping was answered by this raylet.
+                if control_addr is None:
+                    self._wait_registered(nid, proc=proc, log=(log, start))
+                break
+            except DaemonExited as e:
+                if not e.port_in_use or attempt + 1 == BIND_ATTEMPTS:
+                    raise
+                self.nodes.remove(h)
         return h
 
-    def _wait_registered(self, nid: str, timeout_s: float = 30.0):
+    def _wait_registered(self, nid: str, timeout_s: float = 30.0,
+                         proc: Optional[subprocess.Popen] = None,
+                         log: Tuple[str, int] = ("", 0)):
         deadline = time.monotonic() + timeout_s
         last: object = None
         while time.monotonic() < deadline:
+            _check_alive(proc, log, f"raylet {nid}", self.control_addr)
             try:
                 cli = Client(self.control_addr, connect_timeout=2.0)
                 nodes = cli.call("get_nodes", timeout=5.0)
@@ -255,7 +340,6 @@ _cluster: Optional[Cluster] = None
 def start_local(num_cpus=None, num_gpus=None, resources=None) -> Tuple[Cluster, NodeHandle]:
     global _cluster
     c = Cluster()
-    c.start_control()
     res = None
     if num_cpus is not None or num_gpus is not None or resources is not None:
         from . import accelerators
@@ -266,6 +350,11 @@ def start_local(num_cpus=None, num_gpus=None, resources=None) -> Tuple[Cluster, 
         gpus = num_gpus if num_gpus is not None else accelerators.num_gpus()
         if gpus:
             res.setdefault(common.GPU, float(gpus))
-    node = c.add_node(resources=res)
+    try:
+        c.start_control()
+        node = c.add_node(resources=res)
+    except BaseException:
+        c.shutdown()    # a failed start leaves no daemon running
+        raise
     _cluster = c
     return c, node

@@ -10,7 +10,8 @@ python/ray/util/state/state_cli.py).  The port's copy of
 from a YAML config through the port's node providers (a worker type
 with ``{GPU: n}`` offers cards), and ``timeline --job`` (or a trial
 name) dumps a training run's flight recorder as a Chrome trace.
-``analyze`` comes with ROADMAP A.9: it exits non-zero naming its item.
+``analyze`` scans ``ray_tpu_torch/`` against the port's own baseline,
+``analysis_baseline_torch.json``.
 
 Run as ``python -m ray_tpu_torch <command>``.  Cluster bookkeeping: the
 head writes ``/tmp/ray_tpu_torch/ray_current_cluster.json``
@@ -334,16 +335,39 @@ def cmd_device_stats(args):
                 line += f"; {tag}: {_mb(rep.get('bytes', 0))}"
         print(line)
 
-# subcommands the port does not have yet: name -> (ROADMAP item, what)
-_NOT_PORTED = {
-    "analyze": ("A.9", "the static analyzer"),
-}
+def cmd_analyze(args):
+    from ray_tpu_torch import analysis
+    from ray_tpu_torch.analysis import baseline as bl
 
-
-def cmd_not_ported(args):
-    item, what = _NOT_PORTED[args.cmd]
-    raise SystemExit(f"{args.cmd} ({what}) is not ported yet "
-                     f"(ROADMAP {item})")
+    findings = analysis.run_analysis(args.paths or None)
+    bl_path = args.baseline or bl.default_path()
+    if args.update_baseline:
+        bl.save(bl_path, findings)
+        print(f"baseline updated: {len(findings)} finding(s) -> {bl_path}")
+        return
+    known = bl.load(bl_path)
+    new, suppressed, stale = bl.diff(findings, known)
+    if args.format == "json":
+        print(json.dumps({
+            "new": [{"key": f.key, "line": f.line, "file": f.file,
+                     "message": f.message} for f in new],
+            "suppressed": len(suppressed),
+            "stale": stale,
+        }, indent=2))
+    else:
+        for f in new:
+            print(f"NEW  {f.render()}")
+        if args.verbose:
+            for f in suppressed:
+                print(f"okay {f.render()}  [baselined]")
+        for k in stale:
+            print(f"stale baseline entry (fixed?): {k}")
+        print(f"analyze: {len(new)} new, {len(suppressed)} baselined, "
+              f"{len(stale)} stale")
+    if new:
+        print("new findings: fix them or re-run with --update-baseline",
+              file=sys.stderr)
+        raise SystemExit(1)
 
 
 def cmd_stop(args):
@@ -883,20 +907,28 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--format", choices=("text", "json"), default="text")
     sp.set_defaults(fn=cmd_device_stats)
 
-    for name in _NOT_PORTED:
-        sp = sub.add_parser(name, help="not ported yet: exits non-zero "
-                            "naming its ROADMAP item")
-        sp.set_defaults(fn=cmd_not_ported)
+    sp = sub.add_parser(
+        "analyze",
+        help="static concurrency/torch-purity analysis (AST-based)")
+    sp.add_argument("paths", nargs="*",
+                    help="files or directories (default: the ray_tpu_torch "
+                         "package)")
+    sp.add_argument("--baseline", default=None,
+                    help="baseline JSON path (default: "
+                         "<repo>/analysis_baseline_torch.json)")
+    sp.add_argument("--update-baseline", action="store_true",
+                    help="rewrite the baseline from this scan")
+    sp.add_argument("--format", choices=("text", "json"), default="text")
+    sp.add_argument("-v", "--verbose", action="store_true",
+                    help="also list baselined findings")
+    sp.set_defaults(fn=cmd_analyze)
 
     return p
 
 
 def main(argv=None):
     parser = build_parser()
-    args, extra = parser.parse_known_args(argv)
-    # an unported subcommand names its item whatever arguments follow it
-    if extra and args.fn is not cmd_not_ported:
-        parser.error(f"unrecognized arguments: {' '.join(extra)}")
+    args = parser.parse_args(argv)
     args.fn(args)
 
 

@@ -10,8 +10,9 @@ get_dataset_shard match the module-level session API
 into one NCCL group (gloo on CPU workers).
 
 Exports resolve on first use (PEP 562), so importing this package loads
-neither torch nor the runtime's worker code; the trainers for GBDT
-libraries and TensorFlow come with ROADMAP A.10.
+neither torch nor the runtime's worker code; ``JaxTrainer.as_trainable()``
+makes a trainer a trial of ``ray_tpu_torch.tune``.  The trainers for GBDT
+libraries and TensorFlow come with ROADMAP A.10b.
 """
 
 _EXPORTS = {

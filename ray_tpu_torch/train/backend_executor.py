@@ -310,6 +310,19 @@ class BackendExecutor:
         except (TrainingWorkerError, TrainingFailedError):
             raise
         except ray_tpu_torch.TaskError as e:
+            # a worker's death stalls its peers' collectives until they
+            # time out, and a peer's error can come first in the round's
+            # order: the death, which elastic recovery acts on, is what
+            # the round reports
+            ready, _ = ray_tpu_torch.wait(refs, num_returns=len(refs),
+                                          timeout=1.0)
+            for r in ready:
+                try:
+                    ray_tpu_torch.get(r)
+                except (ActorDiedError, WorkerCrashedError) as died:
+                    raise TrainingWorkerError(str(died)) from e
+                except Exception:
+                    pass
             raise TrainingFailedError(str(e)) from e
 
     # -- elastic recovery --------------------------------------------------

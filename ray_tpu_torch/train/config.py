@@ -99,8 +99,7 @@ class RunConfig:
     stop: Optional[Dict[str, Any]] = None  # e.g. {"training_iteration": 10}
     verbose: int = 1
     #: experiment callbacks (tune.Callback subclasses — e.g. the
-    #: TBX/W&B/MLflow logger callbacks of the reference's
-    #: ray_tpu.air.integrations, ROADMAP A.10 in the port);
+    #: TBX/W&B/MLflow logger callbacks of ray_tpu_torch.air.integrations);
     #: fire per result in Tuner runs AND standalone trainer.fit()
     #: (reference: air/config.py RunConfig.callbacks)
     callbacks: List[Any] = field(default_factory=list)

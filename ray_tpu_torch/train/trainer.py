@@ -20,8 +20,10 @@ with the run's state into KV namespace ``train`` (where the autoscaler's
 ``streaming_split(n, equal=True)`` at every (re)start, as the reference
 does.
 
-The reference's `JaxTrainer.as_trainable()` (the run loop as a Tune
-trainable) comes with the port's Tune (ROADMAP A.10).
+``as_trainable()`` adapts the trainer into a trial of the port's Tune
+(``ray_tpu_torch.tune``): each trial's config is merged into
+``train_loop_config``, and the trial holds no CPU of its own while its
+gang holds what ``ScalingConfig`` asks (cards with ``use_gpu=True``).
 """
 
 from __future__ import annotations
@@ -363,6 +365,33 @@ class JaxTrainer:
             raise TrainingFailedError(
                 f"training failed: {result.error}") from result.error
         return result
+
+    # -- Tune integration --------------------------------------------------
+
+    def as_trainable(self):
+        """Adapt this trainer into a Tune function-trainable.  Tune merges
+        each trial's hyperparameter `config` into train_loop_config."""
+        trainer = self
+
+        def _trainable(config, tune_session):
+            import copy
+
+            t = copy.copy(trainer)
+            t._config = {**trainer._config, **config}
+            t._resume_checkpoint = (tune_session.get_checkpoint()
+                                    or trainer._resume_checkpoint)
+            result = t._run(tune_session.trial_dir,
+                            tune_session.experiment_name,
+                            tune_session.trial_name,
+                            on_report=tune_session.report)
+            if result.error is not None:
+                raise result.error
+            return result.metrics
+
+        _trainable.__name__ = "JaxTrainerTrainable"
+        _trainable._is_trainer_adapter = True
+        _trainable._scaling_config = self.scaling_config
+        return _trainable
 
 
 # Torch users of the reference map to this 1:1.

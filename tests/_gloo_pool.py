@@ -54,21 +54,33 @@ def _rank_main(rank: int, world: int, addr: str, tasks, results):
     dist.destroy_process_group()
 
 
+# starts of the world on a fresh port when rank 0 could not listen on the
+# one _free_port() found (released, so another process can take it first)
+START_ATTEMPTS = 3
+
+
 class GlooPool:
     def __init__(self, world: int, start_timeout: float = 120.0):
         ctx = mp.get_context("spawn")
         self.world = world
-        self.results = ctx.Queue()
-        self.tasks = [ctx.Queue() for _ in range(world)]
-        addr = f"tcp://127.0.0.1:{_free_port()}"
-        self.procs = [ctx.Process(target=_rank_main,
-                                  args=(r, world, addr, self.tasks[r],
-                                        self.results), daemon=True)
-                      for r in range(world)]
-        for p in self.procs:
-            p.start()
-        self.broken = None
-        self._collect(start_timeout, "start")
+        for attempt in range(START_ATTEMPTS):
+            self.results = ctx.Queue()
+            self.tasks = [ctx.Queue() for _ in range(world)]
+            addr = f"tcp://127.0.0.1:{_free_port()}"
+            self.procs = [ctx.Process(target=_rank_main,
+                                      args=(r, world, addr, self.tasks[r],
+                                            self.results), daemon=True)
+                          for r in range(world)]
+            for p in self.procs:
+                p.start()
+            self.broken = None
+            try:
+                self._collect(start_timeout, "start")
+                return
+            except RuntimeError as e:
+                if "EADDRINUSE" not in str(e) \
+                        or attempt + 1 == START_ATTEMPTS:
+                    raise
 
     def _collect(self, timeout: float, what: str):
         out, errs = {}, {}

@@ -34,6 +34,7 @@ from ray_tpu_torch.elastic.preemption import (FakePreemptionSource,
                                               PreemptionWatcher)
 from ray_tpu_torch.train import JaxConfig, RunConfig, ScalingConfig
 from ray_tpu_torch.train.backend_executor import (BackendExecutor,
+                                                  TrainingFailedError,
                                                   TrainingWorkerError)
 
 torch.set_num_threads(1)
@@ -388,6 +389,40 @@ def _elastic_loop(config):
         _train.report({"step": state["step"], "w": float(state["w"]),
                        "world_size": ctx.get_world_size(),
                        "node_id": os.environ.get("RAY_TPU_TORCH_NODE_ID")})
+
+
+def test_a_round_with_a_dead_worker_reports_the_death(cluster):
+    """A worker's death stalls its peers' collectives until they time
+    out; when a peer's timeout comes first in the round's order, the
+    executor still reports the death (TrainingWorkerError), which elastic
+    recovery acts on, and not a failed run."""
+    @rt.remote
+    def peer_timed_out():
+        raise TimeoutError("collective rendezvous timed out")
+
+    @rt.remote
+    class Worker:
+        def next_result(self):
+            return ("report", 1)
+
+    w = Worker.remote()
+    assert rt.get(w.next_result.remote(), timeout=60) == ("report", 1)
+    rt.kill(w)
+    deadline = time.monotonic() + 60
+    while True:     # the kill lands asynchronously
+        dead = w.next_result.remote()
+        try:
+            rt.get(dead, timeout=60)
+        except rt.ActorDiedError:
+            break
+        assert time.monotonic() < deadline, "the killed actor still answers"
+        time.sleep(0.05)
+    executor = BackendExecutor(JaxConfig(mode="local"),
+                               ScalingConfig(num_workers=2))
+    with pytest.raises(TrainingWorkerError):
+        executor._get_with_failure_handling([peer_timed_out.remote(), dead])
+    with pytest.raises(TrainingFailedError):
+        executor._get_with_failure_handling([peer_timed_out.remote()])
 
 
 def _reference_w(steps, G, w0=1.0, lr=0.1):

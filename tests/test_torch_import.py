@@ -10,9 +10,11 @@ group with no card raises), the kv collective backend runs on the port's
 own runtime, its Train layer (``ray_tpu_torch.train``, with elastic and
 the placement groups), its Data library (``ray_tpu_torch.data``), its
 autoscaler and the rest of ``util`` load neither torch nor the JAX
-package, and its sources call no library attention and no
+package, nor do its analyzers, Tune and AIR (``ray_tpu_torch.analysis``,
+``tune``, ``air``), and its sources call no library attention and no
 torch.compile."""
 
+import ast
 import os
 import re
 import subprocess
@@ -164,15 +166,52 @@ def test_runtime_modules_load_no_torch_and_no_jax():
     assert out.stdout.strip().endswith("ok")
 
 
+def _torch_compile_uses(tree):
+    """The lines where a module reaches torch's ``compile``, however it
+    is imported (``from torch import compile as c``, ``import torch as
+    t`` then ``t.compile``)."""
+    torch_names, lines = set(), []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                if a.name == "torch" and a.asname:
+                    torch_names.add(a.asname)
+                elif a.asname is None and a.name.split(".")[0] == "torch":
+                    torch_names.add("torch")
+        elif isinstance(node, ast.ImportFrom) and node.module == "torch":
+            lines += [node.lineno for a in node.names if a.name == "compile"]
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Attribute) and node.attr == "compile" \
+                and isinstance(node.value, ast.Name) \
+                and node.value.id in torch_names:
+            lines.append(node.lineno)
+    return sorted(lines)
+
+
 def test_sources_use_no_library_attention_or_jax():
+    # the analyzers' fixtures are parsed, never imported or run: the torch
+    # lint's fixture seeds torch.compile bodies, so they may name it
+    fixtures = PORT / "analysis" / "fixtures"
     banned = re.compile(r"scaled_dot_product_attention|torch\.compile|"
                         r"flash_attn|^\s*(import|from)\s+(jax|ray_tpu)\b",
                         re.M)
+    banned_in_fixtures = re.compile(
+        r"scaled_dot_product_attention|flash_attn|"
+        r"^\s*(import|from)\s+(jax|ray_tpu)\b", re.M)
+    assert _torch_compile_uses(ast.parse(
+        "from torch import compile as c\nimport torch as t\n"
+        "f = t.compile(c(g))\n")) == [1, 3]
+    assert _torch_compile_uses(
+        ast.parse((fixtures / "fx_torch_purity.py").read_text()))
     files = list(PORT.rglob("*.py")) + list(PORT.rglob("*.cu"))
     assert files
     for f in files:
-        hits = banned.findall(f.read_text())
+        fixture = fixtures in f.parents
+        text = f.read_text()
+        hits = (banned_in_fixtures if fixture else banned).findall(text)
         assert not hits, (f, hits)
+        if f.suffix == ".py" and not fixture:
+            assert not _torch_compile_uses(ast.parse(text)), f
     for script in ("chip_smoke.py", "chip_studies.py"):
         text = (REPO / script).read_text()
         assert not re.search(r"^\s*(import|from)\s+(jax|ray_tpu)\b", text,
@@ -542,3 +581,72 @@ def test_rl_holds_the_reference_modules_of_a8a():
     import ray_tpu_torch.rl as rl
 
     assert not hasattr(rl, "NOT_PORTED")
+
+
+_ANALYSIS_TUNE_AIR_PROBE = r"""
+import sys
+import ray_tpu_torch.analysis as analysis
+import ray_tpu_torch.analysis._model
+import ray_tpu_torch.analysis.baseline
+import ray_tpu_torch.analysis.blocking_async
+import ray_tpu_torch.analysis.guarded_by
+import ray_tpu_torch.analysis.lock_order
+import ray_tpu_torch.analysis.torch_purity
+import ray_tpu_torch.tune as tune
+import ray_tpu_torch.tune.schedulers
+import ray_tpu_torch.tune.search
+import ray_tpu_torch.tune.trial
+import ray_tpu_torch.tune.tune_controller
+import ray_tpu_torch.tune.tuner
+import ray_tpu_torch.air as air
+import ray_tpu_torch.air.integrations
+import ray_tpu_torch.air.integrations.mlflow
+import ray_tpu_torch.air.integrations.tbx
+import ray_tpu_torch.air.integrations.wandb
+from ray_tpu_torch.train import JaxTrainer
+assert callable(JaxTrainer.as_trainable)
+assert sorted(analysis.PASSES) == ["blocking_async", "guarded_by",
+                                   "lock_order", "torch_purity"]
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "ray_tpu", "torch",
+                                    "triton", "mlflow", "wandb"))
+assert not bad, bad
+print("ok")
+"""
+
+ANALYSIS_TUNE_AIR_MODULES = {
+    "analysis": ("__init__", "_model", "baseline", "blocking_async",
+                 "guarded_by", "lock_order", "torch_purity"),
+    "analysis/fixtures": ("fx_blocking_async", "fx_budget_blocking",
+                          "fx_guarded_by", "fx_lock_order",
+                          "fx_torch_purity"),
+    "tune": ("__init__", "schedulers", "search", "trial", "tune_controller",
+             "tuner"),
+    "air": ("__init__",),
+    "air/integrations": ("__init__", "mlflow", "tbx", "wandb"),
+}
+# the reference's module -> the port's counterpart, where the names differ
+_RENAMED = {"jax_purity": "torch_purity", "fx_jax_purity": "fx_torch_purity"}
+
+
+def test_analysis_tune_air_load_no_torch_and_no_jax():
+    """The analyzers (ROADMAP A.9), Tune and AIR (A.10a) load neither
+    torch, JAX, the JAX package, Triton nor the optional tracking
+    libraries at import; each directory holds the reference's modules,
+    ``jax_purity`` and its fixture as ``torch_purity`` and
+    ``fx_torch_purity``, and none imports anything of the reference."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", _ANALYSIS_TUNE_AIR_PROBE],
+                         cwd="/", env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+    ref = re.compile(r"(^\s*(import|from)\s+(jax|ray_tpu)\b)"
+                     r"|import_module\(\s*['\"](jax|ray_tpu)\b", re.M)
+    for pkg, mods in ANALYSIS_TUNE_AIR_MODULES.items():
+        have = {p.stem for p in (PORT / pkg).glob("*.py")}
+        theirs = {_RENAMED.get(p.stem, p.stem)
+                  for p in (REPO / "ray_tpu" / pkg).glob("*.py")}
+        assert have == set(mods) == theirs, (pkg, have, theirs)
+        for f in (PORT / pkg).glob("*.py"):
+            assert not ref.search(f.read_text()), f

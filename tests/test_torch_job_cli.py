@@ -3,9 +3,8 @@ tests/test_job_cli.py against ``ray_tpu_torch.job`` and
 ``python -m ray_tpu_torch`` (reference: dashboard/modules/job,
 scripts.py), plus what the port adds: ``job submit``,
 ``init(address="auto")`` against the CLI-started head, the flight
-recorder's subcommands, and ``analyze``, which exits naming the slice
-that ports it.  One cluster of
-the port's own per module; the CLI's head writes its cluster file under
+recorder's subcommands, and ``analyze`` against the port's own
+baseline.  One cluster of the port's own per module; the CLI's head writes its cluster file under
 the test's temporary directory."""
 
 import json
@@ -191,17 +190,18 @@ def test_cli_start_status_stop(cluster_file):
     (("trace", "--summary"), "trace(s), mean wall"),
     (("remediations", "trial"), "no remediation records for trial 'trial'"),
     (("device-stats",), "program ledger:"),
-    (("analyze",), "A.9"),
+    (("analyze",), "analyze: 0 new"),
 ])
 def test_unported_subcommands_name_their_item(cluster, cluster_file,
                                               tmp_path, argv, item):
-    """The flight recorder's subcommands (``timeline --job``, ``trace``,
-    ``remediations``, ``device-stats``) run against a live cluster; only
-    ``analyze`` still exits naming its item."""
-    if item.startswith("A."):
-        r = _cli(*argv, check=False, timeout=60)
-        assert r.returncode != 0
-        assert f"not ported yet (ROADMAP {item})" in r.stderr, r.stderr
+    """The subcommands that came last to the port run: the flight
+    recorder's (``timeline --job``, ``trace``, ``remediations``,
+    ``device-stats``) against a live cluster, ``analyze`` (ROADMAP A.9)
+    over ``ray_tpu_torch/`` against the port's own baseline, with no new
+    finding."""
+    if argv[0] == "analyze":
+        r = _cli(*argv, timeout=180)
+        assert item in r.stdout, (r.stdout, r.stderr)
         return
     addr = rt.connection_info()["control_address"]
     extra = ["-o", str(tmp_path / "t.json")] if argv[0] == "timeline" else []

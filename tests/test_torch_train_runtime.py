@@ -791,6 +791,7 @@ from ray_tpu.train import JaxConfig, JaxTrainer, RunConfig, ScalingConfig
 
 B, S, SEED, STEPS = (int(a) for a in sys.argv[3:7])
 LR = float(sys.argv[7])
+CLUSTER_START_FAILED = int(sys.argv[8])
 
 
 def loop(config):
@@ -848,7 +849,28 @@ def loop(config):
         np.savez(config["out"], losses=np.array(losses), **flat_params)
 
 
-ray_tpu.init(num_cpus=3)
+try:
+    ray_tpu.init(num_cpus=3)
+except Exception as e:
+    # stop what the failed start left running
+    import traceback
+
+    from ray_tpu._private import bootstrap
+
+    tb = e.__traceback__
+    while tb is not None:
+        for v in list(tb.tb_frame.f_locals.values()):
+            if isinstance(v, bootstrap.Cluster):
+                v.shutdown()
+        tb = tb.tb_next
+    # the reference's raylet did not register within its cluster's fixed
+    # 30 s wait: say so by the exit code, apart from any other failure of
+    # the start or of the run, which is raised
+    if not (isinstance(e, RuntimeError)
+            and "never appeared in control get_nodes" in str(e)):
+        raise
+    traceback.print_exc()
+    sys.exit(CLUSTER_START_FAILED)
 try:
     result = JaxTrainer(
         loop, train_loop_config={"params": sys.argv[1], "out": sys.argv[2]},
@@ -874,11 +896,27 @@ def _ref_env():
                           "intra_op_parallelism_threads=1")
 
 
+# the oracle's exit code when the reference's raylet missed its
+# registration wait (no training ran); the fixture then starts the oracle
+# again, at most
+# ORACLE_CLUSTER_ATTEMPTS times in all
+ORACLE_CLUSTER_START_FAILED = 75
+ORACLE_CLUSTER_ATTEMPTS = 3
+
+
 @pytest.fixture(scope="module")
 def oracle(tmp_path_factory):
     """The reference's JaxTrainer in a subprocess (started first, so it
     runs while the port's trainer does), the params it started from, and
-    a join() for its result."""
+    a join() for its result.
+
+    Under load the reference's raylet can miss its cluster's fixed 30 s
+    registration wait (``ray_tpu/_private/bootstrap.py``), before any
+    training: the oracle then exits with ``ORACLE_CLUSTER_START_FAILED``
+    and join() starts it again, by then alone beside the finished port
+    run.  Any other failure, of the cluster's start, of the run or of its
+    result, fails at once;
+    every attempt's exit code and stderr are in the assertion message."""
     d = tmp_path_factory.mktemp("oracle")
     init = d / "init.npz"
     flat = _ref_init_params()
@@ -887,26 +925,44 @@ def oracle(tmp_path_factory):
     for k in ("RAY_TPU_ADDRESS", "RAY_TPU_COLLECTIVE_COMPRESSION"):
         env.pop(k, None)
     o = ORACLE
-    proc = subprocess.Popen(
-        [sys.executable, "-c", _REF_TRAIN, str(init), str(d / "ref.npz"),
-         str(o["batch"]), str(o["seq"]), str(o["seed"]), str(o["steps"]),
-         str(o["lr"])],
-        cwd="/", env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True)
+
+    def start():
+        return subprocess.Popen(
+            [sys.executable, "-c", _REF_TRAIN, str(init),
+             str(d / "ref.npz"), str(o["batch"]), str(o["seq"]),
+             str(o["seed"]), str(o["steps"]), str(o["lr"]),
+             str(ORACLE_CLUSTER_START_FAILED)],
+            cwd="/", env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+
+    procs = [start()]
+    attempts = []
 
     def join():
-        try:
-            out, err = proc.communicate(timeout=300)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            out, err = proc.communicate()
-        assert proc.returncode == 0, err[-3000:]
+        while True:
+            proc = procs[-1]
+            try:
+                out, err = proc.communicate(timeout=300)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out, err = proc.communicate()
+            attempts.append((proc.returncode, err[-3000:]))
+            if proc.returncode != ORACLE_CLUSTER_START_FAILED \
+                    or len(attempts) >= ORACLE_CLUSTER_ATTEMPTS:
+                break
+            procs.append(start())
+        report = "\n".join(
+            f"-- oracle attempt {i + 1}: rc={rc}\n{err}"
+            for i, (rc, err) in enumerate(attempts))
+        assert procs[-1].returncode == 0, report
         return dict(np.load(d / "ref.npz"))
 
-    yield {"init": init, "dir": d, "join": join, "flat": flat}
-    if proc.poll() is None:
-        proc.kill()
-        proc.communicate()
+    yield {"init": init, "dir": d, "join": join, "flat": flat,
+           "attempts": attempts}
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
 
 
 def _ref_init_params():
